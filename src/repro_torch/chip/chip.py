@@ -1,0 +1,177 @@
+"""``ChipSim`` — the workload-agnostic chip engine, on one CUDA device.
+
+A virtual SpiNNaker2 chip: a W x H QPE mesh of PEs running a compiled
+``ChipProgram`` tick by tick.  The program's ``TickSemantics`` advances
+all PEs as batched axes of the same tensors and reports per-PE activity;
+the engine adds the NoC: each source's packet count hits its multicast
+tree incidence — the dense product over the (P, n_links) tensor, or the
+segmented sum over the CSC entries (``kernels/link_load``) — giving
+per-link loads in packets and DNoC flits, plus NoC energy.  ``noc_mode``
+"auto" picks the representation from the incidence shape as the
+reference does; both agree bitwise on integer packet counts.
+
+``run`` is a Python loop over host integer ticks that writes into
+(T, ...) record tensors on the device: no host synchronisation and no
+data-dependent branch inside the loop.
+
+``chip_power_table`` gives the per-PE Table III split, chip totals, NoC
+power and the peak-link-load bottleneck check.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.chip.compile import ChipProgram
+from repro_torch.chip.mesh_noc import (DENSE_DENSITY, MAX_SPARSE_COLS,
+                                       MIN_SPARSE_LINKS, MeshNoc,
+                                       SPIKE_PACKET_BITS)
+from repro_torch.core.dvfs import DVFSController
+from repro_torch.core.energy import PEEnergyModel
+from repro_torch.core.snn import run_ticks, synfire_power_table
+
+
+@dataclass
+class ChipSim:
+    """A compiled workload program on a full PE mesh, on ``device`` (the
+    CUDA device unless the caller asks for the CPU).
+
+    ``noc_mode``: "auto" picks sparse vs dense NoC accounting from the
+    incidence (mesh size, density, per-link fan-in); "sparse"/"dense"
+    force it.  ``exec_mode``: only "dense" is ported; the reference's
+    activity-compressed "event" mode (and "auto", which may pick it) is
+    not ported yet and raises.
+    """
+    program: ChipProgram
+    dvfs: Optional[DVFSController] = None
+    em: PEEnergyModel = field(default_factory=PEEnergyModel)
+    noc_mode: str = "auto"
+    exec_mode: str = "dense"
+    device: object = None
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        if self.exec_mode != "dense":
+            raise NotImplementedError(
+                f"exec_mode={self.exec_mode!r}: repro_torch runs the dense "
+                f"execution mode only; event mode is ROADMAP queue A item 6")
+        # float32 products count packets: keep them exact, never TF32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        if self.dvfs is None:
+            sem = self.program.graph.semantics
+            make = getattr(sem, "dvfs_controller", None)
+            self.dvfs = make() if make else DVFSController()
+
+    @property
+    def noc(self) -> MeshNoc:
+        return self.program.noc
+
+    def use_sparse_noc(self, noc_mode: str | None = None) -> bool:
+        """Resolve the accounting representation for this program."""
+        mode = noc_mode or self.noc_mode
+        if mode not in ("auto", "sparse", "dense"):
+            raise ValueError(f"unknown noc_mode {mode!r}")
+        if mode == "auto":
+            sinc = self.program.sinc
+            return (sinc.n_links >= MIN_SPARSE_LINKS
+                    and sinc.density <= DENSE_DENSITY
+                    and sinc.max_fan_in <= MAX_SPARSE_COLS)
+        return mode == "sparse"
+
+    def make_stepper(self, seed: int = 1, noc_mode: str | None = None,
+                     noise=None):
+        """``(init_state, step)`` where ``step(state, t) -> (state, rec)``
+        is the engine's full per-tick body: the semantics' tick, then the
+        NoC accounting.  ``noise`` is passed to the semantics (see
+        ``core.snn.make_synfire_tick``)."""
+        prog, noc, dev = self.program, self.noc, self.device
+        tick = prog.make_tick(dvfs=self.dvfs, em=self.em, seed=seed,
+                              noise=noise, device=dev)
+        init = prog.init_state(dev)
+        sparse = self.use_sparse_noc(noc_mode)
+        if sparse:
+            plan = noc.device_plan(prog.sinc, dev)
+        else:
+            inc = torch.as_tensor(prog.inc, device=dev)
+        n_src = prog.sinc.n_sources
+        tier_masks = {tier: torch.as_tensor(m, device=dev)
+                      for tier, m in noc.tier_masks().items()
+                      if np.asarray(m).any()}
+        tree_links = torch.as_tensor(prog.tree_links, dtype=torch.float32,
+                                     device=dev)
+        pb = torch.as_tensor(prog.payload_bits, device=dev)
+
+        def chip_tick(state, t: int):
+            state, rec = tick(state, t)
+            packets = rec["packets"].to(torch.float32)        # (P,)
+            if sparse:
+                rec["link_load"], rec["link_flits"] = noc.noc_loads(
+                    packets, plan, pb)
+            else:
+                rec["link_load"] = noc.link_loads(packets, inc)
+                rec["link_flits"] = noc.flit_loads(packets, inc, pb)
+            rec["e_noc"] = noc.traffic_energy_j(packets, tree_links, pb)
+            active = (rec["packets"] > 0).sum(-1, dtype=torch.int32)
+            rec["active_sources"] = active
+            rec["active_frac"] = active.to(torch.float32) / max(n_src, 1)
+            hit = (rec["link_load"] > 0).to(torch.float32)
+            rec["touched_links"] = hit.sum(-1)
+            for tier, m in tier_masks.items():
+                rec[f"touched_links_{tier}"] = hit @ m
+            return state, rec
+
+        return init, chip_tick
+
+    def run(self, n_ticks: int, seed: int = 1, noc_mode: str | None = None,
+            noise=None) -> dict:
+        """Per-tick records on the sim's device: everything the program's
+        semantics reports (spike rasters, PLs, Eq. (1) energies) plus
+
+        link_load  (T, n_links) — packets per link per tick
+        link_flits (T, n_links) — DNoC flits per link per tick
+        e_noc      (T,)         — NoC traffic energy per tick [J]
+        active_sources, active_frac (T,) — sources emitting >= 1 packet
+        touched_links, touched_links_onchip (T,) — links carrying traffic
+        """
+        init, chip_tick = self.make_stepper(seed=seed, noc_mode=noc_mode,
+                                            noise=noise)
+        return run_ticks(chip_tick, init, n_ticks)
+
+
+def chip_power_table(sim: ChipSim, recs: dict,
+                     t_sys_s: float = 1e-3) -> dict:
+    """Chip-level Table III: ``per_pe`` (averaged over all PEs), ``chip``
+    (summed over the mesh) [mW], and ``noc``: average NoC power, peak
+    link load in packets and flits per tick, utilization against link
+    capacity, worst multicast hop depth."""
+    per_pe = synfire_power_table(recs, t_sys_s=t_sys_s)
+    P = sim.program.n_pes
+    chip = {mode: {k: v * P for k, v in per_pe[mode].items()}
+            for mode in ("dvfs", "pl3")}
+
+    loads = recs["link_load"].cpu().numpy()                 # (T, L)
+    flits = recs["link_flits"].cpu().numpy()
+    e_noc = recs["e_noc"].cpu().numpy()
+    peak = float(loads.max(axis=-1).max()) if loads.size else 0.0
+    peak_flits = float(flits.max(axis=-1).max()) if flits.size else 0.0
+    cap = sim.noc.link_capacity_packets(t_sys_s, SPIKE_PACKET_BITS)
+    cap_flits = t_sys_s * sim.noc.spec.freq_hz / sim.noc.spec.hop_cycles
+    noc = {
+        "power_mw": float(e_noc.mean() / t_sys_s * 1e3),
+        "peak_link_load": peak,
+        "mean_link_load": float(loads.mean()) if loads.size else 0.0,
+        "peak_link_flits": peak_flits,
+        "link_capacity": cap,                 # spike packets / tick
+        "link_capacity_flits": cap_flits,     # basis of peak_utilization
+        "peak_utilization": peak_flits / cap_flits,
+        "worst_tree_hops": sim.program.worst_tree_hops,
+        "worst_hop_latency_s": sim.noc.hop_latency_s(
+            sim.program.worst_tree_hops),
+        "n_links": sim.noc.n_links,
+    }
+    return {"per_pe": per_pe, "chip": chip, "noc": noc, "n_pes": P,
+            "mesh": (sim.program.mesh.width, sim.program.mesh.height)}

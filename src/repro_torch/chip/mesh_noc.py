@@ -1,0 +1,293 @@
+"""Mesh NoC traffic model (paper Sec. III-A/B at chip scale).
+
+The chip is a W x H mesh of QPEs (4 PEs each) joined by directed links.
+Spike delivery is multicast: the router duplicates a packet at branch
+points of its X/Y tree, so a tree's cost is its set of distinct links.
+
+* **setup** (numpy, as in the reference) — each source's X/Y multicast
+  tree is derived arithmetically from its destination coordinates and
+  stored as a CSR ``SparseIncidence`` of (link_ids, source_ptr).
+* **per tick** (torch, on the sim's device) — per-link loads are either
+  the dense product ``packets @ inc`` over the densified incidence
+  (small meshes), or the segmented sum over the link-major (CSC) entries
+  of ``kernels/link_load`` (board-scale meshes).  Both are exact on
+  integer-valued packet counts, so they agree bitwise.
+"""
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from repro_torch.core.noc import NocSpec
+from repro_torch.kernels.link_load.ops import link_loads_csc
+
+SPIKE_PACKET_BITS = 64        # header-only DNoC spike packet
+
+# ChipSim's auto-select of the accounting path (the reference's values):
+# dense above this incidence density, above MAX_SPARSE_COLS sources on one
+# link, or below MIN_SPARSE_LINKS links; sparse otherwise
+DENSE_DENSITY = 0.25
+MAX_SPARSE_COLS = 128
+MIN_SPARSE_LINKS = 128
+
+
+@dataclass(frozen=True)
+class MeshSpec:
+    """W x H QPE mesh; PEs number QPE-major (PE p lives in QPE p // 4)."""
+    width: int
+    height: int
+    pes_per_qpe: int = 4
+
+    @property
+    def n_qpes(self) -> int:
+        return self.width * self.height
+
+    @property
+    def n_pes(self) -> int:
+        return self.n_qpes * self.pes_per_qpe
+
+    def qpe_coord(self, q: int) -> tuple[int, int]:
+        return (q % self.width, q // self.width)
+
+    @staticmethod
+    def for_pes(n_pes: int, pes_per_qpe: int = 4) -> "MeshSpec":
+        """Smallest near-square mesh holding ``n_pes`` PEs."""
+        q = -(-n_pes // pes_per_qpe)
+        w = int(np.ceil(np.sqrt(q)))
+        h = -(-q // w)
+        return MeshSpec(w, h, pes_per_qpe)
+
+
+def _concat_ranges(starts: np.ndarray, lens: np.ndarray) -> np.ndarray:
+    """Concatenation of the integer ranges [starts[i], starts[i]+lens[i]),
+    without a Python loop."""
+    ends = np.cumsum(lens)
+    total = int(ends[-1]) if lens.size else 0
+    if total == 0:
+        return np.empty(0, np.int64)
+    return np.repeat(starts, lens) + np.arange(total) - np.repeat(
+        ends - lens, lens)
+
+
+@dataclass
+class SparseIncidence:
+    """CSR multicast-tree incidence: source p's tree is the distinct link
+    ids ``link_ids[source_ptr[p]:source_ptr[p+1]]``; ``tree_hops[p]`` is
+    the worst hop depth of that tree.  Equivalent to the dense 0/1
+    ``(P, n_links)`` tensor (``dense()``)."""
+    link_ids: np.ndarray        # (nnz,) int32 — distinct within a source
+    source_ptr: np.ndarray      # (P + 1,) int64 CSR row pointer
+    n_links: int
+    tree_hops: np.ndarray       # (P,) int32 worst-case hops per source
+
+    @property
+    def n_sources(self) -> int:
+        return len(self.source_ptr) - 1
+
+    @property
+    def nnz(self) -> int:
+        return len(self.link_ids)
+
+    @property
+    def density(self) -> float:
+        cells = self.n_sources * self.n_links
+        return self.nnz / cells if cells else 1.0
+
+    @functools.cached_property
+    def tree_links(self) -> np.ndarray:
+        """(P,) link count of each source's multicast tree."""
+        return np.diff(self.source_ptr).astype(np.int64)
+
+    @functools.cached_property
+    def src_of_entry(self) -> np.ndarray:
+        """(nnz,) source id of each CSR entry."""
+        return np.repeat(np.arange(self.n_sources, dtype=np.int32),
+                         self.tree_links)
+
+    @staticmethod
+    def from_rows(rows, n_links: int, tree_hops) -> "SparseIncidence":
+        """Assemble the CSR form from per-source link-id arrays."""
+        lens = np.array([r.size for r in rows], np.int64)
+        ptr = np.zeros(len(rows) + 1, np.int64)
+        np.cumsum(lens, out=ptr[1:])
+        ids = (np.concatenate(rows).astype(np.int32) if rows
+               else np.empty(0, np.int32))
+        return SparseIncidence(link_ids=ids, source_ptr=ptr,
+                               n_links=n_links,
+                               tree_hops=np.asarray(tree_hops, np.int32))
+
+    @functools.cached_property
+    def max_fan_in(self) -> int:
+        """Max sources sharing one link."""
+        return int(np.bincount(self.link_ids, minlength=1).max())
+
+    @functools.cached_property
+    def csc(self) -> tuple[np.ndarray, np.ndarray]:
+        """Link-major (CSC) view: (src_sorted, link_ptr) with entries
+        sorted by link id — the layout of ``kernels/link_load``."""
+        order = np.argsort(self.link_ids, kind="stable")
+        counts = np.bincount(self.link_ids, minlength=self.n_links)
+        link_ptr = np.zeros(self.n_links + 1, np.int64)
+        np.cumsum(counts, out=link_ptr[1:])
+        return self.src_of_entry[order], link_ptr
+
+    def dense(self) -> np.ndarray:
+        """Materialize the (P, n_links) 0/1 incidence tensor."""
+        m = np.zeros((self.n_sources, self.n_links), np.float32)
+        m[self.src_of_entry, self.link_ids] = 1.0
+        return m
+
+
+@dataclass
+class MeshNoc:
+    """Link enumeration + incidence construction + per-tick accounting.
+
+    The accounting methods take and return tensors on the caller's device
+    and hold no state."""
+    mesh: MeshSpec
+    spec: NocSpec = field(default_factory=NocSpec)
+
+    def __post_init__(self):
+        links = []
+        for y in range(self.mesh.height):
+            for x in range(self.mesh.width):
+                if x + 1 < self.mesh.width:
+                    links.append(((x, y), (x + 1, y)))
+                    links.append(((x + 1, y), (x, y)))
+                if y + 1 < self.mesh.height:
+                    links.append(((x, y), (x, y + 1)))
+                    links.append(((x, y + 1), (x, y)))
+        self.links = links
+        # arithmetic link-id tables, keyed by the link's lower endpoint
+        W, H = self.mesh.width, self.mesh.height
+        self._id_e = np.full((W, H), -1, np.int32)   # (x,y) -> (x+1,y)
+        self._id_w = np.full((W, H), -1, np.int32)   # (x+1,y) -> (x,y)
+        self._id_n = np.full((W, H), -1, np.int32)   # (x,y) -> (x,y+1)
+        self._id_s = np.full((W, H), -1, np.int32)   # (x,y+1) -> (x,y)
+        for i, ((x0, y0), (x1, y1)) in enumerate(links):
+            if x1 == x0 + 1:
+                self._id_e[x0, y0] = i
+            elif x1 == x0 - 1:
+                self._id_w[x1, y1] = i
+            elif y1 == y0 + 1:
+                self._id_n[x0, y0] = i
+            else:
+                self._id_s[x0, y1] = i
+
+    @property
+    def n_links(self) -> int:
+        return len(self.links)
+
+    def tree_link_ids(self, src, dst_xy: np.ndarray) -> np.ndarray:
+        """Distinct link ids of the X-first multicast tree src -> dst
+        coords: one X trunk through the source row plus one Y run per
+        destination column."""
+        d = np.asarray(dst_xy, np.int64).reshape(-1, 2)
+        if not d.size:
+            return np.empty(0, np.int32)
+        sx, sy = int(src[0]), int(src[1])
+        dx, dy = d[:, 0], d[:, 1]
+        parts = []
+        xmax, xmin = int(dx.max()), int(dx.min())
+        if xmax > sx:
+            parts.append(self._id_e[sx:xmax, sy])
+        if xmin < sx:
+            parts.append(self._id_w[xmin:sx, sy])
+        up = dy > sy
+        if up.any():
+            top = np.full(self.mesh.width, sy, np.int64)
+            np.maximum.at(top, dx[up], dy[up])
+            cols = np.flatnonzero(top > sy)
+            lens = top[cols] - sy
+            ys = _concat_ranges(np.full(cols.size, sy, np.int64), lens)
+            parts.append(self._id_n[np.repeat(cols, lens), ys])
+        dn = dy < sy
+        if dn.any():
+            bot = np.full(self.mesh.width, sy, np.int64)
+            np.minimum.at(bot, dx[dn], dy[dn])
+            cols = np.flatnonzero(bot < sy)
+            lens = sy - bot[cols]
+            ys = _concat_ranges(bot[cols], lens)
+            parts.append(self._id_s[np.repeat(cols, lens), ys])
+        if not parts:
+            return np.empty(0, np.int32)
+        return np.concatenate(parts).astype(np.int32)
+
+    def sparse_incidence(self, src_coords, dst_coord_lists
+                         ) -> SparseIncidence:
+        """CSR incidence + per-source tree hop depths in one pass."""
+        src = np.asarray(src_coords, np.int64).reshape(-1, 2)
+        rows = []
+        hops = np.zeros(len(src), np.int32)
+        for i, (s, d) in enumerate(zip(src, dst_coord_lists)):
+            d = np.asarray(d, np.int64).reshape(-1, 2)
+            rows.append(self.tree_link_ids(s, d))
+            if d.size:
+                hops[i] = int(np.abs(d - s).sum(axis=1).max())
+        return SparseIncidence.from_rows(rows, self.n_links, hops)
+
+    def device_plan(self, sinc: SparseIncidence, device) -> tuple:
+        """The CSC layout on ``device``: (src_sorted int32, link_ptr
+        int64).  Build once per run, outside the tick loop."""
+        src_sorted, link_ptr = sinc.csc
+        return (torch.as_tensor(src_sorted.astype(np.int32), device=device),
+                torch.as_tensor(link_ptr, device=device))
+
+    def noc_loads(self, packets, plan, payload_bits):
+        """One tick's (link_loads, flit_loads) through the CSC plan: both
+        rows in one kernel launch."""
+        src_sorted, link_ptr = plan
+        pk = packets.to(torch.float32)
+        w = torch.stack([pk, pk * self.packet_flits(payload_bits)])
+        both = link_loads_csc(w, src_sorted, link_ptr, n_links=self.n_links)
+        return both[0], both[1]
+
+    def link_loads(self, packets, inc) -> torch.Tensor:
+        """packets: (..., n_sources) per-source counts; inc: (n_sources,
+        n_links) float32.  Returns (..., n_links) loads."""
+        return packets.to(torch.float32) @ inc
+
+    def flit_loads(self, packets, inc, payload_bits) -> torch.Tensor:
+        """Per-link flit traffic: each source's packets weighted by its
+        packet's flit count before hitting the incidence tensor."""
+        w = packets.to(torch.float32) * self.packet_flits(payload_bits)
+        return w @ inc
+
+    def packet_flits(self, payload_bits) -> torch.Tensor:
+        """Flits per packet given per-source payload bits (0 = header-only
+        spike packet = 1 flit; graded = ceil(bits / 128) flits)."""
+        pb = payload_bits
+        return torch.where(pb > 0, -(-pb // self.spec.payload_bits), 1)
+
+    def packet_bits(self, payload_bits) -> torch.Tensor:
+        """Bits on the wire per link traversal of one packet: 64 b for a
+        spike packet, ceil(bits/128) flits of 192 b for graded payloads."""
+        pb = payload_bits
+        return torch.where(pb > 0,
+                           self.packet_flits(pb) * self.spec.flit_bits,
+                           SPIKE_PACKET_BITS)
+
+    def traffic_energy_j(self, packets, tree_links, payload_bits):
+        """Energy of one tick's multicast traffic, packet-class aware:
+        packets (..., P), tree_links (P,) float32, payload_bits (P,)."""
+        bits = (packets.to(torch.float32) * tree_links
+                * self.packet_bits(payload_bits))
+        return bits.sum(-1) * self.spec.pj_per_bit_hop * 1e-12
+
+    def tier_masks(self) -> dict:
+        """Named 0/1 masks over the link-id space, one per link tier; a
+        single-chip NoC has one tier."""
+        return {"onchip": np.ones(self.n_links, np.float32)}
+
+    def link_capacity_packets(self, t_window_s: float,
+                              packet_bits: int = SPIKE_PACKET_BITS) -> float:
+        """Packets one link can carry in ``t_window_s`` at the NoC clock."""
+        flits = -(-packet_bits // self.spec.payload_bits)
+        cycles_per_packet = self.spec.hop_cycles * flits
+        return t_window_s * self.spec.freq_hz / cycles_per_packet
+
+    def hop_latency_s(self, n_hops) -> float:
+        return n_hops * self.spec.hop_cycles / self.spec.freq_hz

@@ -1,0 +1,25 @@
+"""Hand-written CUDA kernels (``csrc/``) behind device-dispatching
+wrappers, each beside its plain PyTorch version (``<name>/ref.py``).
+
+Every wrapper counts its kernel launches in a plain integer attribute
+``launches``; ``launch_counts``/``reset_launch_counts`` read and zero all
+of them, so a run can show that it went through the kernels.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels.explog.ops import fx_exp
+from repro_torch.kernels.lif.ops import lif_step
+from repro_torch.kernels.link_load.ops import link_loads_csc
+from repro_torch.kernels.syn_accum.ops import syn_accum
+
+WRAPPERS = {"fx_exp": fx_exp, "lif_step": lif_step,
+            "link_loads_csc": link_loads_csc, "syn_accum": syn_accum}
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0

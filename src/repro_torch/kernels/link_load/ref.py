@@ -1,0 +1,31 @@
+"""Plain PyTorch version of the sparse per-link NoC load accumulation.
+
+One tick of NoC accounting over a multicast-tree incidence: every entry
+(source p uses link l) adds source p's weight to link l's load,
+
+    loads[l] = sum_{e : link_ids[e] == l}  weights[src_of_entry[e]]
+
+a gather followed by ``index_add_``.  On integer-valued weights (packet
+or flit counts below 2**24 per link) float32 accumulation is exact in any
+order, so this agrees bitwise with the dense product ``weights @ inc``.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def link_loads_ref(weights, link_ids, src_of_entry, n_links: int):
+    """weights: (..., P) per-source counts; link_ids/src_of_entry: (nnz,)
+    entry arrays.  Returns (..., n_links) float32 per-link loads."""
+    w = weights.to(torch.float32).index_select(-1, src_of_entry.long())
+    out = torch.zeros(weights.shape[:-1] + (n_links,), dtype=torch.float32,
+                      device=weights.device)
+    return out.index_add_(-1, link_ids.long(), w)
+
+
+def link_loads_csc_ref(weights, src_sorted, link_ptr, n_links: int):
+    """The same over the link-major (CSC) layout: entries sorted by link,
+    link l owning entries [link_ptr[l], link_ptr[l+1])."""
+    link_ids = torch.repeat_interleave(
+        torch.arange(n_links, device=weights.device), torch.diff(link_ptr))
+    return link_loads_ref(weights, link_ids, src_sorted, n_links)

@@ -1,0 +1,112 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``gpu``: every test needs a CUDA device and skips without one.
+Run them on a machine with the card:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+
+No JAX here: the card machine runs the port alone.  Each kernel is
+held bitwise against the plain PyTorch version on the same inputs.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.chip import ChipSim, compile
+from repro_torch.chip.workloads import synfire_graph
+from repro_torch.kernels import (fx_exp, launch_counts, lif_step,
+                                 link_loads_csc, reset_launch_counts,
+                                 syn_accum)
+from repro_torch.kernels.explog.ref import fx_exp_ref
+from repro_torch.kernels.lif.ref import lif_step_ref
+from repro_torch.kernels.link_load.ref import link_loads_csc_ref
+from repro_torch.kernels.syn_accum.ref import syn_accum_ref
+
+pytestmark = pytest.mark.gpu
+I32 = np.iinfo(np.int32)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _ints(rng, shape, lo=I32.min, hi=I32.max):
+    return torch.from_numpy(rng.integers(lo, hi, shape, np.int64,
+                                         endpoint=True).astype(np.int32))
+
+
+def test_fx_exp_kernel(cuda):
+    rng = np.random.default_rng(0)
+    x = torch.cat([_ints(rng, 1 << 20), _ints(rng, 1 << 16, -16 << 15,
+                                              16 << 15)])
+    before = fx_exp.launches
+    got = fx_exp(x.to(cuda))
+    torch.cuda.synchronize()
+    assert fx_exp.launches == before + 1
+    assert torch.equal(got.cpu(), fx_exp_ref(x))
+
+
+@pytest.mark.parametrize("v_min", [None, -(1 << 15)])
+def test_lif_kernel(cuda, v_min):
+    rng = np.random.default_rng(1)
+    n = 1 << 20
+    v, i_syn = _ints(rng, n), _ints(rng, n, -(2 << 15), 2 << 15)
+    ref = _ints(rng, n, -3, 3)
+    kw = dict(alpha=29650, v_th=1 << 15, v_reset=0, ref_ticks=2,
+              v_min=v_min)
+    got = lif_step(v.to(cuda), ref.to(cuda), i_syn.to(cuda), **kw)
+    for g, w in zip(got, lif_step_ref(v, ref, i_syn, **kw)):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_link_load_kernel(cuda):
+    rng = np.random.default_rng(2)
+    n_src, n_links = 4096, 3968
+    link_ids = rng.integers(0, n_links, 20000).astype(np.int32)
+    order = np.argsort(link_ids, kind="stable")
+    src = rng.integers(0, n_src, 20000).astype(np.int32)[order]
+    ptr = np.zeros(n_links + 1, np.int64)
+    np.cumsum(np.bincount(link_ids, minlength=n_links), out=ptr[1:])
+    w = torch.from_numpy(rng.integers(0, 200, (2, n_src)).astype(np.float32))
+    args = (torch.from_numpy(src), torch.from_numpy(ptr))
+    got = link_loads_csc(w.to(cuda), *(a.to(cuda) for a in args),
+                         n_links=n_links)
+    assert torch.equal(got.cpu(), link_loads_csc_ref(w, *args, n_links))
+
+
+def test_syn_accum_kernel(cuda):
+    rng = np.random.default_rng(3)
+    P, NE, NI, N = 512, 200, 50, 250
+    exc, inh = _ints(rng, (P, 7)), _ints(rng, (P, 2))
+    exc[::3], inh[::3] = 0, 0
+    w_ff, w_inh = _ints(rng, (P, NE, N)), _ints(rng, (P, NI, NE))
+    got = syn_accum(*(t.to(cuda) for t in (exc, inh, w_ff, w_inh)))
+    assert torch.equal(got.cpu(), syn_accum_ref(exc, inh, w_ff, w_inh))
+
+
+def test_wrapper_rejects_non_contiguous(cuda):
+    x = torch.zeros(64, dtype=torch.int32, device=cuda)[::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        fx_exp(x)
+
+
+def test_card_run_matches_cpu_run(cuda):
+    """64-PE shot-noise ring, sparse NoC: the card's records equal the
+    CPU's (plain versions) bit for bit, through every kernel."""
+    graph = synfire_graph(64, noise_model="shot", device="cpu")
+    prog = compile(graph)
+    reset_launch_counts()
+    got = ChipSim(prog, noc_mode="sparse", device=cuda).run(100)
+    counts = launch_counts()
+    want = ChipSim(prog, noc_mode="sparse", device="cpu").run(100)
+    assert counts["syn_accum"] == counts["lif_step"] == 100
+    assert counts["link_loads_csc"] == 100
+    for k, w in want.items():
+        g = got[k].cpu()
+        if w.is_floating_point() and k.startswith("e_"):
+            torch.testing.assert_close(g, w, rtol=1e-6, atol=0)
+        else:
+            assert torch.equal(g, w), k

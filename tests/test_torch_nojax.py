@@ -1,0 +1,45 @@
+"""The port stands alone: it imports neither JAX nor the reference."""
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+
+
+def _port_modules():
+    return sorted(".".join(p.relative_to(ROOT / "src").with_suffix("")
+                           .parts).removesuffix(".__init__")
+                  for p in PKG.rglob("*.py"))
+
+
+def test_port_imports_without_jax():
+    """Every repro_torch module and chip_smoke import with ``jax``
+    blocked in ``sys.modules`` (chip_smoke is imported, not run)."""
+    code = "\n".join([
+        "import sys",
+        "sys.modules['jax'] = None",
+        f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]",
+        "import importlib",
+        f"for m in {_port_modules()!r}:",
+        "    importlib.import_module(m)",
+        "import chip_smoke",
+        "assert not any(m == 'repro' or m.startswith(('repro.', 'jax'))",
+        "               for m in sys.modules if sys.modules[m] is not None)",
+        "print('ok')",
+    ])
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+    assert len(_port_modules()) >= 16
+
+
+def test_port_sources_do_not_name_the_reference():
+    pattern = re.compile(r"^\s*(import\s+(repro|jax)\b(?!_torch)"
+                         r"|from\s+(repro|jax)(\.|\s))", re.M)
+    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    hits = [f"{p}: {m.group(0).strip()}" for p in files
+            for m in pattern.finditer(p.read_text())]
+    assert not hits, hits

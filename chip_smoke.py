@@ -4,45 +4,68 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` with nvcc,
-drives the main path (``synfire_graph`` -> ``compile`` -> ``ChipSim.run``
--> ``chip_power_table``) through the entry points a user calls, and
-checks what comes out:
+drives the port's paths through the entry points a user calls (the
+synfire main path ``synfire_graph`` -> ``compile`` -> ``ChipSim.run`` ->
+``chip_power_table`` in dense and event mode, the hybrid channel and
+farm, the DNN pipeline), and checks what comes out:
 
 1. device   — card name and count, torch/CUDA versions, nvidia-smi.
 2. build    — nvcc build of every kernel, its wall time and registers.
 3. paper    — the 8-PE test chip (Gaussian noise, dense NoC), 1200 ticks:
               80-tick wave on every PE and the Table III bands.
 4. board    — the 4096-PE ring at the uncut Table II widths (shot noise,
-              sparse NoC), 300 ticks: PE p first fires > 100 spikes at
-              tick 10 p.
+              sparse NoC), exec_mode="dense", 300 ticks: PE p first
+              fires > 100 spikes at tick 10 p.
    profile  — the same ring again for its steady tick time, and 20
               ticks under torch.profiler: device busy time per tick, the
               device's idle share, the kernels that take the time, and
               each hand kernel's device time per launch inside the tick.
-5. kernels  — each kernel against its plain PyTorch version, bitwise, on
-              the card at the main path's shapes (the 4096-PE ring's
-              weights and incidence).  ``ms`` is the kernel's own device
-              time per launch (torch.profiler) with the L2 cache flushed
-              before every launch, as a tick reads its inputs cold;
-              ``warm_ms`` is the same back to back, with the inputs left
-              in L2; ``call_ms`` is one wrapper call back to back (CUDA
-              events, host included); the plain version and one PyTorch
-              library call (where there is one) are timed with L2
-              flushed; ``bound_ms`` is the least time the card could
-              take.  ``main_path_ms`` is the device time per launch in
-              the profiled ticks, beside the bound of those ticks' data.
-6. parity   — the 256-PE shot-noise ring on the card and on the CPU:
-              integer records bitwise, float energies at rtol=1e-6.
+5. event    — the same ring under exec_mode="auto", which resolves to
+              event mode: every record equal to the dense run's
+              (energies at rtol=1e-6), event_link_loads launched every
+              tick, steady µs/tick beside the dense one, and a profile of
+              the event tick; then the 32-PE shot net with src_cap 4 and
+              2 (overflow ticks), event == dense bitwise.
+6. hybrid   — hybrid_workload at the reference's widths (256 neurons,
+              hidden 64, 600 ticks) on the card and on the CPU: integer
+              records bitwise, xhat/hidden_out at rtol=1e-5, energies at
+              rtol=1e-6, rmse inside the reference's band (< 0.25); its
+              steady tick and a profile.
+7. farm     — hybrid_farm_graph(n_pairs=2048), 4096 PEs, 256 ticks,
+              exec_mode="auto" (event) against "dense": every record
+              bitwise, graded payload bits conserved, µs/tick of both
+              and a profile of the event tick.
+8. dnn      — tiled_dnn_workload on the card and on the CPU: 4 frames
+              out, the same latency and records.
+9. kernels  — each kernel against its plain PyTorch version, bitwise, on
+              the card at its path's shapes (the 4096-PE ring's weights
+              and incidence, the farm's padded rows, the hybrid encode's
+              operands, plus an int8 4096^3 and the Fig. 15 uint8 GEMM).
+              ``ms`` is the kernel's own device time per launch
+              (torch.profiler) with the L2 cache flushed before every
+              launch, as a tick reads its inputs cold; ``warm_ms`` is
+              the same back to back, with the inputs left in L2;
+              ``call_ms`` is one wrapper call back to back (CUDA events,
+              host included); the plain version and one PyTorch library
+              call (where there is one) are timed with L2 flushed;
+              ``bound_ms`` is the least time the card could take.
+              ``main_path_ms`` is the device time per launch in the
+              profiled ticks, beside the bound of those ticks' data.
+10. parity  — the 256-PE shot-noise ring on the card and on the CPU
+              (the default exec_mode, event at this size): integer
+              records bitwise, float energies at rtol=1e-6.
 
-Launch counters are zeroed just before each main-path run (phases 3 and
-4) and read just after; a kernel of that path that never launched fails
-the run.  Every phase prints one JSON line; any failed check raises.  The
-last lines are the card's nvidia-smi name and power limit, the kernels
-line and ``{"ok": true, "device": {...}}``.  Exits non-zero without a
-result when no CUDA device is present.
+Launch counters are zeroed just before each path's run (phases 3-8; the
+graph's build is part of the path, except in phase 5, which reuses phase
+4's net) and read just after; a kernel of that path that never launched
+fails the run.  Every phase prints one JSON line; any failed check
+raises.  The last lines are the card's nvidia-smi name and power limit,
+the kernels line and ``{"ok": true, "device": {...}}``.  Exits non-zero
+without a result when no CUDA device is present.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -58,31 +81,50 @@ import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from repro_torch.chip import ChipSim, chip_power_table, compile  # noqa: E402
-from repro_torch.chip.workloads import synfire_graph  # noqa: E402
-from repro_torch.kernels import (_build, fx_exp, launch_counts,  # noqa: E402
-                                 lif_step, link_loads_csc,
+from repro_torch.chip.workloads import (hybrid_farm_graph,  # noqa: E402
+                                        hybrid_workload, synfire_graph,
+                                        tiled_dnn_workload)
+from repro_torch.configs import paper  # noqa: E402
+from repro_torch.core import snn  # noqa: E402
+from repro_torch.core.dvfs import DVFSController  # noqa: E402
+from repro_torch.core.energy import PEEnergyModel  # noqa: E402
+from repro_torch.core.quant import quantize_per_axis  # noqa: E402
+from repro_torch.kernels import (_build, event_link_loads,  # noqa: E402
+                                 fx_exp, launch_counts, lif_step,
+                                 link_loads_csc, mac_gemm,
                                  reset_launch_counts, syn_accum)
+from repro_torch.kernels.event_gather.ref import (  # noqa: E402
+    event_link_loads_ref)
 from repro_torch.kernels.explog.ops import to_fx  # noqa: E402
 from repro_torch.kernels.explog.ref import fx_exp_ref  # noqa: E402
 from repro_torch.kernels.lif.ref import lif_step_ref  # noqa: E402
 from repro_torch.kernels.link_load.ref import link_loads_csc_ref  # noqa: E402
+from repro_torch.kernels.mac_gemm.ref import mac_gemm_ref  # noqa: E402
 from repro_torch.kernels.syn_accum.ref import (pack_spikes,  # noqa: E402
                                                popcount_words,
                                                spike_words, syn_accum_ref)
 
-# H100 SXM published peaks (NVIDIA datasheet): HBM bandwidth and
-# the float32 rate outside the tensor cores, used for int32 adds as well
+# H100 SXM published peaks (NVIDIA datasheet): HBM bandwidth, the
+# float32 rate outside the tensor cores (used for int32 adds as well) and
+# the dense int8 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 CUDA_CORE_OPS_PER_S = 67e12
+INT8_TENSOR_OPS_PER_S = 1979e12
 
 PAPER_TICKS, BOARD_PES, BOARD_TICKS = 1200, 4096, 300
 PARITY_PES, PARITY_TICKS = 256, 100
 PROFILE_WARM, PROFILE_TICKS = 5, 20
+HYBRID_TICKS, HYBRID_RMSE_MAX = 600, 0.25   # band of tests/test_nef_hybrid.py
+FARM_PAIRS, FARM_TICKS = 2048, 256
+GEMM_SAMPLE = 4096              # the int8 GEMM sample: 4096^3
+FLOAT_RTOL, FLOAT_ATOL, ENERGY_RTOL = 1e-5, 1e-6, 1e-6
 L2_FLUSH_BYTES = 256 << 20      # five times the H100's 50 MB L2
 # device symbol of each wrapper's kernel (csrc/*.cu)
 KERNEL_SYMBOLS = {"lif_step": "lif_step_kernel", "fx_exp": "fx_exp_kernel",
                   "link_loads_csc": "link_loads_csc_kernel",
-                  "syn_accum": "syn_accum_kernel"}
+                  "syn_accum": "syn_accum_kernel",
+                  "event_link_loads": "event_link_loads_kernel",
+                  "mac_gemm": "mac_gemm_kernel"}
 
 
 def emit(phase: str, **fields) -> None:
@@ -169,16 +211,47 @@ def kernel_device_ms(name: str, fn, iters: int = 20, flush=None):
     return per_launch_ms(device_kernels(call, iters)[0], name)[1]
 
 
-def bound_ms(n_bytes: float, n_ops: float = 0.0) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_ops: float = 0.0,
+             ops_per_s: float = CUDA_CORE_OPS_PER_S) -> tuple[float, str]:
     """Least time for the work: bytes over HBM bandwidth or operations
-    over the CUDA-core rate, whichever is larger."""
+    over the rate of their type (default the CUDA-core rate), whichever
+    is larger."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / CUDA_CORE_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+def compare_records(got: dict, want: dict, what: str, close=()) -> float:
+    """Hold two runs' records against each other: energies (``e_*``) at
+    rtol=1e-6, the ``close`` float keys at rtol=1e-5 (atol 1e-6), every
+    other record bitwise.  Returns the worst energy relative error."""
+    check(set(got) == set(want), f"{what}: record keys differ")
+    worst = 0.0
+    for k, w in want.items():
+        g, w = got[k].cpu(), w.cpu()
+        check(g.dtype == w.dtype and g.shape == w.shape,
+              f"{what}: {k} dtype/shape differ")
+        if k.startswith("e_"):
+            rel = float(((g.double() - w.double()).abs()
+                         / w.double().abs().clamp_min(1e-30)).max()) \
+                if g.numel() else 0.0
+            check(rel <= ENERGY_RTOL, f"{what}: {k} rel err {rel}")
+            worst = max(worst, rel)
+        elif k in close:
+            check(torch.allclose(g, w, rtol=FLOAT_RTOL, atol=FLOAT_ATOL),
+                  f"{what}: {k} outside rtol {FLOAT_RTOL}")
+        else:
+            check(torch.equal(g, w), f"{what}: {k} differs")
+    return worst
+
+
+def check_launched(counts: dict, names, what: str) -> None:
+    for name in names:
+        check(counts[name] > 0, f"{what}: {name} never launched")
 
 
 def first_strong_ticks(recs: dict, n_pes: int) -> list:
@@ -216,8 +289,7 @@ def phase_paper(dev) -> dict:
     torch.cuda.synchronize()
     counts = launch_counts()
     check(not sim.use_sparse_noc(), "8-PE chip must use the dense NoC")
-    for name in ("fx_exp", "syn_accum", "lif_step"):
-        check(counts[name] > 0, f"paper chip: {name} never launched")
+    check_launched(counts, ("fx_exp", "syn_accum", "lif_step"), "paper chip")
     spk = recs["spikes_exc"].sum(2).cpu().numpy()
     for p in range(8):
         strong = np.flatnonzero(spk[:, p] > 100)
@@ -248,7 +320,7 @@ def phase_board(dev) -> tuple:
     graph = synfire_graph(BOARD_PES, noise_model="shot", device=dev)
     t1 = time.perf_counter()
     prog = compile(graph)
-    sim = ChipSim(prog, device=dev)
+    sim = ChipSim(prog, exec_mode="dense", device=dev)
     t2 = time.perf_counter()
     recs = sim.run(BOARD_TICKS)
     torch.cuda.synchronize()
@@ -257,18 +329,18 @@ def phase_board(dev) -> tuple:
     check(sim.use_sparse_noc(), "4096-PE ring must use the sparse NoC")
     check(counts["link_loads_csc"] == BOARD_TICKS,
           f"link_load launched {counts['link_loads_csc']} times")
-    for name, n in counts.items():
-        check(n > 0, f"board ring: {name} never launched")
+    check_launched(counts, ("fx_exp", "syn_accum", "lif_step",
+                            "link_loads_csc"), "board ring")
     first = first_strong_ticks(recs, 25)
     check(all(abs(f - 10 * p) <= 1 for p, f in enumerate(first)),
           f"board ring wave: first strong ticks {first}")
     tab = chip_power_table(sim, recs)
-    del recs
     t4 = time.perf_counter()
     sim.run(BOARD_TICKS)
     torch.cuda.synchronize()
     steady_s = time.perf_counter() - t4
     emit("board_ring_4096pe", ticks=BOARD_TICKS, n_links=prog.noc.n_links,
+         exec_mode="dense",
          build_s=t1 - t0, compile_s=t2 - t1, run_s=t3 - t2,
          us_per_tick=(t3 - t2) / BOARD_TICKS * 1e6,
          us_per_tick_second_run=steady_s / BOARD_TICKS * 1e6,
@@ -276,17 +348,16 @@ def phase_board(dev) -> tuple:
          launches=counts, first_strong_ticks=first,
          per_pe_mw={m: tab["per_pe"][m]["total"] for m in ("dvfs", "pl3")},
          noc_peak_link_load=tab["noc"]["peak_link_load"])
-    return sim, prog, counts
+    return sim, prog, counts, recs, steady_s / BOARD_TICKS * 1e6
 
 
-def phase_tick_profile(sim) -> dict:
-    """Where a steady tick of the 4096-PE ring spends its device time.
-
-    Returns, per hand kernel the tick launches, its launches per tick and
-    device ms per launch there; for syn_accum also the mean exc and inh
-    spike bits it walked a tick, counted by replaying the profiled ticks
-    from a copy of the state (outside the profile: the tick is
-    deterministic)."""
+def profile_ticks(sim):
+    """Profile ``PROFILE_TICKS`` steady ticks of ``sim``'s stepper after
+    ``PROFILE_WARM`` unprofiled ones.  Returns (main, summary, saved,
+    step): per hand kernel the tick launches, its launches per tick and
+    device ms per launch; the window's device busy time, idle share,
+    launches and top kernels; the state before the window (for replays:
+    the tick is deterministic) and the stepper."""
     state, step = sim.make_stepper()
     for t in range(PROFILE_WARM):
         state, _ = step(state, t)
@@ -297,35 +368,63 @@ def phase_tick_profile(sim) -> dict:
         nonlocal state
         state, _ = step(state, next(ticks))
     kernels, wall_us = device_kernels(one_tick, PROFILE_TICKS)
-    # device_kernels runs tick PROFILE_WARM unprofiled, then profiles
-    state, bits = saved, torch.zeros(2, dtype=torch.int64, device=sim.device)
-    for t in range(PROFILE_WARM, PROFILE_WARM + 1 + PROFILE_TICKS):
-        if t > PROFILE_WARM:
-            for i, buf in enumerate((state["exc_buf"], state["inh_buf"])):
-                bits[i] += popcount_words(buf[t % buf.shape[0]]).sum()
-        state, _ = step(state, t)
     main = {}
     for name in KERNEL_SYMBOLS:
         n, ms = per_launch_ms(kernels, name)
         if n:
             main[name] = {"launches_per_tick": n / PROFILE_TICKS, "ms": ms}
-    main["syn_accum"]["bits"] = (bits.double() / PROFILE_TICKS).tolist()
     busy_us = sum(us for _, us in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:10]
-    emit("tick_profile_4096pe", ticks=PROFILE_TICKS, hand_kernels=main,
-         profiled_wall_us_per_tick=wall_us / PROFILE_TICKS,
-         device_busy_us_per_tick=busy_us / PROFILE_TICKS,
-         device_idle_share=1.0 - busy_us / wall_us,
-         kernel_launches_per_tick=sum(c for c, _ in kernels.values())
-         / PROFILE_TICKS,
-         top=[{"kernel": k[:90], "launches_per_tick": c / PROFILE_TICKS,
-               "us_per_tick": us / PROFILE_TICKS} for k, (c, us) in top])
+    summary = dict(
+        ticks=PROFILE_TICKS,
+        profiled_wall_us_per_tick=wall_us / PROFILE_TICKS,
+        device_busy_us_per_tick=busy_us / PROFILE_TICKS,
+        device_idle_share=1.0 - busy_us / wall_us,
+        kernel_launches_per_tick=sum(c for c, _ in kernels.values())
+        / PROFILE_TICKS,
+        top=[{"kernel": k[:90], "launches_per_tick": c / PROFILE_TICKS,
+              "us_per_tick": us / PROFILE_TICKS} for k, (c, us) in top])
+    return main, summary, saved, step
+
+
+# device_kernels runs tick PROFILE_WARM unprofiled, then profiles these
+PROFILED = range(PROFILE_WARM + 1, PROFILE_WARM + 1 + PROFILE_TICKS)
+
+
+def phase_tick_profile(sim, label: str) -> dict:
+    """Where a steady tick of the 4096-PE ring spends its device time.
+
+    Returns ``profile_ticks``' per-kernel dict; for syn_accum also the
+    mean exc and inh spike bits it walked a tick and, in event mode, the
+    mean active sources of event_link_loads, counted by replaying the
+    profiled ticks from the saved state, outside the profile."""
+    main, summary, state, step = profile_ticks(sim)
+    bits = torch.zeros(2, dtype=torch.int64, device=sim.device)
+    active = 0
+    for t in range(PROFILE_WARM, PROFILED.stop):
+        if t in PROFILED:
+            for i, buf in enumerate((state["exc_buf"], state["inh_buf"])):
+                bits[i] += popcount_words(buf[t % buf.shape[0]]).sum()
+        state, rec = step(state, t)
+        if t in PROFILED:
+            active += rec["active_sources"]
+    main["syn_accum"]["bits"] = (bits.double() / PROFILE_TICKS).tolist()
+    if "event_link_loads" in main:
+        main["event_link_loads"]["active_sources"] = \
+            float(active) / PROFILE_TICKS
+    emit(label, hand_kernels=main, **summary)
     return main
 
 
-def phase_kernels(dev, sim, prog, main: dict) -> list:
+def phase_kernels(dev, sim, prog, main: dict, main_event: dict,
+                  farm_rows: torch.Tensor, farm_links: int, farm_main: dict,
+                  encode_ops: tuple) -> list:
     """Each kernel against its plain version at the main path's shapes;
-    ``main`` is what ``phase_tick_profile`` measured inside the tick."""
+    ``main``/``main_event`` are what ``phase_tick_profile`` measured
+    inside the dense and the event tick of the 4096-PE ring;
+    ``farm_rows`` is the 4096-PE farm's padded incidence and
+    ``farm_main`` its profiled event ticks, ``encode_ops`` the hybrid
+    encode's int8 operands."""
     net = sim.program.graph.semantics.net.to(dev)
     P, NE, N = net.w_ff.shape
     NI = net.w_inh.shape[1]
@@ -341,13 +440,13 @@ def phase_kernels(dev, sim, prog, main: dict) -> list:
 
     def record(name, source, replaces, call, plain, got, want, nbytes, nops,
                iters, plain_iters, library=None, main_bound_ms=None,
-               **extra):
+               in_tick=None, ops_per_s=CUDA_CORE_OPS_PER_S, **extra):
         err = max_abs_err(got, want)
         check(torch.equal(got, want), f"{name}: kernel != plain version")
-        b_ms, b_by = bound_ms(nbytes, nops)
+        b_ms, b_by = bound_ms(nbytes, nops, ops_per_s)
         ms = (kernel_device_ms(name, call, flush=flush)
               or cuda_ms(call, iters, flush))
-        in_tick = main.get(name, {})
+        in_tick = main.get(name, {}) if in_tick is None else in_tick
         rows.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             max_abs_err=err, ms=ms, warm_ms=kernel_device_ms(name, call),
@@ -444,9 +543,258 @@ def phase_kernels(dev, sim, prog, main: dict) -> list:
            library=lambda: torch.bmm(arr, w_all),
            main_bound_ms=bound_ms(syn_bytes(tick_e, tick_i),
                                   tick_e * N + tick_i * NE)[0],
-           set_bits=n_e + n_i, pes=P, main_path_bits_per_tick=tick_e + tick_i)
+           set_bits=n_e + n_i, pes=P, main_path_bits_per_tick=tick_e + tick_i,
+           main_path_ms_event_tick=main_event["syn_accum"]["ms"])
     del w_all
+
+    # event-mode link loads over the 4096-PE farm's padded rows, every
+    # source active: one packet each, 1-4 flits (graded payloads)
+    Pf, Lr = farm_rows.shape
+    idx = torch.arange(Pf, dtype=torch.int32, device=dev)
+    w = torch.stack([torch.ones(Pf), torch.from_numpy(
+        gen.integers(1, 5, Pf).astype(np.float32))]).to(dev)
+    want = event_link_loads_ref(idx, w, farm_rows, farm_links)
+    ids = farm_rows.reshape(-1).long()
+    w_entry = w[:, :, None].expand(2, Pf, Lr).reshape(2, -1).contiguous()
+    acc = torch.zeros(2, farm_links + 1, device=dev)
+    check(torch.equal(acc.index_add(1, ids, w_entry)[:, :farm_links], want),
+          "event_link_loads: library call")
+    valid = int((farm_rows < farm_links).sum())
+
+    def ev_bytes(cap, active, slots, links):
+        """idx, then the weights and row of each active lane, then the
+        zeroed and accumulated (2, n_links) output."""
+        return cap * 4 + active * (slots * 4 + 2 * 4) + 2 * links * 4
+    farm_ev = farm_main["event_link_loads"]
+    act = farm_ev["active_sources"]
+    ring_ev = main_event["event_link_loads"]
+    record("event_link_loads", "src/repro_torch/csrc/event_gather.cu",
+           "src/repro/kernels/event_gather/event_gather.py:28",
+           lambda: event_link_loads(idx, w, farm_rows, n_links=farm_links),
+           lambda: event_link_loads_ref(idx, w, farm_rows, farm_links),
+           event_link_loads(idx, w, farm_rows, n_links=farm_links), want,
+           ev_bytes(Pf, Pf, Lr, farm_links), 2 * valid, 500, 50,
+           library=lambda: torch.zeros(2, farm_links + 1,
+                                       device=dev).index_add_(1, ids,
+                                                              w_entry),
+           main_bound_ms=bound_ms(ev_bytes(Pf, act, Lr, farm_links),
+                                  2 * act * Lr)[0],
+           in_tick=farm_ev, sources=Pf, tree_slots=Lr, entries=valid,
+           n_links=farm_links, main_path="4096-PE hybrid farm, event mode",
+           main_path_active_sources=act,
+           ring_in_tick_ms=ring_ev["ms"],
+           ring_active_sources=ring_ev["active_sources"])
+
+    # the int8 MAC GEMM at the hybrid encode's shape, then an int8
+    # 4096^3 product and the paper's Fig. 15 uint8 (64,128)x(128,64)
+    xq, enc_q = encode_ops
+    M, K = xq.shape
+    Nn = enc_q.shape[1]
+
+    def gemm_cost(m, k, n, nbytes=1):
+        return (m * k + k * n) * nbytes + m * n * 4, 2 * m * n * k
+
+    G = GEMM_SAMPLE
+    big_a = torch.from_numpy(gen.integers(-128, 128, (G, G),
+                                          np.int64)).to(torch.int8).to(dev)
+    big_b = torch.from_numpy(gen.integers(-128, 128, (G, G),
+                                          np.int64)).to(torch.int8).to(dev)
+    f15_a = torch.from_numpy(gen.integers(0, 256, (64, 128), np.int64)).to(
+        torch.uint8).to(dev)
+    f15_b = torch.from_numpy(gen.integers(0, 256, (128, 64), np.int64)).to(
+        torch.uint8).to(dev)
+    big_got, big_want = mac_gemm(big_a, big_b), mac_gemm_ref(big_a, big_b)
+    check(torch.equal(big_got, big_want), "mac_gemm: 4096^3 != plain")
+    big_b_cm = big_b.t().contiguous().t()   # column-major: cuBLASLt's "TN"
+    check(torch.equal(torch._int_mm(big_a, big_b_cm), big_want),
+          "mac_gemm: library call")
+    f15_got, f15_want = mac_gemm(f15_a, f15_b), mac_gemm_ref(f15_a, f15_b)
+    check(torch.equal(f15_got, f15_want), "mac_gemm: Fig. 15 != plain")
+    big_cost, f15_cost = gemm_cost(G, G, G), gemm_cost(64, 128, 64)
+    main_cost = gemm_cost(M, K, Nn)
+    record("mac_gemm", "src/repro_torch/csrc/mac_gemm.cu",
+           "src/repro/kernels/mac_gemm/mac_gemm.py:30",
+           lambda: mac_gemm(xq, enc_q), lambda: mac_gemm_ref(xq, enc_q),
+           mac_gemm(xq, enc_q), mac_gemm_ref(xq, enc_q), *main_cost, 500, 50,
+           ops_per_s=INT8_TENSOR_OPS_PER_S, in_tick={},
+           shape=[M, K, Nn], main_path="hybrid encode (once per build)",
+           max_abs_err_4096=max_abs_err(big_got, big_want),
+           ms_4096=kernel_device_ms("mac_gemm", lambda: mac_gemm(big_a, big_b),
+                                    iters=5, flush=flush),
+           warm_ms_4096=kernel_device_ms(
+               "mac_gemm", lambda: mac_gemm(big_a, big_b), iters=5),
+           plain_ms_4096=cuda_ms(lambda: mac_gemm_ref(big_a, big_b), 3, flush),
+           library_ms_4096=cuda_ms(lambda: torch._int_mm(big_a, big_b_cm),
+                                   10, flush),
+           bound_ms_4096=bound_ms(*big_cost, INT8_TENSOR_OPS_PER_S)[0],
+           bound_by_4096=bound_ms(*big_cost, INT8_TENSOR_OPS_PER_S)[1],
+           max_abs_err_fig15=max_abs_err(f15_got, f15_want),
+           ms_fig15=kernel_device_ms("mac_gemm",
+                                     lambda: mac_gemm(f15_a, f15_b),
+                                     flush=flush),
+           warm_ms_fig15=kernel_device_ms("mac_gemm",
+                                          lambda: mac_gemm(f15_a, f15_b)),
+           plain_ms_fig15=cuda_ms(lambda: mac_gemm_ref(f15_a, f15_b), 20,
+                                  flush),
+           bound_ms_fig15=bound_ms(*f15_cost, INT8_TENSOR_OPS_PER_S)[0])
     return rows
+
+
+def phase_event_ring(dev, prog, dense_recs: dict, dense_us: float):
+    """The 4096-PE ring of phase 4 under the default exec_mode ("auto",
+    which must resolve to event mode) against phase 4's dense run."""
+    sim = ChipSim(prog, device=dev)
+    check(sim.use_event_mode(), "4096-PE ring: auto must pick event mode")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    recs = sim.run(BOARD_TICKS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = launch_counts()
+    check(counts["event_link_loads"] == BOARD_TICKS,
+          f"event_link_loads launched {counts['event_link_loads']} times")
+    check(counts["syn_accum"] == counts["lif_step"] == BOARD_TICKS,
+          f"event ring launches {counts}")
+    check(counts["link_loads_csc"] == 0, "event ring ran the CSC kernel")
+    worst = compare_records(recs, dense_recs, "event vs dense ring")
+    del recs
+    t1 = time.perf_counter()
+    sim.run(BOARD_TICKS)
+    torch.cuda.synchronize()
+    steady_us = (time.perf_counter() - t1) / BOARD_TICKS * 1e6
+
+    # overflow: the 32-PE shot net whose input set outgrows a tiny buffer
+    fields = dict(n_pes=32, n_exc=16, n_inh=4, fan_in_exc=8, fan_in_inh=4,
+                  neurons_per_core=20, synapses_per_core=400, l_th1=2,
+                  l_th2=7)
+    sp = dataclasses.replace(paper.SYNFIRE, **fields)
+    net = snn.build_synfire(sp=sp, w_exc=0.25, noise_sigma=0.0,
+                            noise_model="shot", kicks_per_tick=3, device=dev)
+
+    def run(**ev):
+        tick = snn.make_synfire_tick(
+            net, dvfs=DVFSController(sp.l_th1, sp.l_th2),
+            em=PEEnergyModel(), seed=1, **ev)
+        return snn.run_ticks(tick, snn.synfire_init_state(net), 48)
+    dense = run()
+    for cap in (4, 2):
+        got = run(event=True, src_cap=cap)
+        for k in dense:
+            check(torch.equal(got[k], dense[k]),
+                  f"32-PE src_cap={cap}: {k} event != dense")
+    emit("event_ring_4096pe", ticks=BOARD_TICKS, exec_mode="event",
+         launches=counts, records_vs_dense="bitwise",
+         energy_max_rel_err=worst, run_s=run_s,
+         us_per_tick=run_s / BOARD_TICKS * 1e6,
+         us_per_tick_second_run=steady_us,
+         dense_us_per_tick_second_run=dense_us,
+         overflow_net_32pe="src_cap 4 and 2: event == dense bitwise")
+    return sim, counts
+
+
+def phase_hybrid(dev):
+    """The hybrid NEF -> event-MAC pipeline at the reference's widths."""
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    got = hybrid_workload(n_ticks=HYBRID_TICKS, device=dev)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = launch_counts()
+    check_launched(counts, ("fx_exp", "mac_gemm", "lif_step"), "hybrid")
+    check(counts["lif_step"] == HYBRID_TICKS, f"hybrid launches {counts}")
+    want = hybrid_workload(n_ticks=HYBRID_TICKS, device="cpu")
+    worst = compare_records(got["recs"], want["recs"], "hybrid card vs CPU",
+                            close=("xhat", "hidden_out"))
+    check(got["rmse"] < HYBRID_RMSE_MAX, f"hybrid rmse {got['rmse']}")
+    out, inn = got["graded_bits_out"], got["graded_bits_in"]
+    check(out.sum() > 0 and np.array_equal(out[:-1], inn[1:]),
+          "hybrid: graded payload not conserved")
+    t1 = time.perf_counter()
+    got["sim"].run(HYBRID_TICKS)
+    torch.cuda.synchronize()
+    steady_us = (time.perf_counter() - t1) / HYBRID_TICKS * 1e6
+    main, summary, _, _ = profile_ticks(got["sim"])
+    ens = got["sim"].program.graph.semantics.ens
+    x = got["x"]
+    xq, _ = quantize_per_axis(torch.as_tensor(x.astype(np.float32),
+                                              device=dev), axis=1)
+    emit("hybrid", ticks=HYBRID_TICKS, neurons=ens.n_neurons,
+         hidden=int(got["sim"].program.graph.semantics.wq.shape[1]),
+         launches=counts, rmse=got["rmse"], rmse_cpu=want["rmse"],
+         total_spikes=got["total_spikes"], records_vs_cpu="bitwise",
+         energy_max_rel_err=worst, build_run_report_s=run_s,
+         us_per_tick_second_run=steady_us,
+         event_vs_frame=got["event_vs_frame"], synops=got["synops"],
+         profile=dict(hand_kernels=main, **summary))
+    return counts, (xq, ens.enc_q)
+
+
+def phase_farm(dev):
+    """The board-scale hybrid farm: 2048 channels on 4096 PEs, event
+    mode (auto) against dense."""
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    graph = hybrid_farm_graph(FARM_PAIRS, device=dev)
+    prog = compile(graph)
+    sim = ChipSim(prog, device=dev)
+    t1 = time.perf_counter()
+    check(sim.use_event_mode(), "farm: auto must pick event mode")
+    recs = sim.run(FARM_TICKS)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = launch_counts()
+    check_launched(counts, ("fx_exp", "mac_gemm", "lif_step",
+                            "event_link_loads"), "farm")
+    check(counts["event_link_loads"] == FARM_TICKS, f"farm {counts}")
+    t3 = time.perf_counter()
+    dense = sim.run(FARM_TICKS, exec_mode="dense")
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    compare_records(recs, dense, "farm event vs dense",
+                    close=("hidden_out",))
+    bits_out = recs["graded_bits_out"].sum(1)
+    check(bits_out.sum() > 0
+          and torch.equal(bits_out[:-1], recs["graded_bits_in"].sum(1)[1:]),
+          "farm: graded payload not conserved")
+    check(float(recs["link_flits"].sum()) > float(recs["link_load"].sum())
+          > 0, "farm: no multi-flit traffic")
+    t5 = time.perf_counter()
+    sim.run(FARM_TICKS)
+    torch.cuda.synchronize()
+    steady = (time.perf_counter() - t5) / FARM_TICKS * 1e6
+    rows = prog.sinc.padded_rows
+
+    main, summary, _, _ = profile_ticks(sim)
+    main["event_link_loads"]["active_sources"] = float(
+        recs["active_sources"][PROFILED.start:PROFILED.stop].double().mean())
+    emit("hybrid_farm_4096pe", pairs=FARM_PAIRS, pes=prog.n_pes,
+         n_links=prog.noc.n_links, tree_slots=rows.shape[1],
+         ticks=FARM_TICKS, launches=counts, records_vs_dense="bitwise",
+         build_compile_s=t1 - t0, us_per_tick=(t2 - t1) / FARM_TICKS * 1e6,
+         us_per_tick_second_run=steady,
+         dense_us_per_tick=(t4 - t3) / FARM_TICKS * 1e6,
+         payload_bits=float(recs["payload_bits"].sum()),
+         active_sources_mean=float(recs["active_sources"].double().mean()),
+         profile=dict(hand_kernels=main, **summary))
+    return counts, torch.as_tensor(rows, device=dev), prog.noc.n_links, main
+
+
+def phase_dnn(dev) -> dict:
+    reset_launch_counts()
+    got = tiled_dnn_workload(device=dev)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = tiled_dnn_workload(device="cpu")
+    check(got["n_frames_out"] == want["n_frames_out"] == 4,
+          f"dnn frames out {got['n_frames_out']}")
+    check(got["latency_s"] == want["latency_s"], "dnn latency differs")
+    compare_records(got["recs"], want["recs"], "dnn card vs CPU")
+    emit("dnn_pipeline", pes=got["n_pes_used"], mesh=got["mesh"],
+         frames_out=got["n_frames_out"], latency_s=got["latency_s"],
+         compute_s=got["compute_s"], noc_s=got["noc_s"],
+         ticks=int(got["recs"]["pl"].shape[0]), launches=counts,
+         records_vs_cpu="bitwise")
+    return counts
 
 
 def phase_parity(dev) -> None:
@@ -456,20 +804,12 @@ def phase_parity(dev) -> None:
     check(gpu_sim.use_sparse_noc(), "256-PE ring must use the sparse NoC")
     got = gpu_sim.run(PARITY_TICKS)
     want = ChipSim(prog, device="cpu").run(PARITY_TICKS)
-    worst = 0.0
-    for k, w in want.items():
-        g = got[k].cpu()
-        if k.startswith("e_"):
-            rel = float(((g.double() - w.double()).abs()
-                         / w.double().abs().clamp_min(1e-30)).max())
-            check(rel <= 1e-6, f"parity: {k} rel err {rel}")
-            worst = max(worst, rel)
-        else:
-            check(torch.equal(g, w), f"parity: {k} differs card vs CPU")
+    worst = compare_records(got, want, "parity card vs CPU")
     first = first_strong_ticks(got, 10)
     check(all(abs(f - 10 * p) <= 1 for p, f in enumerate(first)),
           f"parity ring wave: {first}")
     emit("card_vs_cpu_256pe", ticks=PARITY_TICKS, records=len(want),
+         exec_mode="event" if gpu_sim.use_event_mode() else "dense",
          integer_records="bitwise", energy_max_rel_err=worst,
          first_strong_ticks=first)
 
@@ -481,14 +821,27 @@ def main() -> int:
     dev = torch.device("cuda")
     smi = phase_device()
     phase_build()
-    counts_a = phase_paper(dev)
-    sim, prog, counts_b = phase_board(dev)
-    main = phase_tick_profile(sim)
-    rows = phase_kernels(dev, sim, prog, main)
+    paths = {"paper_chip_8pe": phase_paper(dev)}
+    sim, prog, paths["board_ring_4096pe"], dense_recs, dense_us = \
+        phase_board(dev)
+    main = phase_tick_profile(sim, "tick_profile_4096pe")
+    ev_sim, paths["event_ring_4096pe"] = phase_event_ring(
+        dev, prog, dense_recs, dense_us)
+    del dense_recs
+    main_event = phase_tick_profile(ev_sim, "tick_profile_4096pe_event")
+    paths["hybrid"], encode_ops = phase_hybrid(dev)
+    paths["hybrid_farm_4096pe"], farm_rows, farm_links, farm_main = \
+        phase_farm(dev)
+    paths["dnn_pipeline"] = phase_dnn(dev)
+    rows = phase_kernels(dev, sim, prog, main, main_event, farm_rows,
+                         farm_links, farm_main, encode_ops)
+    # each kernel's launches on the path it was checked at
+    home = {"event_link_loads": "hybrid_farm_4096pe", "mac_gemm": "hybrid"}
     for row in rows:
-        row["launches"] = counts_b[row["name"]]
-        row["launches_paper_chip"] = counts_a[row["name"]]
-    del sim, prog
+        name = row["name"]
+        row["launches"] = paths[home.get(name, "board_ring_4096pe")][name]
+        row["launches_by_path"] = {p: c[name] for p, c in paths.items()}
+    del sim, ev_sim, prog
     torch.cuda.empty_cache()
     phase_parity(dev)
     print(smi)

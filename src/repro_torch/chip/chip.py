@@ -1,14 +1,17 @@
 """``ChipSim`` — the workload-agnostic chip engine, on one CUDA device.
 
 A virtual SpiNNaker2 chip: a W x H QPE mesh of PEs running a compiled
-``ChipProgram`` tick by tick.  The program's ``TickSemantics`` advances
-all PEs as batched axes of the same tensors and reports per-PE activity;
-the engine adds the NoC: each source's packet count hits its multicast
-tree incidence — the dense product over the (P, n_links) tensor, or the
-segmented sum over the CSC entries (``kernels/link_load``) — giving
-per-link loads in packets and DNoC flits, plus NoC energy.  ``noc_mode``
-"auto" picks the representation from the incidence shape as the
-reference does; both agree bitwise on integer packet counts.
+``ChipProgram`` (SNN, DNN or hybrid) tick by tick.  The program's
+``TickSemantics`` advances all PEs as batched axes of the same tensors
+and reports per-PE activity; the engine adds the NoC: each source's
+packet count hits its multicast tree incidence — the dense product over
+the (P, n_links) tensor, the segmented sum over the CSC entries
+(``kernels/link_load``), or in event mode the gather of the active
+sources' rows (``kernels/event_gather``) — giving per-link loads in
+packets and DNoC flits, plus NoC energy.  ``noc_mode`` and ``exec_mode``
+"auto" pick the representation and the execution mode from the
+incidence shape as the reference does; every choice gives the same
+records bit for bit.
 
 ``run`` is a Python loop over host integer ticks that writes into
 (T, ...) record tensors on the device: no host synchronisation and no
@@ -34,6 +37,8 @@ from repro_torch.core.dvfs import DVFSController
 from repro_torch.core.energy import PEEnergyModel
 from repro_torch.core.snn import run_ticks, synfire_power_table
 
+EVENT_IMPLS = ("auto", "gather", "pallas")
+
 
 @dataclass
 class ChipSim:
@@ -42,23 +47,32 @@ class ChipSim:
 
     ``noc_mode``: "auto" picks sparse vs dense NoC accounting from the
     incidence (mesh size, density, per-link fan-in); "sparse"/"dense"
-    force it.  ``exec_mode``: only "dense" is ported; the reference's
-    activity-compressed "event" mode (and "auto", which may pick it) is
-    not ported yet and raises.
+    force it.  ``exec_mode``: "dense" runs every PE's work each tick;
+    "event" runs the workload's activity-compressed tick (when its
+    semantics has one, ``make_event_tick``) and, on a sparse NoC, the
+    event-mode accounting over the active sources; "auto" picks event
+    exactly when the NoC auto-select goes sparse, as the reference does.
+    ``event_impl`` is the reference's event-kernel knob, accepted for its
+    values ("auto", "gather", "pallas"): the port has one event-mode
+    accounting, the compacted-index gather of ``kernels/event_gather``
+    (plain version on the CPU, hand kernel on the card), which is what
+    the reference's "gather" and "pallas" compute.
     """
     program: ChipProgram
     dvfs: Optional[DVFSController] = None
     em: PEEnergyModel = field(default_factory=PEEnergyModel)
     noc_mode: str = "auto"
-    exec_mode: str = "dense"
+    exec_mode: str = "auto"
+    event_impl: Optional[str] = None
     device: object = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        if self.exec_mode != "dense":
-            raise NotImplementedError(
-                f"exec_mode={self.exec_mode!r}: repro_torch runs the dense "
-                f"execution mode only; event mode is ROADMAP queue A item 6")
+        self.use_event_mode()                       # validates exec_mode
+        if self.event_impl not in (None,) + EVENT_IMPLS:
+            raise ValueError(f"unknown event_gather impl "
+                             f"{self.event_impl!r}; expected one of "
+                             f"{EVENT_IMPLS}")
         # float32 products count packets: keep them exact, never TF32
         torch.backends.cuda.matmul.allow_tf32 = False
         if self.dvfs is None:
@@ -82,33 +96,60 @@ class ChipSim:
                     and sinc.max_fan_in <= MAX_SPARSE_COLS)
         return mode == "sparse"
 
+    def use_event_mode(self, exec_mode: str | None = None) -> bool:
+        """Resolve the execution mode for this program: "auto" picks the
+        activity-compressed mode exactly when the NoC auto-select goes
+        sparse (the board-scale regime where activity is sparse relative
+        to the mesh)."""
+        mode = exec_mode or self.exec_mode
+        if mode not in ("auto", "event", "dense"):
+            raise ValueError(f"unknown exec_mode {mode!r}")
+        if mode == "auto":
+            return self.use_sparse_noc("auto")
+        return mode == "event"
+
     def make_stepper(self, seed: int = 1, noc_mode: str | None = None,
-                     noise=None):
+                     noise=None, exec_mode: str | None = None):
         """``(init_state, step)`` where ``step(state, t) -> (state, rec)``
         is the engine's full per-tick body: the semantics' tick, then the
         NoC accounting.  ``noise`` is passed to the semantics (see
         ``core.snn.make_synfire_tick``)."""
         prog, noc, dev = self.program, self.noc, self.device
-        tick = prog.make_tick(dvfs=self.dvfs, em=self.em, seed=seed,
-                              noise=noise, device=dev)
+        event = self.use_event_mode(exec_mode)
+        kw = dict(dvfs=self.dvfs, em=self.em, seed=seed, noise=noise,
+                  device=dev)
+        # semantics without a compressed tick run their dense tick under
+        # event-mode NoC accounting (the same records either way)
+        tick = (prog.make_event_tick(**kw) if event else None) \
+            or prog.make_tick(**kw)
         init = prog.init_state(dev)
         sparse = self.use_sparse_noc(noc_mode)
-        if sparse:
+        if sparse and event:
+            rows = noc.event_plan(prog.sinc, dev)
+        elif sparse:
             plan = noc.device_plan(prog.sinc, dev)
         else:
             inc = torch.as_tensor(prog.inc, device=dev)
-        n_src = prog.sinc.n_sources
+        # the reference's jitted ``active / n_src`` is a multiply by the
+        # float32 reciprocal (XLA rewrites division by a constant)
+        inv_src = torch.tensor(np.float32(1) / np.float32(
+            max(prog.sinc.n_sources, 1)), device=dev)
         tier_masks = {tier: torch.as_tensor(m, device=dev)
                       for tier, m in noc.tier_masks().items()
                       if np.asarray(m).any()}
         tree_links = torch.as_tensor(prog.tree_links, dtype=torch.float32,
                                      device=dev)
-        pb = torch.as_tensor(prog.payload_bits, device=dev)
+        static_pb = torch.as_tensor(prog.payload_bits, device=dev)
 
         def chip_tick(state, t: int):
             state, rec = tick(state, t)
             packets = rec["packets"].to(torch.float32)        # (P,)
-            if sparse:
+            # graded payloads may vary by tick (the hybrid's spike vector)
+            pb = rec.get("payload_bits", static_pb)
+            if sparse and event:
+                rec["link_load"], rec["link_flits"] = noc.event_noc_loads(
+                    packets, rows, pb)
+            elif sparse:
                 rec["link_load"], rec["link_flits"] = noc.noc_loads(
                     packets, plan, pb)
             else:
@@ -117,7 +158,7 @@ class ChipSim:
             rec["e_noc"] = noc.traffic_energy_j(packets, tree_links, pb)
             active = (rec["packets"] > 0).sum(-1, dtype=torch.int32)
             rec["active_sources"] = active
-            rec["active_frac"] = active.to(torch.float32) / max(n_src, 1)
+            rec["active_frac"] = active.to(torch.float32) * inv_src
             hit = (rec["link_load"] > 0).to(torch.float32)
             rec["touched_links"] = hit.sum(-1)
             for tier, m in tier_masks.items():
@@ -127,7 +168,7 @@ class ChipSim:
         return init, chip_tick
 
     def run(self, n_ticks: int, seed: int = 1, noc_mode: str | None = None,
-            noise=None) -> dict:
+            noise=None, exec_mode: str | None = None) -> dict:
         """Per-tick records on the sim's device: everything the program's
         semantics reports (spike rasters, PLs, Eq. (1) energies) plus
 
@@ -136,9 +177,12 @@ class ChipSim:
         e_noc      (T,)         — NoC traffic energy per tick [J]
         active_sources, active_frac (T,) — sources emitting >= 1 packet
         touched_links, touched_links_onchip (T,) — links carrying traffic
+
+        ``noc_mode`` and ``exec_mode`` override the sim's choices for this
+        run; every choice gives bit-identical records.
         """
         init, chip_tick = self.make_stepper(seed=seed, noc_mode=noc_mode,
-                                            noise=noise)
+                                            noise=noise, exec_mode=exec_mode)
         return run_ticks(chip_tick, init, n_ticks)
 
 

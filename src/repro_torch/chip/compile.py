@@ -64,6 +64,14 @@ class ChipProgram:
                                               seed=seed, noise=noise,
                                               device=device)
 
+    def make_event_tick(self, *, dvfs, em, seed, noise, device):
+        """The semantics' activity-compressed tick, or None when the
+        workload has no compressed form (the engine then runs the dense
+        tick under event-mode NoC accounting: the same records)."""
+        make = getattr(self.graph.semantics, "make_event_tick", None)
+        return make(self, dvfs=dvfs, em=em, seed=seed, noise=noise,
+                    device=device) if make else None
+
 
 def check_tile_sram(graph: NetGraph, pe: PESpec) -> None:
     """SRAM constraint per population tile, naming the population."""

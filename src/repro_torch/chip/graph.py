@@ -21,6 +21,12 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Optional, Protocol, runtime_checkable
 
+import numpy as np
+import torch
+
+from repro_torch.configs import paper
+from repro_torch.core.energy import _pl_tables
+
 SPIKE = "spike"      # binary events: header-only 64 b DNoC packet
 GRADED = "graded"    # graded payload: header + ceil(bits/128) 192 b flits
 
@@ -101,3 +107,34 @@ class NetGraph:
     @property
     def n_tiles_total(self) -> int:
         return sum(p.n_tiles for p in self.populations)
+
+
+# ---------------------------------------------------------------------------
+# Shared accounting helpers for semantics implementations
+# ---------------------------------------------------------------------------
+
+def busy_window_energy(pl, busy_cycles, *, pls=paper.PERF_LEVELS,
+                       t_sys_s: float = 1e-3, dvfs: bool = True):
+    """Eq. (1) baseline term for a datapath busy ``busy_cycles`` this tick.
+
+    The generalization of ``PEEnergyModel.tick_energy``'s baseline to
+    non-SNN workloads: busy time is the cycle count at the selected PL's
+    clock, the idle remainder runs at PL1 (dvfs=True) or stays at the
+    selected PL (dvfs=False, the "only PL3" comparison mode).
+    """
+    tab = _pl_tables(tuple(pls), pl.device)
+    p_bl = tab["p_bl"]
+    if not dvfs:
+        return p_bl[pl] * t_sys_s
+    t_sp = torch.clamp(busy_cycles / tab["freq"][pl], max=t_sys_s)
+    return p_bl[pl] * t_sp + p_bl[0] * (t_sys_s - t_sp)
+
+
+def mac_dynamic_energy_j(macs, *, tops_per_w: float | None = None):
+    """Dynamic energy of ``macs`` MAC-array ops (2 ops each) this tick.
+    The division is a multiply by the float32 reciprocal, as the
+    reference's jitted tick computes it (XLA rewrites division by a
+    constant)."""
+    tops_per_w = tops_per_w or paper.MAC_TOPS_PER_W[(paper.MEP_VDD,
+                                                     paper.MEP_FREQ)]
+    return 2.0 * macs * float(np.float32(1) / np.float32(tops_per_w * 1e12))

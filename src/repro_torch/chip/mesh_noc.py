@@ -9,9 +9,11 @@ points of its X/Y tree, so a tree's cost is its set of distinct links.
   stored as a CSR ``SparseIncidence`` of (link_ids, source_ptr).
 * **per tick** (torch, on the sim's device) — per-link loads are either
   the dense product ``packets @ inc`` over the densified incidence
-  (small meshes), or the segmented sum over the link-major (CSC) entries
-  of ``kernels/link_load`` (board-scale meshes).  Both are exact on
-  integer-valued packet counts, so they agree bitwise.
+  (small meshes), the segmented sum over the link-major (CSC) entries of
+  ``kernels/link_load`` (board-scale meshes, dense execution), or, in
+  event execution mode, the gather of the active sources' padded rows
+  with an atomic accumulation (``kernels/event_gather``).  All are exact
+  on integer-valued packet counts, so they agree bitwise.
 """
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.noc import NocSpec
+from repro_torch.kernels.event_gather.ops import (active_source_set,
+                                                  event_link_loads)
 from repro_torch.kernels.link_load.ops import link_loads_csc
 
 SPIKE_PACKET_BITS = 64        # header-only DNoC spike packet
@@ -134,6 +138,20 @@ class SparseIncidence:
         np.cumsum(counts, out=link_ptr[1:])
         return self.src_of_entry[order], link_ptr
 
+    @functools.cached_property
+    def padded_rows(self) -> np.ndarray:
+        """(P, max tree size) rectangular row layout: source p's link ids
+        right-padded with the sentinel ``n_links`` — the gatherable form
+        the event-mode accounting indexes by active source
+        (``kernels/event_gather``)."""
+        L = max(1, int(self.tree_links.max(initial=0)))
+        out = np.full((self.n_sources, L), self.n_links, np.int32)
+        if self.nnz:
+            col = (np.arange(self.nnz)
+                   - np.repeat(self.source_ptr[:-1], self.tree_links))
+            out[self.src_of_entry, col] = self.link_ids
+        return out
+
     def dense(self) -> np.ndarray:
         """Materialize the (P, n_links) 0/1 incidence tensor."""
         m = np.zeros((self.n_sources, self.n_links), np.float32)
@@ -243,6 +261,25 @@ class MeshNoc:
         pk = packets.to(torch.float32)
         w = torch.stack([pk, pk * self.packet_flits(payload_bits)])
         both = link_loads_csc(w, src_sorted, link_ptr, n_links=self.n_links)
+        return both[0], both[1]
+
+    def event_plan(self, sinc: SparseIncidence, device) -> torch.Tensor:
+        """The padded-row layout on ``device`` for ``event_noc_loads``.
+        Build once per run, outside the tick loop."""
+        return torch.as_tensor(sinc.padded_rows, device=device)
+
+    def event_noc_loads(self, packets, rows_padded, payload_bits, idx=None):
+        """Event-mode twin of ``noc_loads``: one tick's (link_loads,
+        flit_loads) from the active sources' rows, both in one kernel
+        launch.  ``idx`` is an optional pre-compacted active-source buffer
+        (sentinel P on unused lanes) that must cover every source with
+        nonzero packets; None compacts here at full width, which is
+        always exact."""
+        pk = packets.to(torch.float32)
+        if idx is None:
+            idx, _ = active_source_set(pk, pk.shape[-1])
+        w = torch.stack([pk, pk * self.packet_flits(payload_bits)])
+        both = event_link_loads(idx, w, rows_padded, n_links=self.n_links)
         return both[0], both[1]
 
     def link_loads(self, packets, inc) -> torch.Tensor:

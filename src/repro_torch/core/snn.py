@@ -15,9 +15,15 @@ PE i projects to exc+inh of PE i+1 with 10 ms delay (fan-in 60); inh
 projects to exc of the same PE with 8 ms delay (fan-in 25); background
 noise current; a stimulus pulse kick-starts PE 0.
 
-This is the dense execution mode of ``repro.core.snn``; its records are
-the reference's bit for bit, given the same background noise (see
-``make_synfire_tick``).
+``make_synfire_tick(..., event=True)`` builds the activity-compressed
+tick of the reference's event execution mode: the tick's input set (PEs
+with spike arrivals, noise kicks or stimulus) is compacted into a bounded
+index buffer by the reference's two-level tag sort (``compact``), and the
+synaptic accumulation runs on the listed PEs only.  When the set
+overflows the buffer the kernel covers every PE instead, which is the
+dense result, decided on the device with no host branch.  Either mode's
+records are the reference's bit for bit, given the same background noise
+(see ``make_synfire_tick``).
 """
 from __future__ import annotations
 
@@ -40,6 +46,18 @@ from repro_torch.kernels.syn_accum.ref import (pack_spikes, popcount_words,
 
 FX_ONE = 1 << 15
 MASK32 = 0xFFFFFFFF
+
+# Default bound on the event tick's input buffer: PEs with spike arrivals,
+# noise kicks or stimulus this tick.  A synfire wave lights O(1) PEs per
+# tick and shot noise adds kicks_per_tick more, so 64 covers 4096-PE rings
+# with a wide margin; overflow computes every PE (still bitwise).
+EVENT_SRC_CAP = 64
+
+# Two-level compaction of the input set: PEs group into chunks of
+# EVENT_CHUNK; up to EVENT_MAX_CHUNKS active chunks are selected by a
+# chunk-tag sort before the per-PE tag sort runs on their lanes only.
+EVENT_CHUNK = 64
+EVENT_MAX_CHUNKS = 16
 
 
 # ------------------------------------------------------------------ shot noise
@@ -74,11 +92,43 @@ def shot_seed32(seed: int) -> int:
 
 
 def shot_noise_lanes(seed32: int, t: int, n_kicks: int, n_lanes: int,
-                     device="cpu") -> torch.Tensor:
-    """Flat lane index (< n_lanes) of each of tick t's ``n_kicks`` kicks."""
+                     device=None) -> torch.Tensor:
+    """Flat lane index (< n_lanes) of each of tick t's ``n_kicks`` kicks,
+    on ``device`` (the CUDA device unless the caller asks for the CPU)."""
     c = (t * n_kicks + torch.arange(n_kicks, dtype=torch.int64,
-                                    device=device)) & MASK32
+                                    device=resolve_device(device))) & MASK32
     return fmix32(c ^ seed32) % n_lanes
+
+
+def compact(src: torch.Tensor, cap: int):
+    """The reference's two-level compaction of the (P,) bool input set.
+
+    Returns ``(idx, fits)``: ``idx`` (cap_eff,) int32 holds up to
+    ``cap_eff = min(cap, P, EVENT_MAX_CHUNKS * EVENT_CHUNK)`` set PE ids
+    in ascending order, sentinel P after; ``fits`` (0-d bool) says the
+    whole set is listed (no more than ``cap_eff`` PEs in no more than
+    ``EVENT_MAX_CHUNKS`` chunks).  Two static-size sorts over int32 tags
+    (the reference sorts uint16 below 2**16 PEs: same values, same
+    order), no host synchronisation."""
+    P = src.shape[0]
+    nc = -(-P // EVENT_CHUNK)
+    kc = min(EVENT_MAX_CHUNKS, nc)
+    cap_eff = min(cap, P, kc * EVENT_CHUNK)
+    dev = src.device
+    m = torch.nn.functional.pad(src, (0, nc * EVENT_CHUNK - P))
+    m = m.reshape(nc, EVENT_CHUNK)
+    c_any = m.any(1)
+    ctags = torch.where(c_any, torch.arange(nc, dtype=torch.int32,
+                                            device=dev), nc)
+    cidx = torch.sort(ctags).values[:kc]
+    csafe = cidx.clamp(max=nc - 1)
+    sub = m[csafe] & (cidx < nc)[:, None]                   # (kc, 64)
+    pos = (csafe[:, None] * EVENT_CHUNK
+           + torch.arange(EVENT_CHUNK, dtype=torch.int32, device=dev))
+    stags = torch.where(sub, pos, P)
+    idx = torch.sort(stags.reshape(-1)).values[:cap_eff]
+    fits = (src.sum() <= cap_eff) & (c_any.sum() <= kc)
+    return idx, fits
 
 
 def generator_noise(seed: int, shape: tuple, device):
@@ -220,9 +270,19 @@ def synfire_init_state(net: SynfireNet, device=None) -> dict:
 
 def make_synfire_tick(net: SynfireNet, *, dvfs: DVFSController,
                       em: PEEnergyModel, seed: int = 1, noise=None,
-                      exchange=ring_exchange):
-    """Build the dense per-tick step ``tick(state, t) -> (state, rec)``
-    for host integer ``t``, on the net's device.
+                      exchange=ring_exchange, event: bool = False,
+                      src_cap: int | None = None):
+    """Build the per-tick step ``tick(state, t) -> (state, rec)`` for host
+    integer ``t``, on the net's device.
+
+    ``event=True`` builds the activity-compressed tick: this tick's input
+    set (spike arrivals, shot-noise kicks, the stimulus target) is
+    compacted into ``src_cap`` (default ``EVENT_SRC_CAP``) lanes by
+    ``compact``, and ``syn_accum`` walks the listed PEs only, or every PE
+    when the set overflowed.  The kernel writes each listed PE's row of
+    the (P, N) current directly, so the kicks and the stimulus land on the
+    same cells through the same formula as in the dense tick; the records
+    are the dense tick's bit for bit.
 
     Unlike the reference's functional tick, the step updates the delay
     lines of ``state`` in place (``exc_buf[t % d] = ...``) after reading
@@ -248,6 +308,8 @@ def make_synfire_tick(net: SynfireNet, *, dvfs: DVFSController,
     elif noise is None:
         noise = generator_noise(seed, (P_, N), dev)
 
+    cap = EVENT_SRC_CAP if src_cap is None else src_cap
+
     def tick(state, t: int):
         # 1. drain FIFOs (spikes that arrive this tick)
         we = state["exc_buf"][t % d_exc]               # (P, WE) packed
@@ -260,10 +322,20 @@ def make_synfire_tick(net: SynfireNet, *, dvfs: DVFSController,
         pl = dvfs.select_pl(n_fifo)
 
         # 3. synaptic accumulation (event-driven integer MAC) + background
-        i_syn = syn_accum(we, wi, net.w_ff, net.w_inh)
         if shot:
             lanes = shot_noise_lanes(seed32, t, net.kicks_per_tick, P_ * N,
                                      dev)
+        if event:
+            # the input set: every PE receiving anything this tick
+            src = n_fifo > 0
+            if shot:
+                src[lanes // N] = True
+            if t < net.stim_ticks:
+                src[0] = True
+            i_syn = syn_accum(we, wi, net.w_ff, net.w_inh, *compact(src, cap))
+        else:
+            i_syn = syn_accum(we, wi, net.w_ff, net.w_inh)
+        if shot:
             i_syn.view(-1).index_add_(0, lanes, kicks)
         else:
             i_syn += torch.round(noise(t) * net.noise_sigma_fx).to(
@@ -321,13 +393,16 @@ def run_ticks(step, state, n_ticks: int) -> dict:
 
 
 def simulate_synfire(net: SynfireNet, n_ticks: int, seed: int = 1,
-                     noise=None) -> dict:
+                     noise=None, event: bool = False) -> dict:
     """Per-tick records (all (T, P) unless noted): pl, n_fifo,
     syn_events, packets, spikes_exc (T, P, 200), spikes_inh (T, P, 50),
-    t_sp and both energy accountings (dvfs / only-PL3)."""
+    t_sp and both energy accountings (dvfs / only-PL3).  ``event=True``
+    runs the activity-compressed tick; the records are bitwise the
+    same."""
     sp = net.params
     tick = make_synfire_tick(net, dvfs=DVFSController(sp.l_th1, sp.l_th2),
-                             em=PEEnergyModel(), seed=seed, noise=noise)
+                             em=PEEnergyModel(), seed=seed, noise=noise,
+                             event=event)
     return run_ticks(tick, synfire_init_state(net), n_ticks)
 
 

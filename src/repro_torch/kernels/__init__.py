@@ -7,13 +7,16 @@ of them, so a run can show that it went through the kernels.
 """
 from __future__ import annotations
 
+from repro_torch.kernels.event_gather.ops import event_link_loads
 from repro_torch.kernels.explog.ops import fx_exp
 from repro_torch.kernels.lif.ops import lif_step
 from repro_torch.kernels.link_load.ops import link_loads_csc
+from repro_torch.kernels.mac_gemm.ops import mac_gemm
 from repro_torch.kernels.syn_accum.ops import syn_accum
 
 WRAPPERS = {"fx_exp": fx_exp, "lif_step": lif_step,
-            "link_loads_csc": link_loads_csc, "syn_accum": syn_accum}
+            "link_loads_csc": link_loads_csc, "syn_accum": syn_accum,
+            "event_link_loads": event_link_loads, "mac_gemm": mac_gemm}
 
 
 def launch_counts() -> dict:

@@ -7,6 +7,7 @@ import ctypes
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.kernels import _build
 from repro_torch.kernels._wrap import expect_dtype, on_cpu
 from repro_torch.kernels.explog.ops import fx_exp, to_fx
@@ -18,12 +19,13 @@ _ARGS = ((ctypes.c_void_p,) * 6 + (ctypes.c_int64,) + (ctypes.c_int32,) * 6
 
 def lif_params_fx(*, tau_ms: float, v_th: float, v_reset: float,
                   ref_ticks: int, dt_ms: float = 1.0,
-                  v_min: float | None = None, device="cpu") -> dict:
-    """Fixed-point LIF parameters; alpha from the exp accelerator kernel
-    (run on ``device``).  ``v_min`` is the optional inhibitory-reversal
-    floor (see ``lif_step_ref``)."""
+                  v_min: float | None = None, device=None) -> dict:
+    """Fixed-point LIF parameters; alpha from the exp accelerator kernel,
+    run on ``device`` (the CUDA device unless the caller asks for the
+    CPU).  ``v_min`` is the optional inhibitory-reversal floor (see
+    ``lif_step_ref``)."""
     arg = torch.tensor([int(to_fx(np.float32(-dt_ms / tau_ms)))],
-                       dtype=torch.int32, device=device)
+                       dtype=torch.int32, device=resolve_device(device))
     alpha = int(fx_exp(arg)[0])
     return dict(alpha=alpha, v_th=int(to_fx(v_th)),
                 v_reset=int(to_fx(v_reset)), ref_ticks=int(ref_ticks),

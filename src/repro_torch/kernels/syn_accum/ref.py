@@ -61,11 +61,15 @@ def popcount_words(words: torch.Tensor) -> torch.Tensor:
     return x.sum(-1).to(torch.int32)
 
 
-def syn_accum_ref(exc_words, inh_words, w_ff, w_inh) -> torch.Tensor:
+def syn_accum_ref(exc_words, inh_words, w_ff, w_inh, pes=None,
+                  fits=None) -> torch.Tensor:
     """exc_words (P, WE), inh_words (P, WI) int32 spike words; w_ff
     (P, NE, N), w_inh (P, NI, NE) int32 s16.15.  Returns i_syn (P, N)
     int32: the exc rows of w_ff summed over the set exc bits, plus the
-    inh rows of w_inh over the set inh bits in columns [:NE]."""
+    inh rows of w_inh over the set inh bits in columns [:NE].
+
+    With ``pes`` (listed PE ids, sentinel P) and the 0-d bool ``fits``,
+    rows of unlisted PEs are zero unless ``fits`` is false."""
     P, NE, N = w_ff.shape
     NI = w_inh.shape[1]
     arr_e = unpack_spikes(exc_words, NE)
@@ -77,4 +81,8 @@ def syn_accum_ref(exc_words, inh_words, w_ff, w_inh) -> torch.Tensor:
         i_syn[:, :NE] += (arr_i[a:b, :, None] * w_inh[a:b]).sum(
             1, dtype=torch.int64)
         out[a:b] = wrap32(i_syn).to(torch.int32)
-    return out
+    if pes is None:
+        return out
+    keep = torch.zeros(P + 1, dtype=torch.bool, device=out.device)
+    keep[pes.long().clamp(0, P)] = True
+    return torch.where((keep[:P] | ~fits)[:, None], out, 0)

@@ -28,6 +28,7 @@ from repro_torch.chip.graph import NetGraph, Population, Projection
 from repro_torch.chip.mesh_noc import MeshNoc, MeshSpec
 from repro_torch.chip.workloads import synfire_graph, synfire_workload
 from repro_torch.core import snn
+from repro_torch.kernels.lif.ops import lif_params_fx
 
 INT_RECORDS = ("spikes_exc", "spikes_inh", "pl", "n_fifo", "syn_events",
                "packets", "active_sources")
@@ -245,8 +246,43 @@ def test_default_device_is_the_gpu_or_raises():
             ChipSim(compile(g))
 
 
-@pytest.mark.parametrize("mode", ["event", "auto"])
-def test_event_mode_is_not_ported_yet(mode):
+@pytest.mark.parametrize("n_pes", [8, 64, 256])
+def test_exec_mode_auto_resolves_like_the_reference(n_pes):
+    """Both engines default to "auto", which picks event mode exactly when
+    the NoC goes sparse; forcing either mode resolves alike too."""
+    g, jg = _ring_graphs(n_pes)
+    sim, jsim = ChipSim(compile(g), device="cpu"), JChipSim(j_compile(jg))
+    assert sim.exec_mode == jsim.exec_mode == "auto"
+    assert sim.use_event_mode() == jsim.use_event_mode() \
+        == jsim.use_sparse_noc()
+    for mode in ("event", "dense"):
+        assert sim.use_event_mode(mode) == jsim.use_event_mode(mode)
+
+
+def test_unknown_modes_raise():
     g, _ = _ring_graphs(8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ChipSim(compile(g), exec_mode=mode, device="cpu")
+    prog = compile(g)
+    with pytest.raises(ValueError, match="exec_mode"):
+        ChipSim(prog, exec_mode="bogus", device="cpu")
+    with pytest.raises(ValueError, match="event_gather impl"):
+        ChipSim(prog, event_impl="bogus", device="cpu")
+    for impl in ("auto", "gather", "pallas"):
+        ChipSim(prog, event_impl=impl, device="cpu")
+    with pytest.raises(ValueError, match="exec_mode"):
+        ChipSim(prog, device="cpu").use_event_mode("bogus")
+
+
+def test_entry_points_ask_for_the_card_by_default():
+    """``lif_params_fx`` and ``shot_noise_lanes`` run on the CUDA device
+    unless given one; without a card they raise ``resolve_device``'s
+    error instead of running on the CPU."""
+    kw = dict(tau_ms=10.0, v_th=1.0, v_reset=0.0, ref_ticks=2)
+    if torch.cuda.is_available():
+        assert lif_params_fx(**kw) == lif_params_fx(**kw, device="cpu")
+        assert snn.shot_noise_lanes(3, 5, 4, 1000).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lif_params_fx(**kw)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        snn.shot_noise_lanes(3, 5, 4, 1000)
+    assert lif_params_fx(**kw, device="cpu")["alpha"] > 0

@@ -13,13 +13,15 @@ import pytest
 import torch
 
 from repro_torch.chip import ChipSim, compile
-from repro_torch.chip.workloads import synfire_graph
-from repro_torch.kernels import (fx_exp, launch_counts, lif_step,
-                                 link_loads_csc, reset_launch_counts,
-                                 syn_accum)
+from repro_torch.chip.workloads import hybrid_workload, synfire_graph
+from repro_torch.kernels import (event_link_loads, fx_exp, launch_counts,
+                                 lif_step, link_loads_csc, mac_gemm,
+                                 reset_launch_counts, syn_accum)
+from repro_torch.kernels.event_gather.ref import event_link_loads_ref
 from repro_torch.kernels.explog.ref import fx_exp_ref
 from repro_torch.kernels.lif.ref import lif_step_ref
 from repro_torch.kernels.link_load.ref import link_loads_csc_ref
+from repro_torch.kernels.mac_gemm.ref import mac_gemm_ref
 from repro_torch.kernels.syn_accum.ref import syn_accum_ref
 
 pytestmark = pytest.mark.gpu
@@ -87,6 +89,54 @@ def test_syn_accum_kernel(cuda):
     assert torch.equal(got.cpu(), syn_accum_ref(exc, inh, w_ff, w_inh))
 
 
+@pytest.mark.parametrize("fits", [True, False])
+def test_syn_accum_listed_kernel(cuda, fits):
+    rng = np.random.default_rng(4)
+    P, NE, NI, N = 512, 200, 50, 250
+    exc, inh = _ints(rng, (P, 7)), _ints(rng, (P, 2))
+    w_ff, w_inh = _ints(rng, (P, NE, N)), _ints(rng, (P, NI, NE))
+    pes = torch.tensor([3, 70, 71, 500] + [P] * 60, dtype=torch.int32)
+    args = (exc, inh, w_ff, w_inh, pes, torch.tensor(fits))
+    got = syn_accum(*(t.to(cuda) for t in args))
+    assert torch.equal(got.cpu(), syn_accum_ref(*args))
+
+
+def test_event_link_loads_kernel(cuda):
+    """Every source of a 4096-source incidence active (trees up to 16
+    links), plus a buffer with sentinel lanes and quiet sources."""
+    rng = np.random.default_rng(5)
+    n_src, n_links, L = 4096, 3968, 16
+    rows = rng.integers(0, n_links, (n_src, L)).astype(np.int32)
+    rows[rng.random((n_src, L)) < 0.3] = n_links           # padding
+    w = rng.integers(0, 5, (2, n_src)).astype(np.float32)
+    for idx in (np.arange(n_src, dtype=np.int32),
+                np.sort(np.concatenate([rng.choice(n_src, 900, False),
+                                        np.full(100, n_src)])).astype(
+                    np.int32)):
+        args = (torch.from_numpy(idx), torch.from_numpy(w),
+                torch.from_numpy(rows))
+        got = event_link_loads(*(a.to(cuda) for a in args), n_links=n_links)
+        assert torch.equal(got.cpu(), event_link_loads_ref(*args, n_links))
+
+
+@pytest.mark.parametrize("a_t,b_t", [(torch.int8, torch.int8),
+                                     (torch.uint8, torch.uint8),
+                                     (torch.int8, torch.uint8),
+                                     (torch.uint8, torch.int8)])
+@pytest.mark.parametrize("m,k,n", [(600, 1, 256), (37, 45, 29),
+                                   (64, 128, 64), (1000, 777, 513)])
+def test_mac_gemm_kernel(cuda, a_t, b_t, m, k, n):
+    rng = np.random.default_rng(m + k + n)
+
+    def operand(shape, dtype):
+        lo, hi = (-128, 127) if dtype == torch.int8 else (0, 255)
+        return torch.from_numpy(rng.integers(lo, hi, shape, np.int64,
+                                             endpoint=True)).to(dtype)
+    a, b = operand((m, k), a_t), operand((k, n), b_t)
+    got = mac_gemm(a.to(cuda), b.to(cuda))
+    assert torch.equal(got.cpu(), mac_gemm_ref(a, b))
+
+
 def test_wrapper_rejects_non_contiguous(cuda):
     x = torch.zeros(64, dtype=torch.int32, device=cuda)[::2]
     with pytest.raises(ValueError, match="contiguous"):
@@ -108,5 +158,42 @@ def test_card_run_matches_cpu_run(cuda):
         g = got[k].cpu()
         if w.is_floating_point() and k.startswith("e_"):
             torch.testing.assert_close(g, w, rtol=1e-6, atol=0)
+        else:
+            assert torch.equal(g, w), k
+
+
+def test_card_event_run_matches_cpu_run(cuda):
+    """The same ring in event mode (event tick + event NoC accounting):
+    the card's records equal the CPU's and the card's dense run."""
+    graph = synfire_graph(64, noise_model="shot", device="cpu")
+    prog = compile(graph)
+    kw = dict(noc_mode="sparse", exec_mode="event")
+    reset_launch_counts()
+    got = ChipSim(prog, device=cuda, **kw).run(100)
+    counts = launch_counts()
+    want = ChipSim(prog, device="cpu", **kw).run(100)
+    dense = ChipSim(prog, device=cuda, noc_mode="sparse",
+                    exec_mode="dense").run(100)
+    assert counts["event_link_loads"] == counts["syn_accum"] == 100
+    assert counts["link_loads_csc"] == 0
+    for k, w in want.items():
+        assert torch.equal(got[k], dense[k]), k
+        g = got[k].cpu()
+        if w.is_floating_point() and k.startswith("e_"):
+            torch.testing.assert_close(g, w, rtol=1e-6, atol=0)
+        else:
+            assert torch.equal(g, w), k
+
+
+def test_card_hybrid_matches_cpu(cuda):
+    reset_launch_counts()
+    got = hybrid_workload(64, 16, n_ticks=100, device=cuda)
+    counts = launch_counts()
+    want = hybrid_workload(64, 16, n_ticks=100, device="cpu")
+    assert counts["mac_gemm"] >= 1 and counts["lif_step"] == 100
+    for k, w in want["recs"].items():
+        g = got["recs"][k].cpu()
+        if k.startswith("e_") or k in ("xhat", "hidden_out"):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
         else:
             assert torch.equal(g, w), k

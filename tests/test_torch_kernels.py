@@ -29,9 +29,9 @@ from repro.kernels.link_load.ref import link_loads_ref as j_link_loads_ref
 from repro_torch.core import snn
 from repro_torch.core.dvfs import DVFSController
 from repro_torch.core.energy import PEEnergyModel
-from repro_torch.kernels import (fx_exp, launch_counts, lif_step,
-                                 link_loads_csc, reset_launch_counts,
-                                 syn_accum)
+from repro_torch.kernels import (event_link_loads, fx_exp, launch_counts,
+                                 lif_step, link_loads_csc, mac_gemm,
+                                 reset_launch_counts, syn_accum)
 from repro_torch.kernels.explog.ref import LN2, LOG_TABLE, MAX_EXP_ARG
 from repro_torch.kernels.lif.ops import lif_params_fx
 from repro_torch.kernels.link_load.ref import link_loads_ref
@@ -73,7 +73,7 @@ def test_fx_exp_keeps_shape_and_alpha():
     x = _t(np.arange(-12, 12, dtype=np.int32).reshape(2, 3, 4) * 9000)
     assert fx_exp(x).shape == (2, 3, 4)
     kw = dict(tau_ms=10.0, v_th=1.0, v_reset=0.0, ref_ticks=2, v_min=-1.0)
-    assert lif_params_fx(**kw) == j_lif_params_fx(**kw)
+    assert lif_params_fx(**kw, device="cpu") == j_lif_params_fx(**kw)
 
 
 def test_explog_cuda_constants_match_the_plain_version():
@@ -222,8 +222,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
 def test_plain_versions_do_not_count_launches():
     reset_launch_counts()
     fx_exp(torch.zeros(4, dtype=torch.int32))
+    event_link_loads(torch.zeros(2, dtype=torch.int32), torch.ones(3),
+                     torch.zeros(3, 2, dtype=torch.int32), n_links=4)
+    mac_gemm(torch.ones(2, 3, dtype=torch.int8),
+             torch.ones(3, 2, dtype=torch.uint8))
     assert launch_counts() == {"fx_exp": 0, "lif_step": 0,
-                               "link_loads_csc": 0, "syn_accum": 0}
+                               "link_loads_csc": 0, "syn_accum": 0,
+                               "event_link_loads": 0, "mac_gemm": 0}
 
 
 # ------------------------------------------------------------------ tick pieces
@@ -239,7 +244,7 @@ def test_shot_noise_hash_matches_reference():
     seed32 = snn.shot_seed32(3)
     for t in (0, 1, 999, 2**30):
         np.testing.assert_array_equal(
-            snn.shot_noise_lanes(seed32, t, 4, 64 * 250).numpy(),
+            snn.shot_noise_lanes(seed32, t, 4, 64 * 250, "cpu").numpy(),
             np.asarray(jsnn.shot_noise_lanes(jnp.uint32(seed32), t, 4,
                                              64 * 250)))
 

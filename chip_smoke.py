@@ -54,8 +54,32 @@ farm, the DNN pipeline), and checks what comes out:
 10. parity  — the 256-PE shot-noise ring on the card and on the CPU
               (the default exec_mode, event at this size): integer
               records bitwise, float energies at rtol=1e-6.
+11. mac_efficiency — the port's Fig. 14/15 rows
+              (``repro_torch.bench.mac_efficiency``): the uint8 (64, 128)
+              x (128, 64) product through mac_gemm, bitwise, and every
+              modeled TOPS/W within 10 % of the paper's.
+12. dnn_layers — the port's Fig. 22/23 rows
+              (``repro_torch.bench.dnn_layers``): every layer at its full
+              published size, conv rows through mac_conv2d, FC rows
+              through mac_gemm, each bitwise against its plain version,
+              every speedup inside the band its row prints.
+13. elementary — fx_log / fx_log_float over 2^20 values, bitwise
+              against fx_log_ref, and the reference's accuracy bands
+              (within 3e-4 of ln over [1e-2, 6e4], x <= 0 flagged,
+              ln 1 = 0 +- 1).
+14. attention — a 4096-token causal prefill at GLM-4-9B's head layout
+              (32 heads of 128, bfloat16) through flash_attention_kernel
+              against its plain version (atol 4e-3, rtol 2^-7: one bf16
+              rounding), and float32 at S = 1024 (atol 2e-5, rtol 1e-4).
+    The kernel rows of these paths (mac_conv2d at VGG-16 conv3 and at
+    batch 32 of it, fx_log at 2^20 values, flash_attention_kernel at the
+    prefill shape and at float32 S = 1024) are timed as in phase 9; the
+    two integer kernels are held bitwise, flash at its tolerance; each
+    second shape is a kernel_check line of its own, nested in its
+    kernel's entry of the kernels line.
 
-Launch counters are zeroed just before each path's run (phases 3-8; the
+Launch counters are zeroed just before each path's run (phases 3-8 and
+11-14; the
 graph's build is part of the path, except in phase 5, which reuses phase
 4's net) and read just after; a kernel of that path that never launched
 fails the run.  Every phase prints one JSON line; any failed check
@@ -65,7 +89,9 @@ without a result when no CUDA device is present.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import subprocess
 import sys
@@ -80,6 +106,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
+from repro_torch.bench import dnn_layers, mac_efficiency  # noqa: E402
 from repro_torch.chip import ChipSim, chip_power_table, compile  # noqa: E402
 from repro_torch.chip.workloads import (hybrid_farm_graph,  # noqa: E402
                                         hybrid_workload, synfire_graph,
@@ -90,15 +117,21 @@ from repro_torch.core.dvfs import DVFSController  # noqa: E402
 from repro_torch.core.energy import PEEnergyModel  # noqa: E402
 from repro_torch.core.quant import quantize_per_axis  # noqa: E402
 from repro_torch.kernels import (_build, event_link_loads,  # noqa: E402
-                                 fx_exp, launch_counts, lif_step,
-                                 link_loads_csc, mac_gemm,
-                                 reset_launch_counts, syn_accum)
+                                 flash_attention_kernel, fx_exp, fx_log,
+                                 launch_counts, lif_step, link_loads_csc,
+                                 mac_conv2d, mac_gemm, reset_launch_counts,
+                                 syn_accum)
 from repro_torch.kernels.event_gather.ref import (  # noqa: E402
     event_link_loads_ref)
-from repro_torch.kernels.explog.ops import to_fx  # noqa: E402
-from repro_torch.kernels.explog.ref import fx_exp_ref  # noqa: E402
+from repro_torch.kernels.explog.ops import (from_fx, fx_log_float,  # noqa: E402
+                                            to_fx)
+from repro_torch.kernels.explog.ref import (FX_ONE, fx_exp_ref,  # noqa: E402
+                                            fx_log_ref)
+from repro_torch.kernels.flash_attn.ref import (  # noqa: E402
+    flash_attention_ref)
 from repro_torch.kernels.lif.ref import lif_step_ref  # noqa: E402
 from repro_torch.kernels.link_load.ref import link_loads_csc_ref  # noqa: E402
+from repro_torch.kernels.mac_conv.ref import mac_conv2d_ref  # noqa: E402
 from repro_torch.kernels.mac_gemm.ref import mac_gemm_ref  # noqa: E402
 from repro_torch.kernels.syn_accum.ref import (pack_spikes,  # noqa: E402
                                                popcount_words,
@@ -110,6 +143,7 @@ from repro_torch.kernels.syn_accum.ref import (pack_spikes,  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12
 CUDA_CORE_OPS_PER_S = 67e12
 INT8_TENSOR_OPS_PER_S = 1979e12
+BF16_TENSOR_OPS_PER_S = 989e12
 
 PAPER_TICKS, BOARD_PES, BOARD_TICKS = 1200, 4096, 300
 PARITY_PES, PARITY_TICKS = 256, 100
@@ -119,12 +153,22 @@ FARM_PAIRS, FARM_TICKS = 2048, 256
 GEMM_SAMPLE = 4096              # the int8 GEMM sample: 4096^3
 FLOAT_RTOL, FLOAT_ATOL, ENERGY_RTOL = 1e-5, 1e-6, 1e-6
 L2_FLUSH_BYTES = 256 << 20      # five times the H100's 50 MB L2
+LOG_SAMPLE = 1 << 20            # fx_log's check: 2^20 int32 values
+CONV_BATCH = 32                 # mac_conv2d's second check: VGG conv3 x 32
+# attention: GLM-4-9B's head layout (32 query heads of 128, KV expanded)
+ATTN_S, ATTN_H, ATTN_D, ATTN_F32_S = 4096, 32, 128, 1024
+# bf16: one bf16 rounding of the output (rtol 2^-7 is one ulp) plus a
+# small atol, far below the prefill's typical |o| of 0.03; f32: the
+# reference's test tolerance
+ATTN_TOL = {torch.bfloat16: (4e-3, 2 ** -7), torch.float32: (2e-5, 1e-4)}
 # device symbol of each wrapper's kernel (csrc/*.cu)
 KERNEL_SYMBOLS = {"lif_step": "lif_step_kernel", "fx_exp": "fx_exp_kernel",
                   "link_loads_csc": "link_loads_csc_kernel",
                   "syn_accum": "syn_accum_kernel",
                   "event_link_loads": "event_link_loads_kernel",
-                  "mac_gemm": "mac_gemm_kernel"}
+                  "mac_gemm": "mac_gemm_kernel", "fx_log": "fx_log_kernel",
+                  "mac_conv2d": "mac_conv_kernel",
+                  "flash_attention_kernel": "flash_attn_kernel"}
 
 
 def emit(phase: str, **fields) -> None:
@@ -258,6 +302,43 @@ def first_strong_ticks(recs: dict, n_pes: int) -> list:
     """Per PE, the first tick at which more than 100 exc neurons fire."""
     strong = (recs["spikes_exc"][:, :n_pes].sum(2) > 100).cpu().numpy()
     return [int(np.argmax(col)) if col.any() else -1 for col in strong.T]
+
+
+def kernel_row(rows: list, flush, name, source, replaces, call, plain, got,
+               want, nbytes, nops, iters, plain_iters, library=None,
+               main_bound_ms=None, in_tick=None,
+               ops_per_s=CUDA_CORE_OPS_PER_S, tol=None, prof_iters=20,
+               **extra) -> None:
+    """Hold ``name``'s kernel against its plain version (bitwise, or at
+    ``tol`` = (atol, rtol)) on ``got``/``want``, time it, its plain
+    version and ``library`` (one PyTorch call computing the same
+    function), and append and print its kernel_check row."""
+    err = max_abs_err(got, want)
+    if tol is None:
+        check(torch.equal(got, want), f"{name}: kernel != plain version")
+    else:
+        check(torch.allclose(got.float(), want.float(), atol=tol[0],
+                             rtol=tol[1]),
+              f"{name}: kernel != plain version at atol, rtol {tol}: "
+              f"max abs err {err}")
+    b_ms, b_by = bound_ms(nbytes, nops, ops_per_s)
+    ms = (kernel_device_ms(name, call, prof_iters, flush=flush)
+          or cuda_ms(call, iters, flush))
+    in_tick = in_tick or {}
+    rows.append(dict(
+        name=name, route="cuda", source=source, replaces=replaces,
+        max_abs_err=err, ms=ms,
+        warm_ms=kernel_device_ms(name, call, prof_iters),
+        call_ms=cuda_ms(call, iters),
+        plain_ms=cuda_ms(plain, plain_iters, flush),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=(cuda_ms(library, max(plain_iters, 20), flush)
+                    if library else None),
+        main_path_ms=in_tick.get("ms"),
+        main_path_launches_per_tick=in_tick.get("launches_per_tick"),
+        main_path_bound_ms=main_bound_ms if in_tick else None,
+        **({"tolerance": list(tol)} if tol else {}), **extra))
+    emit("kernel_check", **rows[-1])
 
 
 # ---------------------------------------------------------------- phases
@@ -438,28 +519,10 @@ def phase_kernels(dev, sim, prog, main: dict, main_event: dict,
         set bits, the (P, N) output."""
         return (P * (WE + WI) + n_e * N + n_i * NE + P * N) * 4
 
-    def record(name, source, replaces, call, plain, got, want, nbytes, nops,
-               iters, plain_iters, library=None, main_bound_ms=None,
-               in_tick=None, ops_per_s=CUDA_CORE_OPS_PER_S, **extra):
-        err = max_abs_err(got, want)
-        check(torch.equal(got, want), f"{name}: kernel != plain version")
-        b_ms, b_by = bound_ms(nbytes, nops, ops_per_s)
-        ms = (kernel_device_ms(name, call, flush=flush)
-              or cuda_ms(call, iters, flush))
-        in_tick = main.get(name, {}) if in_tick is None else in_tick
-        rows.append(dict(
-            name=name, route="cuda", source=source, replaces=replaces,
-            max_abs_err=err, ms=ms, warm_ms=kernel_device_ms(name, call),
-            call_ms=cuda_ms(call, iters),
-            plain_ms=cuda_ms(plain, plain_iters, flush),
-            bound_ms=b_ms, bound_by=b_by,
-            library_ms=(cuda_ms(library, max(plain_iters, 20), flush)
-                        if library else None),
-            main_path_ms=in_tick.get("ms"),
-            main_path_launches_per_tick=in_tick.get("launches_per_tick"),
-            main_path_bound_ms=main_bound_ms if in_tick else None,
-            **extra))
-        emit("kernel_check", **rows[-1])
+    def record(name, *args, in_tick=None, **kw):
+        kernel_row(rows, flush, name, *args,
+                   in_tick=main.get(name, {}) if in_tick is None else in_tick,
+                   **kw)
 
     # LIF over every neuron of the ring, with the net's parameters
     v = torch.from_numpy(gen.integers(-2 << 15, 2 << 15, (P, N), np.int32))
@@ -814,11 +877,229 @@ def phase_parity(dev) -> None:
          first_strong_ticks=first)
 
 
+def run_bench(bench, dev) -> tuple[list, dict, float]:
+    """Run a ``repro_torch.bench`` module's ``main`` on the card with its
+    CSV rows captured; returns the rows, the launch counts of the run and
+    its wall seconds."""
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rows = bench.main(device=dev)
+    torch.cuda.synchronize()
+    return rows, launch_counts(), time.perf_counter() - t0
+
+
+def csv_rows(rows: list) -> list:
+    return [f"{r['name']},{r['us_per_call']:.1f},{r['derived']}"
+            for r in rows]
+
+
+def phase_mac_efficiency(dev) -> dict:
+    """Fig. 14/15 through the port's bench module."""
+    rows, counts, run_s = run_bench(mac_efficiency, dev)
+    check_launched(counts, ("mac_gemm",), "mac_efficiency")
+    fig15 = [r for r in rows if "within10pct" in r["values"]]
+    check(len(fig15) == 3 and all(r["values"]["within10pct"] for r in fig15),
+          f"Fig. 15 model outside 10 %: {csv_rows(fig15)}")
+    emit("mac_efficiency", launches=counts, run_s=run_s,
+         rows=csv_rows(rows), fig15_vs_plain="bitwise")
+    return counts
+
+
+def phase_dnn_layers(dev) -> dict:
+    """Fig. 22/23 through the port's bench module, every layer at its
+    full published size."""
+    rows, counts, run_s = run_bench(dnn_layers, dev)
+    check_launched(counts, ("mac_conv2d", "mac_gemm"), "dnn_layers")
+    check(len(rows) == 2 * len(dnn_layers.LAYERS),
+          f"dnn_layers: {len(rows)} rows")
+    for (name, kind, g), row in zip(dnn_layers.LAYERS, rows[::2]):
+        full = ([[1, g["h"], g["w"], g["cin"]],
+                 [g["kh"], g["kw"], g["cin"], g["cout"]]] if kind == "conv"
+                else [[g["m"], g["k"]], [g["k"], g["n"]]])
+        check(row["values"]["shapes"] == full,
+              f"{name} ran at {row['values']['shapes']}, not {full}")
+    for row in rows:
+        lo, hi = row["values"]["speedup_band"]
+        check(lo <= row["values"]["speedup"] <= hi,
+              f"{row['name']}: speedup outside its band")
+    emit("dnn_layers", launches=counts, run_s=run_s, rows=csv_rows(rows),
+         layers_vs_plain="bitwise, full size")
+    return counts
+
+
+def phase_elementary(dev) -> tuple[dict, tuple]:
+    """fx_log and fx_log_float over 2^20 values: bitwise against the
+    plain version, and the reference's accuracy bands."""
+    gen = np.random.default_rng(13)
+    edge = np.array([-2**31, -5, -1, 0, 1, 2, FX_ONE - 1, FX_ONE,
+                     FX_ONE + 1, 2**31 - 1] + [2**k for k in range(31)])
+    x = np.concatenate([edge, gen.integers(-2**31, 2**31,
+                                           LOG_SAMPLE - edge.size)])
+    x = torch.from_numpy(x.astype(np.int32)).to(dev)
+    xf32 = gen.uniform(1e-2, 6e4, LOG_SAMPLE).astype(np.float32)
+    xf = torch.from_numpy(xf32).to(dev)
+    flags = torch.tensor([-5, 0, 1, FX_ONE], dtype=torch.int32, device=dev)
+    reset_launch_counts()
+    got, got_f, got_flags = fx_log(x), fx_log_float(xf), fx_log(flags)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check(counts["fx_log"] == 3, f"elementary launches {counts}")
+    want = fx_log_ref(x)
+    check(torch.equal(got, want), "fx_log != plain version")
+    want_f = from_fx(fx_log_ref(torch.round(xf * FX_ONE).to(torch.int32)))
+    check(torch.equal(got_f, want_f), "fx_log_float != plain version")
+    err = float(np.max(np.abs(got_f.cpu().numpy().astype(np.float64) - np.log(
+        np.round(xf32 * FX_ONE) / FX_ONE))))
+    check(err < 3e-4, f"fx_log_float: max |err| {err} vs ln")
+    fl = got_flags.cpu().tolist()
+    check(fl[0] < -(2**29) and fl[1] < -(2**29) and abs(fl[3]) <= 1,
+          f"fx_log flags {fl}")
+    emit("elementary", launches=counts, values=LOG_SAMPLE,
+         vs_plain="bitwise", log_max_abs_err_vs_ln=err, flags=fl)
+    return counts, (x, got, want)
+
+
+def attention_inputs(dev, s, dtype, seed):
+    """q, k, v (1, s, 32, 128) standard normal from a seeded generator
+    on the card."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn((1, s, ATTN_H, ATTN_D), generator=gen, device=dev,
+                        dtype=torch.float32).to(dtype) for _ in range(3)]
+
+
+def attention_plain(q, k, v, causal=True):
+    """The plain version on the op's (B, S, H, D) layout."""
+    B, S, H, D = q.shape
+    fold = lambda t: t.transpose(1, 2).reshape(B * H, S, D)
+    return flash_attention_ref(fold(q), fold(k), fold(v), causal=causal
+                               ).reshape(B, H, S, D).transpose(1, 2)
+
+
+def phase_attention(dev) -> tuple[dict, dict]:
+    """The GLM-4-9B-shaped causal prefill in bfloat16, and float32 at
+    S = 1024, through flash_attention_kernel against its plain version."""
+    ins = {torch.bfloat16: attention_inputs(dev, ATTN_S, torch.bfloat16, 0),
+           torch.float32: attention_inputs(dev, ATTN_F32_S, torch.float32,
+                                           1)}
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = {dt: flash_attention_kernel(*qkv) for dt, qkv in ins.items()}
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = launch_counts()
+    check(counts["flash_attention_kernel"] == 2, f"attention {counts}")
+    errs, wants = {}, {}
+    for dt, qkv in ins.items():
+        got = outs[dt]
+        want = wants[dt] = attention_plain(*qkv)
+        atol, rtol = ATTN_TOL[dt]
+        check(got.dtype == dt and got.shape == qkv[0].shape
+              and bool(torch.isfinite(got).all()), f"attention {dt} output")
+        errs[str(dt)] = max_abs_err(got, want)
+        check(torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol),
+              f"attention {dt}: max abs err {errs[str(dt)]}")
+    emit("attention", launches=counts, run_s=run_s,
+         shapes={"bfloat16": [1, ATTN_S, ATTN_H, ATTN_D],
+                 "float32": [1, ATTN_F32_S, ATTN_H, ATTN_D]},
+         causal=True, max_abs_err=errs,
+         tolerance={str(dt): tol for dt, tol in ATTN_TOL.items()})
+    return counts, {dt: (ins[dt], outs[dt], wants[dt]) for dt in ins}
+
+
+def phase_accel_kernels(dev, log: tuple, attn: dict) -> list:
+    """The kernel rows of phases 12-14 at their paths' shapes: mac_conv2d
+    at VGG-16 conv3 (and batch 32 of it), fx_log at phase 13's 2^20
+    values, flash_attention_kernel at phase 14's bf16 prefill (and its
+    float32 S = 1024); ``log`` and ``attn`` are those phases' inputs,
+    outputs and plain outputs."""
+    flush = l2_flusher(dev)
+    rows = []
+
+    # mac_conv2d at the Fig. 22/23 path's VGG-16 conv3 operands; library:
+    # im2col (Tensor.unfold + a copy) then torch._int_mm, two calls
+    layer = next(g for n, _, g in dnn_layers.LAYERS if n == "vgg16_conv3_256")
+    x, w = (torch.from_numpy(t).to(dev)
+            for t in dnn_layers.layer_operands("conv", layer, False))
+    KH, KW, Cin, Cout = w.shape
+    w_cm = w.reshape(-1, Cout).t().contiguous().t()   # column-major (K, N)
+
+    def im2col_int_mm(xx):
+        cols = xx.unfold(1, KH, 1).unfold(2, KW, 1)   # B,Ho,Wo,C,KH,KW
+        return torch._int_mm(cols.permute(0, 1, 2, 4, 5, 3).reshape(
+            -1, KH * KW * Cin), w_cm)
+
+    def conv_row(rows, xx, iters, plain_iters, prof_iters=20, **extra):
+        got, want = mac_conv2d(xx, w), mac_conv2d_ref(xx, w)
+        check(torch.equal(im2col_int_mm(xx), want.reshape(-1, Cout)),
+              "mac_conv2d: library call")
+        m, k = got.numel() // Cout, KH * KW * Cin
+        kernel_row(
+            rows, flush, "mac_conv2d", "src/repro_torch/csrc/mac_conv.cu",
+            "src/repro/kernels/mac_conv/mac_conv.py:27",
+            lambda: mac_conv2d(xx, w), lambda: mac_conv2d_ref(xx, w), got,
+            want, xx.numel() + w.numel() + got.numel() * 4, 2 * m * Cout * k,
+            iters, plain_iters, library=lambda: im2col_int_mm(xx),
+            ops_per_s=INT8_TENSOR_OPS_PER_S, prof_iters=prof_iters,
+            shape={"x": list(xx.shape), "w": list(w.shape),
+                   "padding": "VALID"},
+            library_call="Tensor.unfold + copy, torch._int_mm (two calls)",
+            **extra)
+        return rows[-1]
+    gen = np.random.default_rng(17)
+    xb = torch.from_numpy(gen.integers(-128, 128, (CONV_BATCH,) + tuple(
+        x.shape[1:]), np.int64).astype(np.int8)).to(dev)
+    at_b32 = conv_row([], xb, 5, 3, 5, shape_tag=f"batch {CONV_BATCH}")
+    del xb
+    conv_row(rows, x, 200, 20, main_path="Fig. 22/23 vgg16_conv3_256",
+             other_shapes=[at_b32])
+
+    # fx_log over the elementary path's 2^20 values
+    log_x, log_got, log_want = log
+    n = log_x.numel()
+    kernel_row(rows, flush, "fx_log", "src/repro_torch/csrc/explog.cu",
+               "src/repro/kernels/explog/explog.py:46",
+               lambda: fx_log(log_x), lambda: fx_log_ref(log_x), log_got,
+               log_want, 8 * n, 80 * n, 200, 20, elements=n,
+               main_path="elementary (fx_log op)")
+
+    # flash attention at the GLM-4-9B prefill (bf16), then float32 S=1024;
+    # library: scaled_dot_product_attention on the (B, H, S, D) views
+    def sdpa(q, k, v):
+        return torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True).transpose(1, 2)
+
+    def attn_row(rows, dt, ops_per_s, iters, **extra):
+        (q, k, v), got, want = attn[dt]
+        B, S, H, D = q.shape
+        kernel_row(
+            rows, flush, "flash_attention_kernel",
+            "src/repro_torch/csrc/flash_attn.cu",
+            "src/repro/kernels/flash_attn/flash_attn.py:32",
+            lambda: flash_attention_kernel(q, k, v),
+            lambda: attention_plain(q, k, v), got, want,
+            4 * q.numel() * q.element_size(), 2 * S * S * D * H * B, iters,
+            3, library=lambda: sdpa(q, k, v), ops_per_s=ops_per_s,
+            tol=ATTN_TOL[dt], prof_iters=5, shape=list(q.shape),
+            dtype=str(dt).removeprefix("torch."), causal=True,
+            library_call="scaled_dot_product_attention(is_causal=True)",
+            **extra)
+        return rows[-1]
+    at_f32 = attn_row([], torch.float32, CUDA_CORE_OPS_PER_S, 10)
+    attn_row(rows, torch.bfloat16, BF16_TENSOR_OPS_PER_S, 5,
+             main_path="attention (GLM-4-9B prefill)", other_shapes=[at_f32])
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
+    # the plain versions' float32 products in full float32, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     smi = phase_device()
     phase_build()
     paths = {"paper_chip_8pe": phase_paper(dev)}
@@ -833,10 +1114,18 @@ def main() -> int:
     paths["hybrid_farm_4096pe"], farm_rows, farm_links, farm_main = \
         phase_farm(dev)
     paths["dnn_pipeline"] = phase_dnn(dev)
+    paths["mac_efficiency"] = phase_mac_efficiency(dev)
+    paths["dnn_layers"] = phase_dnn_layers(dev)
+    paths["elementary"], log = phase_elementary(dev)
+    paths["attention"], attn = phase_attention(dev)
     rows = phase_kernels(dev, sim, prog, main, main_event, farm_rows,
                          farm_links, farm_main, encode_ops)
+    rows += phase_accel_kernels(dev, log, attn)
+    del log, attn
     # each kernel's launches on the path it was checked at
-    home = {"event_link_loads": "hybrid_farm_4096pe", "mac_gemm": "hybrid"}
+    home = {"event_link_loads": "hybrid_farm_4096pe", "mac_gemm": "hybrid",
+            "mac_conv2d": "dnn_layers", "fx_log": "elementary",
+            "flash_attention_kernel": "attention"}
     for row in rows:
         name = row["name"]
         row["launches"] = paths[home.get(name, "board_ring_4096pe")][name]

@@ -21,6 +21,7 @@
 // on the hybrid path's (600, 1) x (1, 256).  This first version uses the
 // CUDA cores' dp4a, not the tensor cores; mma/wgmma on s8/u8 is a later
 // step (PERF.md).
+#include "dp4a.cuh"
 #include "fixed_point.cuh"
 
 namespace {
@@ -28,21 +29,6 @@ namespace {
 constexpr int BM = 64, BN = 64, BK = 32, THREADS = 256;
 constexpr int KW = BK / 4;         // packed words per tile row
 constexpr int LD = KW + 1;         // padded row stride: no bank conflicts
-
-template <bool AS, bool BS>
-__device__ __forceinline__ int32_t dp4a(uint32_t a, uint32_t b, int32_t c) {
-  int32_t d;
-  if constexpr (AS && BS) {
-    asm("dp4a.s32.s32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
-  } else if constexpr (AS) {
-    asm("dp4a.s32.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
-  } else if constexpr (BS) {
-    asm("dp4a.u32.s32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
-  } else {
-    asm("dp4a.u32.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
-  }
-  return d;
-}
 
 }  // namespace
 

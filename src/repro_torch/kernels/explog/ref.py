@@ -1,10 +1,12 @@
-"""Plain PyTorch version of the s16.15 fixed-point exp accelerator.
+"""Plain PyTorch version of the s16.15 fixed-point exp/log accelerator.
 
-The SpiNNaker2 elementary-function algorithm: range reduction by ln 2, a
-15-step shift-add ladder over ln(1 + 2^-k), a first-order remainder and
-a saturating 2^n shift.  Computed in int64 with every int32 wrap of the
-reference made explicit (``wrap32``), so it is bit-identical to
-``repro.kernels.explog.ref.fx_exp_ref`` and to ``csrc/explog.cu``.
+The SpiNNaker2 elementary-function algorithm.  exp: range reduction by
+ln 2, a 15-step shift-add ladder over ln(1 + 2^-k), a first-order
+remainder and a saturating 2^n shift.  ln: normalisation to [1, 2) by
+shifts, the same ladder run the other way, a floor-divided first-order
+remainder.  Computed in int64 with every int32 wrap of the reference
+made explicit (``wrap32``), so both are bit-identical to
+``repro.kernels.explog.ref`` and to ``csrc/explog.cu``.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ LOG_TABLE = tuple(int(round(np.log1p(2.0 ** -k) * FX_ONE))
 
 MAX_EXP_ARG = 15 << FRAC                # overflow guard for s16.15 result
 INT32_MAX = 2**31 - 1
+LOG_BAD = -(2**30)                      # ln of x <= 0
 
 
 def wrap32(x: torch.Tensor) -> torch.Tensor:
@@ -46,3 +49,30 @@ def fx_exp_ref(x: torch.Tensor) -> torch.Tensor:
     up = torch.where(n >= 16, INT32_MAX, wrap32(y << n.clamp(0, 15)))
     down = y >> (-n).clamp(0, 31)
     return torch.where(n >= 0, up, down).to(torch.int32)
+
+
+def fx_log_ref(x: torch.Tensor) -> torch.Tensor:
+    """x: int32 s16.15, x > 0 -> ln(x) int32 s16.15 (x <= 0 -> -2^30)."""
+    x = x.to(torch.int64)
+    bad = x <= 0
+    z = x.clamp_min(1)
+    n = torch.zeros_like(z)               # z = x 2^-n, normalised to [1, 2)
+    for shift in (15, 8, 4, 2, 1):                     # downward
+        cond = z >= (FX_ONE << shift)
+        z = torch.where(cond, z >> shift, z)
+        n = torch.where(cond, n + shift, n)
+    for shift in (8, 4, 2, 1, 1):                      # upward
+        cond = z < (FX_ONE >> (shift - 1))
+        z = torch.where(cond, wrap32(z << shift), z)
+        n = torch.where(cond, n - shift, n)
+    acc = wrap32(n * LN2)
+    w = torch.full_like(z, FX_ONE)
+    for k in range(1, 16):
+        w_next = wrap32(w + (w >> k))
+        take = w_next <= z
+        w = torch.where(take, w_next, w)
+        acc = torch.where(take, wrap32(acc + LOG_TABLE[k - 1]), acc)
+    # first-order remainder: ln(z / w) ~ (z - w) / w, floor-divided
+    rem = torch.div(wrap32((z - w) << FRAC), w, rounding_mode="floor")
+    acc = wrap32(acc + rem)
+    return torch.where(bad, LOG_BAD, acc).to(torch.int32)

@@ -1,0 +1,58 @@
+"""``flash_attention_kernel`` wrapper (CPU: plain version, CUDA:
+``csrc/flash_attn.cu``).  No backward: the reference's kernel has none."""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels._wrap import on_cpu
+from repro_torch.kernels.flash_attn.ref import flash_attention_ref
+
+_ARGS = (ctypes.c_void_p,) * 4 + (ctypes.c_int32,) * 4 + (
+    ctypes.c_float, ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p)
+_DTYPES = (torch.float32, torch.bfloat16)
+MAX_HEAD_DIM = 128
+_MAX_HEADS = 65535                 # gridDim.y: one row of blocks per (b, h)
+
+
+def flash_attention_kernel(q, k, v, *, causal=True, bq=128, bk=128):
+    """q, k, v: (B, S, H, D) float32 or bfloat16, KV already expanded to
+    H heads -> (B, S, H, D) softmax attention in q's dtype, scale
+    1/sqrt(D), float32 inside.
+
+    ``bq`` and ``bk`` are the reference's query and kv block sizes, kept
+    for parity of the signature and ignored: the kernel's tiles are
+    64 x 64 and it bounds-checks any S, so its result does not depend on
+    them."""
+    if not (q.dtype == k.dtype == v.dtype and q.dtype in _DTYPES):
+        raise TypeError(f"flash_attention_kernel: q, k, v must all be "
+                        f"float32 or bfloat16, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"flash_attention_kernel: q, k, v must share one "
+                         f"(B, S, H, D) shape, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, S, H, D = q.shape
+    if on_cpu("flash_attention_kernel", q, k, v):
+        fold = lambda t: t.transpose(1, 2).reshape(B * H, S, D)
+        out = flash_attention_ref(fold(q), fold(k), fold(v), causal=causal)
+        return out.reshape(B, H, S, D).transpose(1, 2)
+    if not 0 < D <= MAX_HEAD_DIM or B * H > _MAX_HEADS:
+        raise ValueError(f"flash_attention_kernel: shape {tuple(q.shape)} "
+                         f"outside the kernel's limits (D <= "
+                         f"{MAX_HEAD_DIM}, B H <= {_MAX_HEADS})")
+    out = torch.empty_like(q)
+    if out.numel():
+        rc = _build.launcher("repro_flash_attn", _ARGS)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
+            H, D, 1.0 / math.sqrt(D), int(causal),
+            int(q.dtype == torch.bfloat16), _build.stream_ptr(q.device))
+        _build.check(rc, "flash_attention_kernel")
+        flash_attention_kernel.launches += 1
+    return out
+
+
+flash_attention_kernel.launches = 0

@@ -14,13 +14,16 @@ import torch
 
 from repro_torch.chip import ChipSim, compile
 from repro_torch.chip.workloads import hybrid_workload, synfire_graph
-from repro_torch.kernels import (event_link_loads, fx_exp, launch_counts,
-                                 lif_step, link_loads_csc, mac_gemm,
+from repro_torch.kernels import (event_link_loads, flash_attention_kernel,
+                                 fx_exp, fx_log, launch_counts, lif_step,
+                                 link_loads_csc, mac_conv2d, mac_gemm,
                                  reset_launch_counts, syn_accum)
 from repro_torch.kernels.event_gather.ref import event_link_loads_ref
-from repro_torch.kernels.explog.ref import fx_exp_ref
+from repro_torch.kernels.explog.ref import FX_ONE, fx_exp_ref, fx_log_ref
+from repro_torch.kernels.flash_attn.ref import flash_attention_ref
 from repro_torch.kernels.lif.ref import lif_step_ref
 from repro_torch.kernels.link_load.ref import link_loads_csc_ref
+from repro_torch.kernels.mac_conv.ref import mac_conv2d_ref
 from repro_torch.kernels.mac_gemm.ref import mac_gemm_ref
 from repro_torch.kernels.syn_accum.ref import syn_accum_ref
 
@@ -135,6 +138,92 @@ def test_mac_gemm_kernel(cuda, a_t, b_t, m, k, n):
     a, b = operand((m, k), a_t), operand((k, n), b_t)
     got = mac_gemm(a.to(cuda), b.to(cuda))
     assert torch.equal(got.cpu(), mac_gemm_ref(a, b))
+
+
+def test_fx_log_kernel(cuda):
+    rng = np.random.default_rng(6)
+    edges = [I32.min, -5, -1, 0, 1, 2, FX_ONE - 1, FX_ONE, FX_ONE + 1,
+             I32.max] + [1 << k for k in range(31)]
+    x = torch.cat([torch.tensor(edges, dtype=torch.int32),
+                   _ints(rng, 1 << 20), _ints(rng, 1 << 16, 1, 1 << 22)])
+    before = fx_log.launches
+    got = fx_log(x.to(cuda))
+    torch.cuda.synchronize()
+    assert fx_log.launches == before + 1
+    assert torch.equal(got.cpu(), fx_log_ref(x))
+
+
+CONV_CASES = [
+    ((1, 8, 8, 16), (3, 3, 16, 32), (1, 1), "VALID"),
+    ((2, 16, 16, 8), (3, 3, 8, 64), (1, 1), "SAME"),
+    ((1, 28, 28, 1), (5, 5, 1, 6), (1, 1), "VALID"),
+    ((1, 14, 14, 64), (1, 1, 64, 128), (1, 1), "VALID"),
+    ((1, 16, 16, 16), (3, 3, 16, 32), (2, 2), "SAME"),
+    ((1, 32, 32, 3), (3, 3, 3, 130), (1, 1), "SAME"),
+    ((1, 7, 9, 4), (2, 4, 4, 8), (1, 2), "VALID"),
+]
+
+
+def _bytes(rng, shape, dtype):
+    lo, hi = (-128, 127) if dtype == torch.int8 else (0, 255)
+    return torch.from_numpy(rng.integers(lo, hi, shape, np.int64,
+                                         endpoint=True)).to(dtype)
+
+
+@pytest.mark.parametrize("xs,ws,stride,pad", CONV_CASES)
+def test_mac_conv2d_kernel(cuda, xs, ws, stride, pad):
+    rng = np.random.default_rng(sum(xs) + sum(ws))
+    x, w = _bytes(rng, xs, torch.int8), _bytes(rng, ws, torch.int8)
+    got = mac_conv2d(x.to(cuda), w.to(cuda), stride=stride, padding=pad)
+    assert torch.equal(got.cpu(), mac_conv2d_ref(x, w, stride=stride,
+                                                 padding=pad))
+
+
+@pytest.mark.parametrize("x_t,w_t", [(torch.int8, torch.int8),
+                                     (torch.uint8, torch.uint8),
+                                     (torch.int8, torch.uint8),
+                                     (torch.uint8, torch.int8)])
+def test_mac_conv2d_kernel_signedness(cuda, x_t, w_t):
+    rng = np.random.default_rng(8)
+    x, w = _bytes(rng, (2, 23, 19, 40), x_t), _bytes(rng, (3, 3, 40, 70),
+                                                      w_t)
+    got = mac_conv2d(x.to(cuda), w.to(cuda), stride=(2, 1), padding="SAME")
+    assert torch.equal(got.cpu(), mac_conv2d_ref(x, w, stride=(2, 1),
+                                                 padding="SAME"))
+
+
+# bfloat16: one rounding of the output (rtol 2^-7 is one bf16 ulp)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, (2e-5, 1e-4)),
+                                       (torch.bfloat16, (4e-3, 2 ** -7))])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("bq,bk", [(32, 32), (128, 64)])
+@pytest.mark.parametrize("shape", [(2, 64, 2, 16), (1, 200, 3, 128),
+                                   (1, 130, 2, 40)])
+def test_flash_attention_kernel(cuda, shape, bq, bk, causal, dtype, tol):
+    B, S, H, D = shape
+    gen = torch.Generator().manual_seed(S + D)
+    q, k, v = (torch.randn(shape, generator=gen).to(dtype)
+               for _ in range(3))
+    got = flash_attention_kernel(q.to(cuda), k.to(cuda), v.to(cuda),
+                                 causal=causal, bq=bq, bk=bk)
+    assert got.dtype == dtype
+    fold = lambda t: t.transpose(1, 2).reshape(B * H, S, D)
+    want = flash_attention_ref(fold(q), fold(k), fold(v), causal=causal)
+    want = want.reshape(B, H, S, D).transpose(1, 2)
+    torch.testing.assert_close(got.cpu().float(), want.float(),
+                               atol=tol[0], rtol=tol[1])
+
+
+def test_new_kernels_count_their_launches(cuda):
+    reset_launch_counts()
+    fx_log(torch.ones(5, dtype=torch.int32, device=cuda))
+    mac_conv2d(torch.ones(1, 4, 4, 2, dtype=torch.uint8, device=cuda),
+               torch.ones(2, 2, 2, 3, dtype=torch.int8, device=cuda))
+    flash_attention_kernel(*[torch.ones(1, 4, 1, 8, device=cuda)] * 3)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["fx_log"] == counts["mac_conv2d"] == \
+        counts["flash_attention_kernel"] == 1
 
 
 def test_wrapper_rejects_non_contiguous(cuda):

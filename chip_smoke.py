@@ -10,7 +10,10 @@ synfire main path ``synfire_graph`` -> ``compile`` -> ``ChipSim.run`` ->
 farm, the DNN pipeline), and checks what comes out:
 
 1. device   — card name and count, torch/CUDA versions, nvidia-smi.
-2. build    — nvcc build of every kernel, its wall time and registers.
+2. build    — nvcc build of every kernel, its wall time and registers,
+              and the tensor-core instructions of each kernel's SASS
+              (cuobjdump): every instantiation of the bf16 flash kernel
+              and of mac_gemm's four signedness pairings must hold some.
 3. paper    — the 8-PE test chip (Gaussian noise, dense NoC), 1200 ticks:
               80-tick wave on every PE and the Table III bands.
 4. board    — the 4096-PE ring at the uncut Table II widths (shot noise,
@@ -40,14 +43,20 @@ farm, the DNN pipeline), and checks what comes out:
 9. kernels  — each kernel against its plain PyTorch version, bitwise, on
               the card at its path's shapes (the 4096-PE ring's weights
               and incidence, the farm's padded rows, the hybrid encode's
-              operands, plus an int8 4096^3 and the Fig. 15 uint8 GEMM).
+              operands; mac_gemm also at int8 4096^3, the Fig. 15 uint8
+              (64,128)x(128,64), the Fig. 22/23 FC tile 1x4096x512 and
+              uint8 255s at 64x40000x64, whose sums wrap int32, each a
+              kernel_check line nested in its entry of the kernels line).
               ``ms`` is the kernel's own device time per launch
               (torch.profiler) with the L2 cache flushed before every
               launch, as a tick reads its inputs cold; ``warm_ms`` is
               the same back to back, with the inputs left in L2;
               ``call_ms`` is one wrapper call back to back (CUDA events,
-              host included); the plain version and one PyTorch library
-              call (where there is one) are timed with L2 flushed;
+              host included); an op that launches a pass besides its
+              kernel (mac_gemm's operand pack) counts both in ``ms`` and
+              the pass alone in ``pass_ms``;
+              the plain version and one PyTorch library call (where
+              there is one) are timed with L2 flushed;
               ``bound_ms`` is the least time the card could take.
               ``main_path_ms`` is the device time per launch in the
               profiled ticks, beside the bound of those ticks' data.
@@ -93,6 +102,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import re
 import subprocess
 import sys
 import time
@@ -155,20 +165,37 @@ FLOAT_RTOL, FLOAT_ATOL, ENERGY_RTOL = 1e-5, 1e-6, 1e-6
 L2_FLUSH_BYTES = 256 << 20      # five times the H100's 50 MB L2
 LOG_SAMPLE = 1 << 20            # fx_log's check: 2^20 int32 values
 CONV_BATCH = 32                 # mac_conv2d's second check: VGG conv3 x 32
+# mac_gemm's wrap check: uint8 255s summed over K = 40000 leave int32;
+# the reference's int32 matmul keeps the low 32 bits
+WRAP_K = 40000
+WRAP_VALUE = (WRAP_K * 255 * 255 + 2**31) % 2**32 - 2**31
 # attention: GLM-4-9B's head layout (32 query heads of 128, KV expanded)
 ATTN_S, ATTN_H, ATTN_D, ATTN_F32_S = 4096, 32, 128, 1024
 # bf16: one bf16 rounding of the output (rtol 2^-7 is one ulp) plus a
 # small atol, far below the prefill's typical |o| of 0.03; f32: the
 # reference's test tolerance
 ATTN_TOL = {torch.bfloat16: (4e-3, 2 ** -7), torch.float32: (2e-5, 1e-4)}
-# device symbol of each wrapper's kernel (csrc/*.cu)
-KERNEL_SYMBOLS = {"lif_step": "lif_step_kernel", "fx_exp": "fx_exp_kernel",
-                  "link_loads_csc": "link_loads_csc_kernel",
-                  "syn_accum": "syn_accum_kernel",
-                  "event_link_loads": "event_link_loads_kernel",
-                  "mac_gemm": "mac_gemm_kernel", "fx_log": "fx_log_kernel",
-                  "mac_conv2d": "mac_conv_kernel",
-                  "flash_attention_kernel": "flash_attn_kernel"}
+# device symbols of each wrapper's kernels (csrc/*.cu), as regular
+# expressions on the profiler's kernel names: the kernel each call
+# launches once, and the passes a call launches besides it, which count
+# in the op's device time (mac_gemm: the operand pack of its tensor-core
+# path, which transposes B and zeroes a split-K output; K <= 32 takes the
+# dp4a kernel alone)
+KERNEL_SYMBOLS = {"lif_step": r"\blif_step_kernel\b",
+                  "fx_exp": r"\bfx_exp_kernel\b",
+                  "link_loads_csc": r"\blink_loads_csc_kernel\b",
+                  "syn_accum": r"\bsyn_accum_kernel\b",
+                  "event_link_loads": r"\bevent_link_loads_kernel\b",
+                  "mac_gemm": r"\bmac_gemm(_dp4a)?_kernel\b",
+                  "fx_log": r"\bfx_log_kernel\b",
+                  "mac_conv2d": r"\bmac_conv_kernel\b",
+                  "flash_attention_kernel": r"\bflash_attn(_wgmma)?_kernel\b"}
+PASS_SYMBOLS = {"mac_gemm": r"\bmac_gemm_pack_kernel\b"}
+# tensor-core SASS: wgmma is HGMMA (bf16) / IGMMA (int8), mma.sync is
+# HMMA / IMMA; the kernels (symbol in the mangled name: instantiations)
+# whose every instantiation must hold some
+TENSOR_CORE_OPS = ("HGMMA", "IGMMA", "HMMA", "IMMA")
+TENSOR_CORE_KERNELS = {"flash_attn_wgmma_kernel": 4, "mac_gemm_kernel": 4}
 
 
 def emit(phase: str, **fields) -> None:
@@ -237,20 +264,26 @@ def device_kernels(fn, iters: int) -> tuple[dict, float]:
     return kernels, wall_us
 
 
-def per_launch_ms(kernels: dict, name: str):
+def per_launch_ms(kernels: dict, name: str, passes_only: bool = False):
     """(launches, mean device ms per launch) of ``name``'s kernel in a
-    profile from ``device_kernels``; (0, None) when it is not there."""
-    hits = [(n, us) for key, (n, us) in kernels.items()
-            if KERNEL_SYMBOLS[name] in key]
-    launches = sum(n for n, _ in hits)
-    return launches, (sum(us for _, us in hits) / launches / 1e3
-                      if launches else None)
+    profile from ``device_kernels``, the passes a call adds included (or,
+    with ``passes_only``, those passes alone); (0, None) when it is not
+    there."""
+    launches, us, pass_us = 0, 0.0, 0.0
+    for key, (n, t) in kernels.items():
+        if re.search(KERNEL_SYMBOLS[name], key):
+            launches, us = launches + n, us + t
+        elif name in PASS_SYMBOLS and re.search(PASS_SYMBOLS[name], key):
+            pass_us += t
+    total = pass_us if passes_only else us + pass_us
+    return launches, (total / launches / 1e3 if launches else None)
 
 
 def kernel_device_ms(name: str, fn, iters: int = 20, flush=None):
-    """Mean device time of one launch of ``name``'s kernel, with
-    ``flush()`` before each call when given (the flush's own kernel is
-    not counted), or None when the profiler recorded no such kernel."""
+    """Mean device time of one launch of ``name``'s kernel (see
+    ``per_launch_ms``), with ``flush()`` before each call when given (the
+    flush's own kernel is not counted), or None when the profiler
+    recorded no such kernel."""
     call = fn if flush is None else (lambda: (flush(), fn()))
     return per_launch_ms(device_kernels(call, iters)[0], name)[1]
 
@@ -322,8 +355,8 @@ def kernel_row(rows: list, flush, name, source, replaces, call, plain, got,
               f"{name}: kernel != plain version at atol, rtol {tol}: "
               f"max abs err {err}")
     b_ms, b_by = bound_ms(nbytes, nops, ops_per_s)
-    ms = (kernel_device_ms(name, call, prof_iters, flush=flush)
-          or cuda_ms(call, iters, flush))
+    cold = device_kernels(lambda: (flush(), call()), prof_iters)[0]
+    ms = per_launch_ms(cold, name)[1] or cuda_ms(call, iters, flush)
     in_tick = in_tick or {}
     rows.append(dict(
         name=name, route="cuda", source=source, replaces=replaces,
@@ -337,7 +370,9 @@ def kernel_row(rows: list, flush, name, source, replaces, call, plain, got,
         main_path_ms=in_tick.get("ms"),
         main_path_launches_per_tick=in_tick.get("launches_per_tick"),
         main_path_bound_ms=main_bound_ms if in_tick else None,
-        **({"tolerance": list(tol)} if tol else {}), **extra))
+        **({"tolerance": list(tol)} if tol else {}),
+        **({"pass_ms": per_launch_ms(cold, name, passes_only=True)[1]}
+           if name in PASS_SYMBOLS else {}), **extra))
     emit("kernel_check", **rows[-1])
 
 
@@ -353,13 +388,41 @@ def phase_device() -> str:
     return smi[0] if smi else "nvidia-smi gave no output"
 
 
+def tensor_core_sass(lib: Path) -> dict:
+    """Per kernel function of the built library (mangled name), the count
+    of each tensor-core instruction in its SASS (``cuobjdump -sass``)."""
+    cuobjdump = Path(_build.nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            fn = counts.setdefault(head.group(1), {})
+            continue
+        op = re.search(r"\b(" + "|".join(TENSOR_CORE_OPS) + r")\b", line)
+        if op and fn is not None:
+            fn[op.group(1)] = fn.get(op.group(1), 0) + 1
+    return counts
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     _build.library()
     regs = [ln.strip() for ln in _build.build_log.splitlines()
             if "registers" in ln]
+    sass = tensor_core_sass(_build.build())
+    tc = {fn: ops for fn, ops in sass.items() if ops}
+    for symbol, want in TENSOR_CORE_KERNELS.items():
+        fns = [fn for fn in sass if symbol in fn]
+        check(len(fns) == want and all(sass[fn] for fn in fns),
+              f"build: {symbol} has {len(fns)} instantiations (want "
+              f"{want}), tensor-core instructions "
+              f"{[sass[fn] for fn in fns]}")
     emit("build", seconds=time.perf_counter() - t0,
-         nvcc_seconds=_build.build_seconds, ptxas=regs)
+         nvcc_seconds=_build.build_seconds, ptxas=regs,
+         tensor_core_sass=tc)
 
 
 def phase_paper(dev) -> dict:
@@ -648,58 +711,70 @@ def phase_kernels(dev, sim, prog, main: dict, main_event: dict,
            ring_in_tick_ms=ring_ev["ms"],
            ring_active_sources=ring_ev["active_sources"])
 
-    # the int8 MAC GEMM at the hybrid encode's shape, then an int8
-    # 4096^3 product and the paper's Fig. 15 uint8 (64,128)x(128,64)
-    xq, enc_q = encode_ops
-    M, K = xq.shape
-    Nn = enc_q.shape[1]
+    # the int8 MAC GEMM at the hybrid encode's shape; other shapes: an
+    # int8 4096^3 product, the paper's Fig. 15 uint8 (64,128)x(128,64),
+    # the Fig. 22/23 FC tile (1x4096x512 int8) and uint8 255s at
+    # 64x40000x64, whose sums wrap int32
+    def gemm_row(rows, a, b, iters, plain_iters, library=None,
+                 library_call=None, prof_iters=20, **extra):
+        got, want = mac_gemm(a, b), mac_gemm_ref(a, b)
+        if library is not None:
+            check(torch.equal(library(), want), "mac_gemm: library call")
+        (m, k), n = a.shape, b.shape[1]
+        kernel_row(
+            rows, flush, "mac_gemm", "src/repro_torch/csrc/mac_gemm.cu",
+            "src/repro/kernels/mac_gemm/mac_gemm.py:30",
+            lambda: mac_gemm(a, b), lambda: mac_gemm_ref(a, b), got, want,
+            m * k + k * n + m * n * 4, 2 * m * n * k, iters, plain_iters,
+            library=library, ops_per_s=INT8_TENSOR_OPS_PER_S, in_tick={},
+            prof_iters=prof_iters, shape=[m, k, n],
+            dtypes=[str(t.dtype).removeprefix("torch.") for t in (a, b)],
+            library_call=library_call, **extra)
+        return rows[-1]
 
-    def gemm_cost(m, k, n, nbytes=1):
-        return (m * k + k * n) * nbytes + m * n * 4, 2 * m * n * k
-
+    def operand(shape, dtype):
+        lo, hi = (-128, 128) if dtype == torch.int8 else (0, 256)
+        return torch.from_numpy(gen.integers(lo, hi, shape, np.int64)).to(
+            dtype).to(dev)
     G = GEMM_SAMPLE
-    big_a = torch.from_numpy(gen.integers(-128, 128, (G, G),
-                                          np.int64)).to(torch.int8).to(dev)
-    big_b = torch.from_numpy(gen.integers(-128, 128, (G, G),
-                                          np.int64)).to(torch.int8).to(dev)
-    f15_a = torch.from_numpy(gen.integers(0, 256, (64, 128), np.int64)).to(
-        torch.uint8).to(dev)
-    f15_b = torch.from_numpy(gen.integers(0, 256, (128, 64), np.int64)).to(
-        torch.uint8).to(dev)
-    big_got, big_want = mac_gemm(big_a, big_b), mac_gemm_ref(big_a, big_b)
-    check(torch.equal(big_got, big_want), "mac_gemm: 4096^3 != plain")
+    big_a, big_b = operand((G, G), torch.int8), operand((G, G), torch.int8)
     big_b_cm = big_b.t().contiguous().t()   # column-major: cuBLASLt's "TN"
-    check(torch.equal(torch._int_mm(big_a, big_b_cm), big_want),
-          "mac_gemm: library call")
-    f15_got, f15_want = mac_gemm(f15_a, f15_b), mac_gemm_ref(f15_a, f15_b)
-    check(torch.equal(f15_got, f15_want), "mac_gemm: Fig. 15 != plain")
-    big_cost, f15_cost = gemm_cost(G, G, G), gemm_cost(64, 128, 64)
-    main_cost = gemm_cost(M, K, Nn)
-    record("mac_gemm", "src/repro_torch/csrc/mac_gemm.cu",
-           "src/repro/kernels/mac_gemm/mac_gemm.py:30",
-           lambda: mac_gemm(xq, enc_q), lambda: mac_gemm_ref(xq, enc_q),
-           mac_gemm(xq, enc_q), mac_gemm_ref(xq, enc_q), *main_cost, 500, 50,
-           ops_per_s=INT8_TENSOR_OPS_PER_S, in_tick={},
-           shape=[M, K, Nn], main_path="hybrid encode (once per build)",
-           max_abs_err_4096=max_abs_err(big_got, big_want),
-           ms_4096=kernel_device_ms("mac_gemm", lambda: mac_gemm(big_a, big_b),
-                                    iters=5, flush=flush),
-           warm_ms_4096=kernel_device_ms(
-               "mac_gemm", lambda: mac_gemm(big_a, big_b), iters=5),
-           plain_ms_4096=cuda_ms(lambda: mac_gemm_ref(big_a, big_b), 3, flush),
-           library_ms_4096=cuda_ms(lambda: torch._int_mm(big_a, big_b_cm),
-                                   10, flush),
-           bound_ms_4096=bound_ms(*big_cost, INT8_TENSOR_OPS_PER_S)[0],
-           bound_by_4096=bound_ms(*big_cost, INT8_TENSOR_OPS_PER_S)[1],
-           max_abs_err_fig15=max_abs_err(f15_got, f15_want),
-           ms_fig15=kernel_device_ms("mac_gemm",
-                                     lambda: mac_gemm(f15_a, f15_b),
-                                     flush=flush),
-           warm_ms_fig15=kernel_device_ms("mac_gemm",
-                                          lambda: mac_gemm(f15_a, f15_b)),
-           plain_ms_fig15=cuda_ms(lambda: mac_gemm_ref(f15_a, f15_b), 20,
-                                  flush),
-           bound_ms_fig15=bound_ms(*f15_cost, INT8_TENSOR_OPS_PER_S)[0])
+    other = [gemm_row(
+        [], big_a, big_b, 10, 3, library=lambda: torch._int_mm(big_a,
+                                                               big_b_cm),
+        library_call="torch._int_mm, B transposed to column-major "
+                     "beforehand (not timed)", prof_iters=5,
+        shape_tag=f"int8 {G}^3")]
+    other.append(gemm_row(
+        [], operand((64, 128), torch.uint8), operand((128, 64), torch.uint8),
+        500, 50, library_call="none: torch._int_mm takes int8 only",
+        shape_tag="Fig. 15 uint8"))
+    fc = next(g for n, _, g in dnn_layers.LAYERS if n == "vgg16_fc_tile")
+    fc_a, fc_b = (torch.from_numpy(t).to(dev)
+                  for t in dnn_layers.layer_operands("mm", fc, False))
+    fc_b_cm = fc_b.t().contiguous().t()
+    try:
+        torch._int_mm(fc_a, fc_b_cm)
+        fc_lib = {"library": lambda: torch._int_mm(fc_a, fc_b_cm),
+                  "library_call": "torch._int_mm, B column-major"}
+    except RuntimeError as err:
+        fc_lib = {"library_call": f"none: torch._int_mm refuses M = 1 "
+                                  f"({str(err).splitlines()[0][:120]})"}
+    other.append(gemm_row([], fc_a, fc_b, 200, 20,
+                          shape_tag="Fig. 22/23 vgg16_fc_tile", **fc_lib))
+    wrap_a = torch.full((64, WRAP_K), 255, dtype=torch.uint8, device=dev)
+    wrap_b = torch.full((WRAP_K, 64), 255, dtype=torch.uint8, device=dev)
+    wrap = gemm_row([], wrap_a, wrap_b, 50, 5,
+                    library_call="none: torch._int_mm takes int8 only",
+                    shape_tag="uint8 255s, int32 wrap")
+    check(torch.equal(mac_gemm(wrap_a, wrap_b), torch.full(
+        (64, 64), WRAP_VALUE, dtype=torch.int32, device=dev)),
+          "mac_gemm: the 255s product is not the wrapped int32 sum")
+    other.append(wrap)
+    xq, enc_q = encode_ops
+    gemm_row(rows, xq, enc_q, 500, 50,
+             library_call="none: torch._int_mm needs K % 8 = 0",
+             main_path="hybrid encode (once per build)", other_shapes=other)
     return rows
 
 
@@ -989,7 +1064,7 @@ def phase_attention(dev) -> tuple[dict, dict]:
     run_s = time.perf_counter() - t0
     counts = launch_counts()
     check(counts["flash_attention_kernel"] == 2, f"attention {counts}")
-    errs, wants = {}, {}
+    errs, shares, wants = {}, {}, {}
     for dt, qkv in ins.items():
         got = outs[dt]
         want = wants[dt] = attention_plain(*qkv)
@@ -999,11 +1074,14 @@ def phase_attention(dev) -> tuple[dict, dict]:
         errs[str(dt)] = max_abs_err(got, want)
         check(torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol),
               f"attention {dt}: max abs err {errs[str(dt)]}")
+        shares[str(dt)] = float(((got.float() - want.float()).abs() / (
+            atol + rtol * want.float().abs())).max())
     emit("attention", launches=counts, run_s=run_s,
          shapes={"bfloat16": [1, ATTN_S, ATTN_H, ATTN_D],
                  "float32": [1, ATTN_F32_S, ATTN_H, ATTN_D]},
          causal=True, max_abs_err=errs,
-         tolerance={str(dt): tol for dt, tol in ATTN_TOL.items()})
+         tolerance={str(dt): tol for dt, tol in ATTN_TOL.items()},
+         limit_share=shares)
     return counts, {dt: (ins[dt], outs[dt], wants[dt]) for dt in ins}
 
 

@@ -4,9 +4,11 @@ The reference's per-tap sum: for each of the KH x KW taps, one product of
 the strided input slice with that tap's (Cin, Cout) weights.  PyTorch's
 CUDA matmul has no integer path, so it runs in float64: every product of
 two 8-bit operands is an integer of at most 255**2, and every partial sum
-stays an integer below 2**53 while KH * KW * Cin * 255**2 < 2**53, so the
-sum is exact in any order.  The result equals the reference's int32 sum
-whenever that does not wrap (|sum| < 2**31).
+stays an integer below 2**53 while KH * KW * Cin * 255**2 < 2**53 (a
+reduction below about 1.4e11), so the sum is exact in any order.  The
+exact sum goes through int64 to int32, which keeps its low 32 bits: the
+two's-complement wrap of the reference's int32 sum, also once it leaves
+the int32 range.  A float64 -> int32 cast would saturate instead.
 """
 from __future__ import annotations
 
@@ -41,7 +43,8 @@ def conv_geometry(H, W, KH, KW, stride, padding):
 
 def mac_conv2d_ref(x, w, *, stride=(1, 1), padding="VALID"):
     """x: (B, H, W, Cin) int8/uint8; w: (KH, KW, Cin, Cout) int8/uint8
-    -> (B, Ho, Wo, Cout) int32, exact (see the module docstring)."""
+    -> (B, Ho, Wo, Cout) int32, the exact sum wrapped to int32 (see the
+    module docstring)."""
     B, H, W, Cin = x.shape
     KH, KW, _, Cout = w.shape
     sh, sw = stride
@@ -55,4 +58,4 @@ def mac_conv2d_ref(x, w, *, stride=(1, 1), padding="VALID"):
             patch = xf[:, dh:dh + sh * (Ho - 1) + 1:sh,
                        dw:dw + sw * (Wo - 1) + 1:sw, :]
             out += patch @ wf[dh, dw]
-    return out.to(torch.int32)
+    return out.to(torch.int64).to(torch.int32)

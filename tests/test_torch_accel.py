@@ -232,6 +232,37 @@ def test_flash_attention_bf16_io():
     np.testing.assert_allclose(got.float().numpy(), want, **BF16_TOL)
 
 
+CARD_BF16_TOL = dict(atol=4e-3, rtol=2 ** -7)   # chip_smoke.py's ATTN_TOL
+
+
+def _bf16_kernel_arithmetic(q, k, v, causal):
+    """The bfloat16 tensor-core kernel's arithmetic, written out on
+    (B, S, H, D) bf16 tensors: Q K^T in float32 from the bf16 values, p in
+    float32 and rounded to bf16 before P V, l summed from the float32 p,
+    one bf16 rounding of the output."""
+    B, S, H, D = q.shape
+    qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) / np.float32(np.sqrt(D))
+    if causal:
+        s = s.masked_fill(torch.ones(S, S, dtype=torch.bool).triu(1), -1e30)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    out = torch.einsum("bhqk,bhkd->bhqd", p.bfloat16().float(), vf)
+    return (out / p.sum(-1, keepdim=True)).bfloat16().transpose(1, 2)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", [(1, 512, 2, 128), (2, 130, 3, 40)])
+def test_flash_bf16_p_rounding_stays_in_card_tolerance(shape, causal):
+    """Rounding p to bf16 before P V keeps the result within the card's
+    bf16 limit of the reference (float32 on the same bf16 inputs)."""
+    rng = np.random.default_rng(sum(shape))
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).bfloat16() for _ in range(3))
+    got = _bf16_kernel_arithmetic(q, k, v, causal)
+    want = _j_attention(*(t.float().numpy() for t in (q, k, v)), causal)
+    np.testing.assert_allclose(got.float().numpy(), want, **CARD_BF16_TOL)
+
+
 def test_flash_attention_matches_pallas():
     rng = np.random.default_rng(6)
     q, k, v = (rng.standard_normal((1, 128, 2, 16)).astype(np.float32)

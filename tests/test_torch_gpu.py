@@ -127,7 +127,11 @@ def test_event_link_loads_kernel(cuda):
                                      (torch.int8, torch.uint8),
                                      (torch.uint8, torch.int8)])
 @pytest.mark.parametrize("m,k,n", [(600, 1, 256), (37, 45, 29),
-                                   (64, 128, 64), (1000, 777, 513)])
+                                   (64, 128, 64), (1000, 777, 513),
+                                   (1, 400, 120), (1, 4096, 512),
+                                   (129, 65, 257), (128, 128, 128),
+                                   (300, 1000, 70), (70, 32, 90),
+                                   (70, 33, 90)])
 def test_mac_gemm_kernel(cuda, a_t, b_t, m, k, n):
     rng = np.random.default_rng(m + k + n)
 
@@ -138,6 +142,38 @@ def test_mac_gemm_kernel(cuda, a_t, b_t, m, k, n):
     a, b = operand((m, k), a_t), operand((k, n), b_t)
     got = mac_gemm(a.to(cuda), b.to(cuda))
     assert torch.equal(got.cpu(), mac_gemm_ref(a, b))
+
+
+@pytest.mark.parametrize("k", [64, 45])
+def test_mac_gemm_kernel_unaligned_a(cuda, k):
+    """A whose rows are not 16-byte aligned (a view one byte into its
+    storage) goes through the kernel's padded copy of A."""
+    rng = np.random.default_rng(k)
+    flat = torch.from_numpy(rng.integers(-128, 127, 70 * k + 1, np.int64,
+                                         endpoint=True)).to(torch.int8)
+    a = flat.to(cuda)[1:].view(70, k)
+    b = torch.from_numpy(rng.integers(-128, 127, (k, 90), np.int64,
+                                      endpoint=True)).to(torch.int8)
+    assert a.data_ptr() % 16
+    got = mac_gemm(a, b.to(cuda))
+    assert torch.equal(got.cpu(), mac_gemm_ref(flat[1:].view(70, k), b))
+
+
+# operands that fill every sum past the int32 range: the kernel wraps as
+# the reference's int32 accumulation (and the plain version) does
+WRAP_GEMMS = [(255, (2, 40000), (40000, 3), torch.uint8),
+              (-128, (1, 140000), (140000, 1), torch.int8),
+              (255, (64, 40000), (40000, 64), torch.uint8)]
+
+
+@pytest.mark.parametrize("fill,a_shape,b_shape,dtype", WRAP_GEMMS)
+def test_mac_gemm_kernel_wraps(cuda, fill, a_shape, b_shape, dtype):
+    a = torch.full(a_shape, fill, dtype=dtype)
+    b = torch.full(b_shape, fill, dtype=dtype)
+    want = mac_gemm_ref(a, b)
+    assert (want.long() == (a_shape[1] * fill * fill + 2**31) % 2**32
+            - 2**31).all()
+    assert torch.equal(mac_gemm(a.to(cuda), b.to(cuda)).cpu(), want)
 
 
 def test_fx_log_kernel(cuda):
@@ -179,6 +215,16 @@ def test_mac_conv2d_kernel(cuda, xs, ws, stride, pad):
                                                  padding=pad))
 
 
+@pytest.mark.parametrize("xs,ws,pad", [
+    ((1, 2, 3, 40000), (1, 1, 40000, 2), "VALID"),
+    ((1, 4, 4, 3700), (3, 3, 3700, 2), "SAME")])
+def test_mac_conv2d_kernel_wraps(cuda, xs, ws, pad):
+    x = torch.full(xs, 255, dtype=torch.uint8)
+    w = torch.full(ws, 255, dtype=torch.uint8)
+    got = mac_conv2d(x.to(cuda), w.to(cuda), padding=pad)
+    assert torch.equal(got.cpu(), mac_conv2d_ref(x, w, padding=pad))
+
+
 @pytest.mark.parametrize("x_t,w_t", [(torch.int8, torch.int8),
                                      (torch.uint8, torch.uint8),
                                      (torch.int8, torch.uint8),
@@ -198,7 +244,7 @@ def test_mac_conv2d_kernel_signedness(cuda, x_t, w_t):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("bq,bk", [(32, 32), (128, 64)])
 @pytest.mark.parametrize("shape", [(2, 64, 2, 16), (1, 200, 3, 128),
-                                   (1, 130, 2, 40)])
+                                   (1, 130, 2, 40), (1, 97, 3, 20)])
 def test_flash_attention_kernel(cuda, shape, bq, bk, causal, dtype, tol):
     B, S, H, D = shape
     gen = torch.Generator().manual_seed(S + D)
@@ -212,6 +258,26 @@ def test_flash_attention_kernel(cuda, shape, bq, bk, causal, dtype, tol):
     want = want.reshape(B, H, S, D).transpose(1, 2)
     torch.testing.assert_close(got.cpu().float(), want.float(),
                                atol=tol[0], rtol=tol[1])
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [16, 40, 64, 128])
+@pytest.mark.parametrize("s", [1, 63, 65, 200, 4096])
+def test_flash_attention_kernel_bf16_tiles(cuda, s, d, causal):
+    """The bf16 tensor-core kernel off its 128-query and 64-kv tile
+    edges, D zero-filled to its 64-value blocks, B H = 4 heads."""
+    shape = (2, s, 2, d)
+    gen = torch.Generator().manual_seed(s * 1000 + d)
+    q, k, v = (torch.randn(shape, generator=gen).bfloat16()
+               for _ in range(3))
+    got = flash_attention_kernel(q.to(cuda), k.to(cuda), v.to(cuda),
+                                 causal=causal)
+    fold = lambda t: t.transpose(1, 2).reshape(4, s, d)
+    want = flash_attention_ref(fold(q), fold(k), fold(v), causal=causal)
+    want = want.reshape(2, 2, s, d).transpose(1, 2)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.cpu().float(), want.float(), atol=4e-3,
+                               rtol=2 ** -7)
 
 
 def test_new_kernels_count_their_launches(cuda):

@@ -13,7 +13,9 @@ farm, the DNN pipeline), and checks what comes out:
 2. build    — nvcc build of every kernel, its wall time and registers,
               and the tensor-core instructions of each kernel's SASS
               (cuobjdump): every instantiation of the bf16 flash kernel
-              and of mac_gemm's four signedness pairings must hold some.
+              must hold HGMMA, of the float32 flash kernel TF32 HGMMA,
+              and of mac_gemm's and mac_conv2d's tensor-core kernels (each
+              signedness pairing, and each tile N of mac_conv) IGMMA.
 3. paper    — the 8-PE test chip (Gaussian noise, dense NoC), 1200 ticks:
               80-tick wave on every PE and the Table III bands.
 4. board    — the 4096-PE ring at the uncut Table II widths (shot noise,
@@ -53,8 +55,9 @@ farm, the DNN pipeline), and checks what comes out:
               the same back to back, with the inputs left in L2;
               ``call_ms`` is one wrapper call back to back (CUDA events,
               host included); an op that launches a pass besides its
-              kernel (mac_gemm's operand pack) counts both in ``ms`` and
-              the pass alone in ``pass_ms``;
+              kernel (the operand pack of mac_gemm and of mac_conv2d's
+              tensor-core route) counts both in ``ms`` and the pass alone
+              in ``pass_ms``;
               the plain version and one PyTorch library call (where
               there is one) are timed with L2 flushed;
               ``bound_ms`` is the least time the card could take.
@@ -80,12 +83,16 @@ farm, the DNN pipeline), and checks what comes out:
               (32 heads of 128, bfloat16) through flash_attention_kernel
               against its plain version (atol 4e-3, rtol 2^-7: one bf16
               rounding), and float32 at S = 1024 (atol 2e-5, rtol 1e-4).
-    The kernel rows of these paths (mac_conv2d at VGG-16 conv3 and at
-    batch 32 of it, fx_log at 2^20 values, flash_attention_kernel at the
-    prefill shape and at float32 S = 1024) are timed as in phase 9; the
-    two integer kernels are held bitwise, flash at its tolerance; each
-    second shape is a kernel_check line of its own, nested in its
-    kernel's entry of the kernels line.
+    The kernel rows of these paths (mac_conv2d at VGG-16 conv3, at
+    batch 32 of it, at ResNet-50's 3x3 and MobileNetV2's 1x1 layers,
+    fx_log at 2^20 values, flash_attention_kernel at the prefill shape
+    and at float32 S = 1024) are timed as in phase 9; the two integer
+    kernels are held bitwise, flash at its tolerance; each second shape
+    is a kernel_check line of its own, nested in its kernel's entry of
+    the kernels line.  mac_conv2d's rows also time the kernel that the
+    shape's route does not take, and a ``conv_routes`` line times both
+    kernels on every Fig. 22/23 conv layer; the flash rows name the
+    device kernels of the SDPA call they are compared with.
 
 Launch counters are zeroed just before each path's run (phases 3-8 and
 11-14; the
@@ -141,6 +148,8 @@ from repro_torch.kernels.flash_attn.ref import (  # noqa: E402
     flash_attention_ref)
 from repro_torch.kernels.lif.ref import lif_step_ref  # noqa: E402
 from repro_torch.kernels.link_load.ref import link_loads_csc_ref  # noqa: E402
+from repro_torch.kernels.mac_conv.ops import launch as conv_launch  # noqa: E402
+from repro_torch.kernels.mac_conv.ops import route as conv_route  # noqa: E402
 from repro_torch.kernels.mac_conv.ref import mac_conv2d_ref  # noqa: E402
 from repro_torch.kernels.mac_gemm.ref import mac_gemm_ref  # noqa: E402
 from repro_torch.kernels.syn_accum.ref import (pack_spikes,  # noqa: E402
@@ -149,11 +158,12 @@ from repro_torch.kernels.syn_accum.ref import (pack_spikes,  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA datasheet): HBM bandwidth, the
 # float32 rate outside the tensor cores (used for int32 adds as well) and
-# the dense int8 tensor-core rate
+# the dense int8, bf16 and TF32 tensor-core rates
 HBM_BYTES_PER_S = 3.35e12
 CUDA_CORE_OPS_PER_S = 67e12
 INT8_TENSOR_OPS_PER_S = 1979e12
 BF16_TENSOR_OPS_PER_S = 989e12
+TF32_TENSOR_OPS_PER_S = 495e12
 
 PAPER_TICKS, BOARD_PES, BOARD_TICKS = 1200, 4096, 300
 PARITY_PES, PARITY_TICKS = 256, 100
@@ -178,9 +188,10 @@ ATTN_TOL = {torch.bfloat16: (4e-3, 2 ** -7), torch.float32: (2e-5, 1e-4)}
 # device symbols of each wrapper's kernels (csrc/*.cu), as regular
 # expressions on the profiler's kernel names: the kernel each call
 # launches once, and the passes a call launches besides it, which count
-# in the op's device time (mac_gemm: the operand pack of its tensor-core
-# path, which transposes B and zeroes a split-K output; K <= 32 takes the
-# dp4a kernel alone)
+# in the op's device time (mac_gemm and mac_conv2d's tensor-core route:
+# the operand pack of imma.cuh, which transposes B and zeroes a split-K
+# output; mac_gemm's K <= 32 and mac_conv2d's Cin % 16 != 0 take a dp4a
+# kernel alone)
 KERNEL_SYMBOLS = {"lif_step": r"\blif_step_kernel\b",
                   "fx_exp": r"\bfx_exp_kernel\b",
                   "link_loads_csc": r"\blink_loads_csc_kernel\b",
@@ -188,14 +199,19 @@ KERNEL_SYMBOLS = {"lif_step": r"\blif_step_kernel\b",
                   "event_link_loads": r"\bevent_link_loads_kernel\b",
                   "mac_gemm": r"\bmac_gemm(_dp4a)?_kernel\b",
                   "fx_log": r"\bfx_log_kernel\b",
-                  "mac_conv2d": r"\bmac_conv_kernel\b",
-                  "flash_attention_kernel": r"\bflash_attn(_wgmma)?_kernel\b"}
-PASS_SYMBOLS = {"mac_gemm": r"\bmac_gemm_pack_kernel\b"}
-# tensor-core SASS: wgmma is HGMMA (bf16) / IGMMA (int8), mma.sync is
-# HMMA / IMMA; the kernels (symbol in the mangled name: instantiations)
-# whose every instantiation must hold some
+                  "mac_conv2d": r"\bmac_conv(_igmma)?_kernel\b",
+                  "flash_attention_kernel": r"\bflash_attn_(wgmma|tf32)_kernel\b"}
+PASS_SYMBOLS = {"mac_gemm": r"\bimma_pack_kernel\b",
+                "mac_conv2d": r"\bimma_pack_kernel\b"}
+# tensor-core SASS: wgmma is HGMMA (bf16, and TF32 as HGMMA.*TF32) /
+# IGMMA (int8), mma.sync is HMMA / IMMA; the kernels (symbol in the
+# mangled name: instantiations) whose every instantiation must hold the
+# instruction named
 TENSOR_CORE_OPS = ("HGMMA", "IGMMA", "HMMA", "IMMA")
-TENSOR_CORE_KERNELS = {"flash_attn_wgmma_kernel": 4, "mac_gemm_kernel": 4}
+TENSOR_CORE_KERNELS = {"flash_attn_wgmma_kernel": (4, "HGMMA"),
+                       "flash_attn_tf32_kernel": (2, "HGMMA.TF32"),
+                       "mac_gemm_kernel": (4, "IGMMA"),
+                       "mac_conv_igmma_kernel": (12, "IGMMA")}
 
 
 def emit(phase: str, **fields) -> None:
@@ -390,7 +406,8 @@ def phase_device() -> str:
 
 def tensor_core_sass(lib: Path) -> dict:
     """Per kernel function of the built library (mangled name), the count
-    of each tensor-core instruction in its SASS (``cuobjdump -sass``)."""
+    of each tensor-core instruction in its SASS (``cuobjdump -sass``),
+    TF32 wgmma counted apart as HGMMA.TF32."""
     cuobjdump = Path(_build.nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
                           capture_output=True, text=True, check=True,
@@ -401,9 +418,12 @@ def tensor_core_sass(lib: Path) -> dict:
         if head:
             fn = counts.setdefault(head.group(1), {})
             continue
-        op = re.search(r"\b(" + "|".join(TENSOR_CORE_OPS) + r")\b", line)
+        op = re.search(r"\b(" + "|".join(TENSOR_CORE_OPS) + r")(\.\S*)?",
+                       line)
         if op and fn is not None:
-            fn[op.group(1)] = fn.get(op.group(1), 0) + 1
+            key = op.group(1) + (".TF32" if "TF32" in (op.group(2) or "")
+                                 else "")
+            fn[key] = fn.get(key, 0) + 1
     return counts
 
 
@@ -414,11 +434,11 @@ def phase_build() -> None:
             if "registers" in ln]
     sass = tensor_core_sass(_build.build())
     tc = {fn: ops for fn, ops in sass.items() if ops}
-    for symbol, want in TENSOR_CORE_KERNELS.items():
+    for symbol, (want, op) in TENSOR_CORE_KERNELS.items():
         fns = [fn for fn in sass if symbol in fn]
-        check(len(fns) == want and all(sass[fn] for fn in fns),
+        check(len(fns) == want and all(sass[fn].get(op) for fn in fns),
               f"build: {symbol} has {len(fns)} instantiations (want "
-              f"{want}), tensor-core instructions "
+              f"{want}, each with {op}), tensor-core instructions "
               f"{[sass[fn] for fn in fns]}")
     emit("build", seconds=time.perf_counter() - t0,
          nvcc_seconds=_build.build_seconds, ptxas=regs,
@@ -1094,43 +1114,87 @@ def phase_accel_kernels(dev, log: tuple, attn: dict) -> list:
     flush = l2_flusher(dev)
     rows = []
 
-    # mac_conv2d at the Fig. 22/23 path's VGG-16 conv3 operands; library:
-    # im2col (Tensor.unfold + a copy) then torch._int_mm, two calls
-    layer = next(g for n, _, g in dnn_layers.LAYERS if n == "vgg16_conv3_256")
-    x, w = (torch.from_numpy(t).to(dev)
-            for t in dnn_layers.layer_operands("conv", layer, False))
-    KH, KW, Cin, Cout = w.shape
-    w_cm = w.reshape(-1, Cout).t().contiguous().t()   # column-major (K, N)
+    # mac_conv2d at the Fig. 22/23 path's layers: VGG-16 conv3 (and batch
+    # 32 of it) and, as other shapes, ResNet-50's 3x3 (Cout 64) and
+    # MobileNetV2's 1x1 (Cin 24: the dp4a route); library: im2col
+    # (Tensor.unfold + a copy) then torch._int_mm, two calls.  Each row
+    # also times the route its shape does not take (``other_kernel_ms``):
+    # dp4a, or for Cin % 16 != 0 the wgmma kernel on x and w with Cin
+    # zero-padded to a multiple of 16 (the same sums)
+    def conv_operands(name):
+        layer = next(g for n, _, g in dnn_layers.LAYERS if n == name)
+        return [torch.from_numpy(t).to(dev)
+                for t in dnn_layers.layer_operands("conv", layer, False)]
 
-    def im2col_int_mm(xx):
-        cols = xx.unfold(1, KH, 1).unfold(2, KW, 1)   # B,Ho,Wo,C,KH,KW
-        return torch._int_mm(cols.permute(0, 1, 2, 4, 5, 3).reshape(
-            -1, KH * KW * Cin), w_cm)
+    def other_route(xx, w):
+        """(kernel, call) of the route mac_conv2d(xx, w) does not take."""
+        if conv_route(xx, w) == "wgmma":
+            out = torch.empty_like(mac_conv2d(xx, w))
+            return "dp4a", lambda: conv_launch(xx, w, out, (1, 1), 0, 0,
+                                               "dp4a")
+        pad = -w.shape[2] % 16
+        xp = torch.nn.functional.pad(xx, (0, pad)).contiguous()
+        wp = torch.nn.functional.pad(w, (0, 0, 0, pad)).contiguous()
+        check(torch.equal(mac_conv2d(xp, wp), mac_conv2d_ref(xx, w)),
+              "mac_conv2d: Cin-padded wgmma route")
+        return "wgmma (Cin zero-padded to 16 k)", lambda: mac_conv2d(xp, wp)
 
-    def conv_row(rows, xx, iters, plain_iters, prof_iters=20, **extra):
+    def conv_row(rows, xx, w, iters, plain_iters, prof_iters=20, **extra):
+        KH, KW, Cin, Cout = w.shape
+        w_cm = w.reshape(-1, Cout).t().contiguous().t()   # column-major
+
+        def im2col_int_mm():
+            cols = xx.unfold(1, KH, 1).unfold(2, KW, 1)   # B,Ho,Wo,C,KH,KW
+            return torch._int_mm(cols.permute(0, 1, 2, 4, 5, 3).reshape(
+                -1, KH * KW * Cin), w_cm)
         got, want = mac_conv2d(xx, w), mac_conv2d_ref(xx, w)
-        check(torch.equal(im2col_int_mm(xx), want.reshape(-1, Cout)),
+        check(torch.equal(im2col_int_mm(), want.reshape(-1, Cout)),
               "mac_conv2d: library call")
+        other, other_call = other_route(xx, w)
         m, k = got.numel() // Cout, KH * KW * Cin
         kernel_row(
             rows, flush, "mac_conv2d", "src/repro_torch/csrc/mac_conv.cu",
             "src/repro/kernels/mac_conv/mac_conv.py:27",
             lambda: mac_conv2d(xx, w), lambda: mac_conv2d_ref(xx, w), got,
             want, xx.numel() + w.numel() + got.numel() * 4, 2 * m * Cout * k,
-            iters, plain_iters, library=lambda: im2col_int_mm(xx),
+            iters, plain_iters, library=im2col_int_mm,
             ops_per_s=INT8_TENSOR_OPS_PER_S, prof_iters=prof_iters,
             shape={"x": list(xx.shape), "w": list(w.shape),
                    "padding": "VALID"},
+            conv_kernel=conv_route(xx, w), other_kernel=other,
+            other_kernel_ms=kernel_device_ms("mac_conv2d", other_call,
+                                            prof_iters, flush),
             library_call="Tensor.unfold + copy, torch._int_mm (two calls)",
             **extra)
         return rows[-1]
     gen = np.random.default_rng(17)
+    x, w = conv_operands("vgg16_conv3_256")
     xb = torch.from_numpy(gen.integers(-128, 128, (CONV_BATCH,) + tuple(
         x.shape[1:]), np.int64).astype(np.int8)).to(dev)
-    at_b32 = conv_row([], xb, 5, 3, 5, shape_tag=f"batch {CONV_BATCH}")
+    other = [conv_row([], xb, w, 5, 3, 5, shape_tag=f"batch {CONV_BATCH}")]
     del xb
-    conv_row(rows, x, 200, 20, main_path="Fig. 22/23 vgg16_conv3_256",
-             other_shapes=[at_b32])
+    for name in ("resnet50_3x3_b2", "mobilenetv2_pw"):
+        other.append(conv_row([], *conv_operands(name), 100, 20,
+                              shape_tag=f"Fig. 22/23 {name}"))
+    conv_row(rows, x, w, 200, 20, main_path="Fig. 22/23 vgg16_conv3_256",
+             other_shapes=other)
+
+    # every Fig. 22/23 conv layer through both kernels, cold (L2
+    # flushed): the route each takes must be the faster one
+    layers = []
+    for name, kind, _ in dnn_layers.LAYERS:
+        if kind != "conv":
+            continue
+        xx, ww = conv_operands(name)
+        other, other_call = other_route(xx, ww)
+        layers.append(dict(
+            layer=name, conv_kernel=conv_route(xx, ww),
+            ms=kernel_device_ms("mac_conv2d", lambda: mac_conv2d(xx, ww),
+                                20, flush),
+            other_kernel=other,
+            other_kernel_ms=kernel_device_ms("mac_conv2d", other_call, 20,
+                                            flush)))
+    emit("conv_routes", layers=layers)
 
     # fx_log over the elementary path's 2^20 values
     log_x, log_got, log_want = log
@@ -1151,6 +1215,7 @@ def phase_accel_kernels(dev, log: tuple, attn: dict) -> list:
     def attn_row(rows, dt, ops_per_s, iters, **extra):
         (q, k, v), got, want = attn[dt]
         B, S, H, D = q.shape
+        lib_kernels = device_kernels(lambda: sdpa(q, k, v), 3)[0]
         kernel_row(
             rows, flush, "flash_attention_kernel",
             "src/repro_torch/csrc/flash_attn.cu",
@@ -1162,9 +1227,18 @@ def phase_accel_kernels(dev, log: tuple, attn: dict) -> list:
             tol=ATTN_TOL[dt], prof_iters=5, shape=list(q.shape),
             dtype=str(dt).removeprefix("torch."), causal=True,
             library_call="scaled_dot_product_attention(is_causal=True)",
+            library_kernels=sorted(lib_kernels, key=lambda n:
+                                   -lib_kernels[n][1])[:3],
             **extra)
         return rows[-1]
-    at_f32 = attn_row([], torch.float32, CUDA_CORE_OPS_PER_S, 10)
+    # float32: the CUDA cores' float32 bound, and beside it that of the
+    # kernel's three TF32 products
+    (q32, _, _), _, _ = attn[torch.float32]
+    B, S, H, D = q32.shape
+    at_f32 = attn_row([], torch.float32, CUDA_CORE_OPS_PER_S, 10,
+                      bound_ms_3xtf32=bound_ms(
+                          4 * q32.numel() * 4, 3 * 2 * S * S * D * H * B,
+                          TF32_TENSOR_OPS_PER_S)[0])
     attn_row(rows, torch.bfloat16, BF16_TENSOR_OPS_PER_S, 5,
              main_path="attention (GLM-4-9B prefill)", other_shapes=[at_f32])
     return rows

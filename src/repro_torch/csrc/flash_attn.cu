@@ -1,5 +1,6 @@
-// Fused softmax attention (flash attention) for Hopper (sm_90a):
-// bfloat16 on the tensor cores, float32 on the CUDA cores; float32 inside.
+// Fused softmax attention (flash attention) for Hopper (sm_90a): both
+// dtypes on the tensor cores (bfloat16 wgmma, float32 as 3xTF32 wgmma),
+// float32 softmax inside.
 //
 // Replaces the Pallas kernel repro/kernels/flash_attn/flash_attn.py::
 // _flash_kernel (via flash_attention_pallas and flash_attn/ops.py::
@@ -7,10 +8,10 @@
 // grid whose kv axis runs in order on the TPU core, carrying the online
 // softmax's m, l and acc in VMEM scratch from one grid step to the next.
 // Blocks on the card run in parallel and carry nothing, so each block owns
-// one (batch x head, query tile) and loops over the kv tiles itself, with
-// m, l and acc in registers.  Both versions keep the reference's
-// semantics: scores scaled by 1/sqrt(D) and masked to -1e30, p = 0 under
-// the mask, output acc / max(l, 1e-30) in the input type.  Under the
+// one (batch x head, 64-row query tile) and loops over the kv tiles
+// itself, with m, l and acc in registers.  Both kernels keep the
+// reference's semantics: scores scaled by 1/sqrt(D), p = 0 under the
+// causal mask, output acc / max(l, 1e-30) in the input type.  Under the
 // causal mask the kv tiles wholly above the diagonal are skipped (there
 // p is 0, m is unchanged and the correction is 1, so skipping is exact)
 // and the heaviest query tiles are scheduled first.  Rows and columns past
@@ -20,7 +21,9 @@
 //
 // Bound: operations.  A causal prefill at S = 4096, 32 heads of 128 is
 // 4 S^2 D H / 2 = 137 GFLOP, 139 us at the bf16 tensor-core rate, against
-// 134 MB of bytes (40 us).
+// 134 MB of bytes (40 us).  float32 at S = 1024 is 8.6 GFLOP: 128 us at
+// the CUDA cores' float32 rate, 52 us for the three TF32 products of the
+// split at the TF32 tensor-core rate.
 //
 // bfloat16 (flash_attn_wgmma_kernel).  A block is one warpgroup (128
 // threads) and one 64-row query tile, two blocks an SM, so one block's
@@ -45,164 +48,44 @@
 // p); ex2.approx has a relative error of about 2^-22.  D % 8 != 0 or
 // unaligned rows stage with plain loads instead of cp.async.
 //
-// float32 (flash_attn_kernel) stays on the CUDA cores: TF32 keeps about
-// three decimal digits, too few for the float32 tolerance.  Per 64 x 64
-// tile it stages K in shared memory, computes its scores (each of 256
-// threads a 4 x 4 sub-tile), takes the row max and sum with shuffles
-// across the 16 threads of a row, writes p to shared memory, stages V
-// over K and adds p V into acc (each thread 4 rows x D/16 columns).
+// float32 (flash_attn_tf32_kernel).  TF32 keeps 10 mantissa bits, too few
+// for the float32 tolerance, so each operand x is split into x_hi =
+// tf32(x) and x_lo = tf32(x - x_hi) (round to nearest), and each product
+// takes the terms a_hi b_hi + a_hi b_lo + a_lo b_hi (wgmma m64nNk8
+// f32.tf32.tf32, float32 sums); the a_lo b_lo left out of P V is about
+// 2^-22 relative.  The split operands double the shared memory (Q hi and
+// lo are 64 KB for 64 rows at D = 128), and each block holds 128 query
+// rows, one 32-row K tile and one V tile (193 KB), alone on its SM.  TF32
+// wgmma has no transpose, and V is MN-major for P V, so V is stored
+// transposed, which cp.async cannot do, and the split is arithmetic on
+// each value anyway: a producer warpgroup loads K and V tiles with
+// 16-byte loads into registers ahead of need, splits them and stores hi
+// and lo (V transposed, its kv order permuted as below), handing the
+// tiles to and from two consumer warpgroups through named barriers; K
+// runs a tile ahead of V, so K_{j+1} is stored during the softmax of S_j
+// and V_j while S_{j+1} runs.  Each consumer (64 query rows) runs the
+// bf16 kernel's loop, and the two share the tensor cores, one's softmax
+// beside the other's products: S_j = Q K_j^T issued together with O +=
+// P_{j-1} V_{j-1}, the softmax of S_j while P_{j-1} V_{j-1} finishes,
+// exp2 of log2-scaled scores, -inf masks on edge tiles only.  K hi and lo
+// sit one above the other as one 64-row operand, so S_j is two 64-wide
+// products a k step (Q_hi and Q_lo against [K_hi; K_lo], both in shared
+// memory, K-major as they stand; the sum of the two 32-column halves
+// takes all four terms) rather than three 32-wide ones.  O += P V is
+// m64nDk8 (D zero-filled to 64 or 128) with P's hi and lo in registers.
+// The score accumulator holds kv columns {2q, 2q + 1} of each 8-column
+// block where TF32's register A operand wants {q, q + 4}: the kv rows of
+// V^T are permuted the same way when they are staged, so P goes to the
+// tensor cores without a shuffle.  Both consumers walk every kv tile of
+// the block (tiles above the first one's causal diagonal are masked
+// there, an exact no-op).  D % 4 != 0 or unaligned rows load element by
+// element.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "sm90.cuh"
-
-namespace {
-
-constexpr int BQ = 64, BK = 64, THREADS = 256;   // BQ == BK: stage()
-constexpr float kNeg = -1e30f;     // the reference's mask value
-
-// max / sum over the 16 threads of one score row (lanes 0-15 or 16-31);
-// the xor butterfly leaves the same value in every lane
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(~0u, x, o));
-  return x;
-}
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(~0u, x, o);
-  return x;
-}
-
-// Shared memory of one block: Q (BQ x ld), K or V (BK x ld), P (BQ x BK+1)
-constexpr size_t smem_bytes(int nc) {
-  return (static_cast<size_t>(BQ + BK) * (16 * nc + 1) +
-          static_cast<size_t>(BQ) * (BK + 1)) *
-         sizeof(float);
-}
-
-// Stage rows [r0, r0 + 64) of one (batch, head) as float; zeros past S.
-// Threads (ty, tx) take rows ty + 16 i and columns tx + 16 j.
-template <typename T>
-__device__ __forceinline__ void stage(float* dst, int ld, const T* src,
-                                      int64_t row_stride, int r0, int S,
-                                      int D, int tx, int ty) {
-  for (int r = ty; r < BQ; r += 16) {
-    const bool in = r0 + r < S;
-    const T* row = src + static_cast<int64_t>(r0 + r) * row_stride;
-    for (int c = tx; c < D; c += 16) {
-      dst[r * ld + c] = in ? row[c] : 0.f;
-    }
-  }
-}
-
-}  // namespace
-
-// NC = columns of D per thread / 16: D <= 16 NC
-template <typename T, int NC>
-__global__ void __launch_bounds__(THREADS)
-    flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, T* __restrict__ o, int S,
-                      int H, int D, float scale, int causal) {
-  constexpr int LD = 16 * NC + 1;  // padded row stride: no bank conflicts
-  constexpr int LDP = BK + 1;
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* kvs = qs + BQ * LD;
-  float* ps = kvs + BK * LD;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int n_tiles = (S + BQ - 1) / BQ;
-  const int q0 = (n_tiles - 1 - blockIdx.x) * BQ;   // longest first
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int64_t row_stride = static_cast<int64_t>(H) * D;
-  const int64_t base = (static_cast<int64_t>(b) * S * H + h) * D;
-  stage(qs, LD, q + base, row_stride, q0, S, D, tx, ty);
-
-  float m[4], l[4], acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNeg;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  }
-  const int n_kv = causal ? min(n_tiles, (q0 + BQ - 1) / BK + 1)
-                          : (S + BK - 1) / BK;
-  for (int kt = 0; kt < n_kv; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();                 // the last tile's P V has finished
-    stage(kvs, LD, k + base, row_stride, k0, S, D, tx, ty);
-    __syncthreads();
-    float s[4][4] = {};
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = qs[(ty + 16 * i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = kvs[(tx + 16 * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-      bool keep[4];
-      float mx = kNeg;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        keep[j] = col < S && (!causal || col <= row);
-        s[i][j] = keep[j] ? s[i][j] * scale : kNeg;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = keep[j] ? expf(s[i][j] - m_new) : 0.f;
-        ps[(ty + 16 * i) * LDP + tx + 16 * j] = p;
-        sum += p;
-      }
-      const float corr = expf(m[i] - m_new);
-      l[i] = l[i] * corr + row_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= corr;
-    }
-    __syncthreads();                 // K is read, P is written
-    stage(kvs, LD, v + base, row_stride, k0, S, D, tx, ty);
-    __syncthreads();
-    for (int j = 0; j < BK; ++j) {
-      float pv[4], vv[NC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = ps[(ty + 16 * i) * LDP + j];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) vv[c] = kvs[j * LD + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= S) continue;
-    const float l_safe = fmaxf(l[i], 1e-30f);
-    T* out = o + base + static_cast<int64_t>(row) * row_stride;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = tx + 16 * c;
-      if (col < D) out[col] = acc[i][c] / l_safe;
-    }
-  }
-}
 
 // ---------------------------------------------------------- bfloat16
 
@@ -529,35 +412,520 @@ __global__ void __launch_bounds__(TC_THREADS, 2)
   }
 }
 
+// ------------------------------------------------ float32: 3xTF32 wgmma
+
 namespace {
 
-template <typename T, int NC>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int S, int H, int D, float scale, int causal, cudaStream_t st) {
-  auto kernel = flash_attn_kernel<T, NC>;
-  const size_t smem = smem_bytes(NC);
+// A block: two consumer warpgroups (64 query rows each: wgmma, softmax),
+// so that one's softmax runs beside the other's products, and one
+// producer warpgroup (loads, 3xTF32 split, shared-memory stores); kv
+// tiles of 32 rows, one stage of K and one of V
+constexpr int FQ = 64, F_CONSUMERS = 2, FBQ = FQ * F_CONSUMERS, FK = 32;
+constexpr int F_THREADS = 128 * (F_CONSUMERS + 1);
+// named barriers (0 is __syncthreads' own), each for all threads: Q
+// staged; the K (V) tile staged (full) or released by both consumers
+// (empty)
+constexpr int kBarQ = 1, kBarKFull = 2, kBarVFull = 3, kBarKEmpty = 4,
+              kBarVEmpty = 5;
+
+// Shared memory of a block with NCH column blocks of 32 floats (D <= 32
+// NCH): Q hi and lo of each consumer (64 rows each), one K tile of 64
+// rows (each column block: K hi's 32 rows, then K lo's) and V^T hi and lo
+// (32 NCH rows of the 32 kv values of the tile, 128 bytes)
+template <int NCH>
+struct F32Smem {
+  static constexpr int kQ = FQ * 128 * NCH;
+  static constexpr int kK = 2 * FK * 128 * NCH;
+  static constexpr int kV = 32 * NCH * 128;
+  static constexpr int kBytes = 2 * F_CONSUMERS * kQ + kK + 2 * kV + 1024;
+};
+
+// x, which the compiler cannot see through: addresses and descriptors
+// built from it are recomputed at each use instead of held in registers
+// across the kv loop (which spilled them: a thread of a 384-thread
+// block has 168 registers)
+template <typename T>
+__device__ __forceinline__ T opaque(T x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+template <int COUNT>
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(COUNT) : "memory");
+}
+template <int COUNT>
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(COUNT) : "memory");
+}
+// x = hi + lo to about 2^-22 relative: hi = x rounded to TF32 (nearest,
+// ties away), lo = the exact rest x - hi rounded to TF32.  The rounding
+// is cvt.rna.tf32.f32's, done on the bit pattern: half of the 13 dropped
+// mantissa bits' range added to the magnitude, then those bits cleared
+// (two integer operations, which cost less than the cvt; Inf and NaN
+// stay Inf and NaN)
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+__device__ __forceinline__ void split4(const float4& v, uint4& hi,
+                                      uint4& lo) {
+  split_tf32(v.x, hi.x, lo.x);
+  split_tf32(v.y, hi.y, lo.y);
+  split_tf32(v.z, hi.z, lo.z);
+  split_tf32(v.w, hi.w, lo.w);
+}
+
+// floats [c, c + 4) of a row (zeros past D, or all zeros when !in); vec:
+// D % 4 == 0 and 16-byte aligned rows, one 16-byte load
+__device__ __forceinline__ float4 load4(const float* row, int c, int D,
+                                        bool in, bool vec) {
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (!in || c >= D) return v;
+  if (vec) return __ldg(reinterpret_cast<const float4*>(row + c));
+  v.x = __ldg(row + c);
+  if (c + 1 < D) v.y = __ldg(row + c + 1);
+  if (c + 2 < D) v.z = __ldg(row + c + 2);
+  if (c + 3 < D) v.w = __ldg(row + c + 3);
+  return v;
+}
+
+// The producer stages a tile in two steps, so that the loads of the next
+// tile are in flight while it waits for a free stage: load() issues this
+// thread's 16-byte global loads of the tile into registers (zeros for
+// rows >= S and columns >= D), store() splits them and writes hi and lo.
+
+// Rows [r0, r0 + ROWS) of one (batch, head) into swizzled tiles of NCH
+// column blocks of 128-byte rows, BLOCK_ROWS rows apart, by THREADS
+// threads (pt).  Eight neighbouring threads take the eight 16-byte chunks
+// of one row: coalesced loads, conflict-free stores.
+template <int ROWS, int NCH, int BLOCK_ROWS, int THREADS>
+struct RowTile {
+  static constexpr int kPer = ROWS * 8 * NCH / THREADS;   // chunks a thread
+  float4 v[kPer];
+
+  __device__ __forceinline__ void load(const float* src, int64_t rs, int r0,
+                                       int S, int D, int pt, bool vec) {
+#pragma unroll
+    for (int x = 0; x < kPer; ++x) {
+      const int e = opaque(pt) + x * THREADS;
+      const int r = e / (8 * NCH), c = e % (8 * NCH);
+      v[x] = load4(src + static_cast<int64_t>(r0 + r) * rs, 4 * c, D,
+                   r0 + r < S, vec);
+    }
+  }
+  __device__ __forceinline__ void store(uint8_t* hi, uint8_t* lo,
+                                        int pt) const {
+#pragma unroll
+    for (int x = 0; x < kPer; ++x) {
+      const int e = opaque(pt) + x * THREADS;
+      const int r = e / (8 * NCH), c = e % (8 * NCH);
+      const uint32_t off =
+          (c / 8) * BLOCK_ROWS * 128 + sm90::sw128(r, c % 8);
+      uint4 h, l;
+      split4(v[x], h, l);
+      *reinterpret_cast<uint4*>(hi + off) = h;
+      *reinterpret_cast<uint4*>(lo + off) = l;
+    }
+  }
+};
+
+// kv rows [r0, r0 + 32) of V, transposed: V^T row d holds the tile's 32
+// kv values in the order wgmma's register A operand needs (see the
+// kernel): position 8 b + i (i < 4) holds kv row 8 b + 2 i, position
+// 8 b + 4 + i kv row 8 b + 2 i + 1.  So 16-byte chunk c of a V^T row
+// holds kv rows 8 (c / 2) + c % 2 + 2 i, i = 0-3: a thread loads those
+// four rows at four d columns (4 g .. 4 g + 3), transposes the 4 x 4
+// floats in registers and stores four chunks, one per d; THREADS threads
+// (pt) share the 64 NCH such items.
+template <int NCH, int THREADS>
+struct VTile {
+  static constexpr int kPer = 64 * NCH / THREADS;   // items a thread
+  float4 v[kPer][4];
+
+  __device__ __forceinline__ void load(const float* src, int64_t rs, int r0,
+                                       int S, int D, int pt, bool vec) {
+#pragma unroll
+    for (int x = 0; x < kPer; ++x) {
+      const int e = opaque(pt) + x * THREADS, c = e % 8, g = e / 8;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = r0 + 8 * (c / 2) + c % 2 + 2 * i;
+        v[x][i] = load4(src + static_cast<int64_t>(r) * rs, 4 * g, D, r < S,
+                        vec);
+      }
+    }
+  }
+  __device__ __forceinline__ void store(uint8_t* hi, uint8_t* lo,
+                                        int pt) const {
+#pragma unroll
+    for (int x = 0; x < kPer; ++x) {
+      const int e = opaque(pt) + x * THREADS, c = e % 8, g = e / 8;
+      const float4* w = v[x];
+      const float t[4][4] = {{w[0].x, w[1].x, w[2].x, w[3].x},
+                             {w[0].y, w[1].y, w[2].y, w[3].y},
+                             {w[0].z, w[1].z, w[2].z, w[3].z},
+                             {w[0].w, w[1].w, w[2].w, w[3].w}};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t off = sm90::sw128(4 * g + j, c);
+        uint4 h, l;
+        split4(make_float4(t[j][0], t[j][1], t[j][2], t[j][3]), h, l);
+        *reinterpret_cast<uint4*>(hi + off) = h;
+        *reinterpret_cast<uint4*>(lo + off) = l;
+      }
+    }
+  }
+};
+
+#define TF32_SS_M64N64K8                                                     \
+  asm volatile(                                                              \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                           \
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"                \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "                   \
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "         \
+      "%24, %25, %26, %27, %28, %29, %30, %31"                               \
+      "}, %32, %33, p, 1, 1;\n}\n"                                           \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),          \
+      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),            \
+      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),       \
+      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),       \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),       \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),       \
+      "+f"(d[30]), "+f"(d[31])                                               \
+      : "l"(da), "l"(db), "r"(scale_d))
+
+#define TF32_RS_M64N64K8                                                     \
+  asm volatile(                                                              \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                           \
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"                \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "                   \
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "         \
+      "%24, %25, %26, %27, %28, %29, %30, %31"                               \
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"                          \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),          \
+      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),            \
+      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),       \
+      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),       \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),       \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),       \
+      "+f"(d[30]), "+f"(d[31])                                               \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+
+#define TF32_RS_M64N128K8                                                    \
+  asm volatile(                                                              \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                           \
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"               \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "                   \
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "         \
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "         \
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "         \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "         \
+      "%60, %61, %62, %63"                                                   \
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"                          \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),          \
+      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),            \
+      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),       \
+      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),       \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),       \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),       \
+      "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),       \
+      "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),       \
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),       \
+      "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),       \
+      "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),       \
+      "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),       \
+      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                     \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+
+// d (64 x 64) (scale_d ? += : =) A (64 x 8, K-major tile at descriptor
+// da) * B (8 x 64, K-major: 64 rows of k at db), TF32 in, float32 sums
+__device__ __forceinline__ void tf32_ss_m64n64k8(float (&d)[32], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  TF32_SS_M64N64K8;
+}
+// d (64 x N) += A (64 x 8, registers a[0-3]) * B (8 x N, K-major at db)
+template <int N>
+__device__ __forceinline__ void tf32_rs_k8(float (&d)[N / 2],
+                                           const uint32_t* a, uint64_t db) {
+  if constexpr (N == 64) {
+    TF32_RS_M64N64K8;
+  } else {
+    static_assert(N == 128, "N is 64 or 128");
+    TF32_RS_M64N128K8;
+  }
+}
+#undef TF32_SS_M64N64K8
+#undef TF32_RS_M64N64K8
+#undef TF32_RS_M64N128K8
+
+}  // namespace
+
+// Consumer thread t holds score element 4 j + 2 h + i at row 16 (t / 32)
+// + (t % 32) / 4 + 8 h, kv column 8 j + 2 (t % 4) + i.  TF32 wgmma's
+// register A operand for k block j wants rows r, r + 8 and columns
+// 8 j + t % 4 and 8 j + t % 4 + 4 of it: so column 2 q (q = t % 4) is
+// passed as A column q and column 2 q + 1 as A column q + 4, and V^T's k
+// positions are permuted to match (VTile).
+template <int NCH>
+__global__ void __launch_bounds__(F_THREADS, 1)
+    flash_attn_tf32_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v, float* __restrict__ o,
+                           int S, int H, int D, float scale_log2, int causal,
+                           int vec) {
+  using L = F32Smem<NCH>;
+  constexpr int DN = 32 * NCH;       // O's columns: D zero-filled to DN
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sq =
+      smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023);
+  auto qh = [&](int w) { return sq + 2 * w * L::kQ; };
+  auto ql = [&](int w) { return sq + (2 * w + 1) * L::kQ; };
+  uint8_t* kt_s = sq + 2 * F_CONSUMERS * L::kQ;   // K hi rows, then lo
+  uint8_t* vh = kt_s + L::kK;
+  uint8_t* vl = vh + L::kV;
+  const int n_tiles = (S + FBQ - 1) / FBQ;
+  const int q0 = (n_tiles - 1 - blockIdx.x) * FBQ;   // longest first
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int64_t rs = static_cast<int64_t>(H) * D;
+  const int64_t base = (static_cast<int64_t>(b) * S * H + h) * D;
+  // both consumers walk every kv tile of the block: tiles wholly above
+  // the first consumer's rows are masked there (p = 0, correction 1)
+  const int n_kv = causal ? min((S + FK - 1) / FK, (q0 + FBQ - 1) / FK + 1)
+                          : (S + FK - 1) / FK;
+  const int wg = threadIdx.x / 128;
+
+  if (wg == F_CONSUMERS) {           // producer
+    const int pt = threadIdx.x - 128 * F_CONSUMERS;
+#pragma unroll 1
+    for (int x = 0; x < 2 * F_CONSUMERS; ++x) {   // 32 query rows at a time
+      const int w = x / 2, r = (x % 2) * 32;
+      RowTile<32, NCH, FQ, 128> qt;
+      qt.load(q + base, rs, q0 + w * FQ + r, S, D, pt, vec);
+      qt.store(qh(w) + r * 128, ql(w) + r * 128, pt);
+    }
+    sm90::fence_proxy_async();
+    bar_arrive<F_THREADS>(kBarQ);
+    // K runs one tile ahead of V: K_{j+1} is stored as soon as both
+    // consumers have read K_j (S_j retired, mid iteration j), V_j once
+    // they have read V_{j-1} (end of iteration j), each tile loaded into
+    // registers beforehand
+    RowTile<FK, NCH, 2 * FK, 128> kt;      // hi rows 0-31, lo rows 32-63
+    VTile<NCH, 128> vt;
+    kt.load(k + base, rs, 0, S, D, pt, vec);
+    vt.load(v + base, rs, 0, S, D, pt, vec);
+    kt.store(kt_s, kt_s + FK * 128, pt);
+    sm90::fence_proxy_async();
+    bar_arrive<F_THREADS>(kBarKFull);
+    if (n_kv > 1) kt.load(k + base, rs, FK, S, D, pt, vec);
+    for (int j = 0; j < n_kv; ++j) {
+      if (j + 1 < n_kv) {
+        bar_sync<F_THREADS>(kBarKEmpty);
+        kt.store(kt_s, kt_s + FK * 128, pt);
+        sm90::fence_proxy_async();
+        bar_arrive<F_THREADS>(kBarKFull);
+        if (j + 2 < n_kv) {
+          kt.load(k + base, rs, (j + 2) * FK, S, D, pt, vec);
+        }
+      }
+      if (j > 0) bar_sync<F_THREADS>(kBarVEmpty);
+      vt.store(vh, vl, pt);
+      sm90::fence_proxy_async();
+      bar_arrive<F_THREADS>(kBarVFull);
+      if (j + 1 < n_kv) vt.load(v + base, rs, (j + 1) * FK, S, D, pt, vec);
+    }
+    return;
+  }
+  const int qw0 = q0 + wg * FQ;      // this consumer's first query row
+
+  const int tid = threadIdx.x % 128;
+  const int row0 = qw0 + 16 * (tid / 32) + (tid % 32) / 4;
+  const int col0 = 2 * (tid % 4);
+  float acc[DN / 2], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < DN / 2; ++i) acc[i] = 0.f;
+
+  // S = Q K^T of the staged kv tile, as one 64-wide product per k
+  // step and half: [Q_hi K_hi^T | Q_hi K_lo^T] + [Q_lo K_hi^T |
+  // Q_lo K_lo^T] over all 4 NCH k steps (zero columns past D add
+  // nothing), one wgmma group; the two halves are added by add_halves
+  auto issue_qk = [&](float (&sc)[32]) {
+    const uint32_t a_hi = opaque(sm90::smem_addr(qh(wg)));
+    const uint32_t a_lo = opaque(sm90::smem_addr(ql(wg)));
+    const uint32_t b = opaque(sm90::smem_addr(kt_s));
+#pragma unroll
+    for (int ks = 0; ks < 4 * NCH; ++ks) {
+      const uint32_t oa = (ks / 4) * FQ * 128 + (ks % 4) * 32;
+      const uint64_t db = sm90::desc_sw128(
+          b + (ks / 4) * 2 * FK * 128 + (ks % 4) * 32, 16, 1024);
+      tf32_ss_m64n64k8(sc, sm90::desc_sw128(a_hi + oa, 16, 1024), db,
+                       ks > 0);
+      tf32_ss_m64n64k8(sc, sm90::desc_sw128(a_lo + oa, 16, 1024), db, 1);
+    }
+    sm90::wgmma_commit();
+  };
+  // columns 0-31 of the 64-wide product (K_hi) plus columns 32-63 (K_lo),
+  // into sc[0-15]
+  auto add_halves = [&](float (&sc)[32]) {
+#pragma unroll
+    for (int e = 0; e < 16; ++e) sc[e] += sc[16 + e];
+  };
+  // O += P_hi V_hi + P_hi V_lo + P_lo V_hi with the staged V^T, one group
+  auto issue_pv = [&](const uint32_t (&ph)[16], const uint32_t (&pl)[16]) {
+    const uint32_t b_hi = opaque(sm90::smem_addr(vh));
+    const uint32_t b_lo = opaque(sm90::smem_addr(vl));
+#pragma unroll
+    for (int ks = 0; ks < FK / 8; ++ks) {
+      const uint64_t dbh = sm90::desc_sw128(b_hi + ks * 32, 16, 1024);
+      tf32_rs_k8<DN>(acc, ph + 4 * ks, dbh);
+      tf32_rs_k8<DN>(acc, ph + 4 * ks,
+                     sm90::desc_sw128(b_lo + ks * 32, 16, 1024));
+      tf32_rs_k8<DN>(acc, pl + 4 * ks, dbh);
+    }
+    sm90::wgmma_commit();
+  };
+  // online softmax of tile j's raw scores sc[0-15], in place, as in the
+  // bf16 kernel (m in log2 units of the scaled scores; -inf masks on edge
+  // tiles only; no row's max is -inf after tile 0)
+  auto softmax = [&](float (&sc)[32], int j, float (&corr)[2]) {
+    const int k0 = j * FK;
+    if (k0 + FK > S || (causal && k0 + FK - 1 > qw0)) {
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        const int row = row0 + 8 * ((e / 2) % 2);
+        const int col = k0 + 8 * (e / 4) + col0 + e % 2;
+        if (col >= S || (causal && col > row)) sc[e] = kNegInf;
+      }
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      // the row's 8 values: v(n) = sc[4 (n / 2) + 2 hh + n % 2]
+      auto at = [&](int n) -> float& {
+        return sc[4 * (n / 2) + 2 * hh + n % 2];
+      };
+      float t[4];
+#pragma unroll
+      for (int n = 0; n < 4; ++n) t[n] = fmaxf(at(n), at(n + 4));
+      t[0] = fmaxf(fmaxf(t[0], t[2]), fmaxf(t[1], t[3]));
+      const float m_new = fmaxf(m[hh], quad_max(t[0]) * scale_log2);
+      corr[hh] = fast_exp2(m[hh] - m_new);
+      m[hh] = m_new;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        at(n) = fast_exp2(fmaf(at(n), scale_log2, -m_new));
+      }
+#pragma unroll
+      for (int n = 0; n < 4; ++n) t[n] = at(n) + at(n + 4);
+      l[hh] = l[hh] * corr[hh] + ((t[0] + t[2]) + (t[1] + t[3]));
+    }
+  };
+  // p (sc[0-15]) split into the register A operand of P V: A column q <-
+  // score column 2 q, A column q + 4 <- 2 q + 1 of each 8-column block
+  auto split_p = [&](const float (&sc)[32], uint32_t (&ph)[16],
+                     uint32_t (&pl)[16]) {
+#pragma unroll
+    for (int jb = 0; jb < FK / 8; ++jb) {
+      split_tf32(sc[4 * jb], ph[4 * jb], pl[4 * jb]);
+      split_tf32(sc[4 * jb + 2], ph[4 * jb + 1], pl[4 * jb + 1]);
+      split_tf32(sc[4 * jb + 1], ph[4 * jb + 2], pl[4 * jb + 2]);
+      split_tf32(sc[4 * jb + 3], ph[4 * jb + 3], pl[4 * jb + 3]);
+    }
+  };
+
+  // One stage of K and one of V: K_j is released once S_j has retired
+  // (the producer stores K_{j+1} during the softmax of S_j), V_{j-1} once
+  // P_{j-1} V_{j-1} has (V_j is stored while S_{j+1} runs)
+  // p is split for P V once the previous P V has retired (its A operand
+  // registers are free), so one set of them serves both
+  float s2[32], corr[2];
+  uint32_t ph[16], pl[16];
+  bar_sync<F_THREADS>(kBarQ);
+  bar_sync<F_THREADS>(kBarKFull);
+  sm90::wgmma_fence();
+  issue_qk(s2);
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(s2);
+  if (n_kv > 1) bar_arrive<F_THREADS>(kBarKEmpty);
+  add_halves(s2);
+  softmax(s2, 0, corr);
+  split_p(s2, ph, pl);
+  for (int j = 1; j < n_kv; ++j) {
+    // S_j = Q K_j^T and O += P_{j-1} V_{j-1} in flight together; the
+    // softmax of S_j runs while the tensor cores finish P_{j-1} V_{j-1}
+    bar_sync<F_THREADS>(kBarKFull);   // K_j
+    sm90::wgmma_fence();
+    issue_qk(s2);
+    bar_sync<F_THREADS>(kBarVFull);   // V_{j-1}
+    issue_pv(ph, pl);
+    sm90::wgmma_wait<1>();
+    sm90::fence_regs(s2);
+    if (j + 1 < n_kv) bar_arrive<F_THREADS>(kBarKEmpty);     // K_j read
+    add_halves(s2);
+    softmax(s2, j, corr);
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(ph);            // read by P_{j-1} V_{j-1} until here
+    sm90::fence_regs(pl);
+    sm90::fence_regs(acc);
+    bar_arrive<F_THREADS>(kBarVEmpty);                        // V_{j-1} read
+    if (corr[0] != 1.f || corr[1] != 1.f) {   // x 1 is exact: skip it
+#pragma unroll
+      for (int i = 0; i < DN / 2; ++i) acc[i] *= corr[(i / 2) % 2];
+    }
+    split_p(s2, ph, pl);
+  }
+  bar_sync<F_THREADS>(kBarVFull);     // V_{n_kv - 1}
+  sm90::wgmma_fence();
+  issue_pv(ph, pl);
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(ph);
+  sm90::fence_regs(pl);
+  sm90::fence_regs(acc);
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + 8 * hh;
+    const float l_safe = fmaxf(quad_sum(l[hh]), 1e-30f);
+    if (row >= S) continue;
+    float* out = o + base + static_cast<int64_t>(row) * rs;
+#pragma unroll
+    for (int jb = 0; jb < DN / 8; ++jb) {
+      const int col = 8 * jb + col0;
+      const float lo = acc[4 * jb + 2 * hh] / l_safe;
+      const float hi = acc[4 * jb + 2 * hh + 1] / l_safe;
+      if (vec && col + 1 < D) {
+        *reinterpret_cast<float2*>(out + col) = make_float2(lo, hi);
+      } else {
+        if (col < D) out[col] = lo;
+        if (col + 1 < D) out[col + 1] = hi;
+      }
+    }
+  }
+}
+
+namespace {
+
+template <int NCH>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
+               int S, int H, int D, float scale, int causal, int vec,
+               cudaStream_t st) {
+  auto kernel = flash_attn_tf32_kernel<NCH>;
+  constexpr int smem = F32Smem<NCH>::kBytes;
   static bool configured = false;    // above 48 KB only when allowed
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  const dim3 grid((S + BQ - 1) / BQ, B * H);
-  kernel<<<grid, THREADS, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, H, D, scale, causal);
+  const dim3 grid((S + FBQ - 1) / FBQ, B * H);
+  kernel<<<grid, F_THREADS, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), S, H, D,
+      scale * 1.4426950408889634f, causal, vec);   // log2(e)
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_nc(const void* q, const void* k, const void* v, void* o, int B,
-              int S, int H, int D, float scale, int causal, cudaStream_t st) {
-  if (D <= 16) return launch<T, 1>(q, k, v, o, B, S, H, D, scale, causal, st);
-  if (D <= 32) return launch<T, 2>(q, k, v, o, B, S, H, D, scale, causal, st);
-  if (D <= 64) return launch<T, 4>(q, k, v, o, B, S, H, D, scale, causal, st);
-  return launch<T, 8>(q, k, v, o, B, S, H, D, scale, causal, st);
 }
 
 template <int NCH, bool VEC>
@@ -583,19 +951,24 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace
 
 // q, k, v, o: (B, S, H, D) contiguous, D <= 128; bf16 != 0 selects
-// bfloat16 (tensor cores), else float32
+// bfloat16, else float32
 extern "C" int repro_flash_attn(const void* q, const void* k, const void* v,
                                 void* o, int32_t B, int32_t S, int32_t H,
                                 int32_t D, float scale, int32_t causal,
                                 int32_t bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!bf16) return launch_nc<float>(q, k, v, o, B, S, H, D, scale, causal,
-                                     st);
-  const bool vec = D % 8 == 0 &&
-                   ((reinterpret_cast<uintptr_t>(q) |
-                     reinterpret_cast<uintptr_t>(k) |
-                     reinterpret_cast<uintptr_t>(v) |
-                     reinterpret_cast<uintptr_t>(o)) & 15) == 0;
+  const bool aligned = ((reinterpret_cast<uintptr_t>(q) |
+                         reinterpret_cast<uintptr_t>(k) |
+                         reinterpret_cast<uintptr_t>(v) |
+                         reinterpret_cast<uintptr_t>(o)) & 15) == 0;
+  if (!bf16) {
+    const int vec = D % 4 == 0 && aligned;
+    return D <= 64 ? launch_f32<2>(q, k, v, o, B, S, H, D, scale, causal,
+                                   vec, st)
+                   : launch_f32<4>(q, k, v, o, B, S, H, D, scale, causal,
+                                   vec, st);
+  }
+  const bool vec = D % 8 == 0 && aligned;
   if (D <= 64) {
     return vec ? launch_tc<1, true>(q, k, v, o, B, S, H, D, scale, causal, st)
                : launch_tc<1, false>(q, k, v, o, B, S, H, D, scale, causal,

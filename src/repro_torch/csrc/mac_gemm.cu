@@ -15,13 +15,14 @@
 // at M = 1 (the Fig. 22/23 FC rows: 2 MB of B at 1x4096x512, 0.6 us).
 //
 // Design.  Two launches a call:
-// 1. mac_gemm_pack_kernel.  wgmma takes 8-bit operands K-major only, and
-//    the op's B is (K, N) row-major, so B is transposed into a (N, Kp)
-//    scratch, Kp = K rounded up to 16 and zero-filled: 4 x 4 byte
-//    squares by 32-bit loads and __byte_perm, or bytes through shared
-//    memory when N % 4 != 0.  A is used in place when its rows are
-//    16-byte aligned (K % 16 == 0), else copied to a zero-padded (M, Kp)
-//    scratch.  Under split K the same launch zeroes the output.
+// 1. imma_pack_kernel (imma.cuh, shared with mac_conv.cu).  wgmma takes
+//    8-bit operands K-major only, and the op's B is (K, N) row-major, so
+//    B is transposed into a (N, Kp) scratch, Kp = K rounded up to 16 and
+//    zero-filled: 4 x 4 byte squares by 32-bit loads and __byte_perm, or
+//    bytes through shared memory when N % 4 != 0.  A is used in place
+//    when its rows are 16-byte aligned (K % 16 == 0), else copied to a
+//    zero-padded (M, Kp) scratch.  Under split K the same launch zeroes
+//    the output.
 // 2. mac_gemm_kernel.  Two consumer warpgroups (256 threads), each a
 //    64 x 256 slice of the tile, multiply with wgmma.mma_async
 //    m64n256k32 s32 (imma.cuh; one instantiation per s8/u8 pairing, no
@@ -40,8 +41,6 @@
 // dp4a in its four signedness forms (dp4a.cuh), ragged edges zero-filled.
 #include <cuda_runtime.h>
 
-#include <algorithm>
-
 #include "dp4a.cuh"
 #include "imma.cuh"
 
@@ -52,96 +51,8 @@ constexpr int THREADS = 256;                     // two warpgroups
 constexpr int A_BYTES = BM * BK, B_BYTES = BN * BK;
 constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
 constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024;   // + alignment
-constexpr int PT = 64;                           // pack kernel's tile
-constexpr int PACK_THREADS = 256;
 
 }  // namespace
-
-// 4 x 4 bytes: w[i] holds row i's bytes (columns 0-3); returns in w[j]
-// column j's bytes (rows 0-3)
-__device__ __forceinline__ void transpose4x4(uint32_t (&w)[4]) {
-  const uint32_t t0 = __byte_perm(w[0], w[1], 0x5140);
-  const uint32_t t1 = __byte_perm(w[2], w[3], 0x5140);
-  const uint32_t t2 = __byte_perm(w[0], w[1], 0x7362);
-  const uint32_t t3 = __byte_perm(w[2], w[3], 0x7362);
-  w[0] = __byte_perm(t0, t1, 0x5410);
-  w[1] = __byte_perm(t0, t1, 0x7632);
-  w[2] = __byte_perm(t2, t3, 0x5410);
-  w[3] = __byte_perm(t2, t3, 0x7632);
-}
-
-// Blocks [0, bt_blocks): B tiles of PT k x PT n, transposed into bt:
-// with words (N % 4 == 0, b 4-byte aligned) each thread moves a 4 x 4
-// byte square by four 32-bit loads, __byte_perm and four 32-bit stores,
-// else bytes through shared memory.  Then ap_blocks blocks copy A into
-// ap, then zero_blocks blocks zero out, each a grid-stride loop.
-__global__ void __launch_bounds__(PACK_THREADS)
-    mac_gemm_pack_kernel(const uint8_t* __restrict__ a,
-                         const uint8_t* __restrict__ b,
-                         uint8_t* __restrict__ ap, uint8_t* __restrict__ bt,
-                         int32_t* __restrict__ out, int M, int N, int K,
-                         int Kp, int bt_cols, int bt_blocks, int ap_blocks,
-                         int zero_blocks, int words) {
-  __shared__ uint8_t tile[PT][PT + 4];   // +4: no bank conflicts
-  int blk = blockIdx.x;
-  const int tid = threadIdx.x;
-  if (blk < bt_blocks) {
-    const int n0 = (blk % bt_cols) * PT, k0 = (blk / bt_cols) * PT;
-    if (words) {
-      // consecutive threads take consecutive k quads: coalesced stores
-      const int k = k0 + 4 * (tid % 16), n = n0 + 4 * (tid / 16);
-      if (n >= N || k >= Kp) return;
-      uint32_t w[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        w[i] = k + i < K ? *reinterpret_cast<const uint32_t*>(
-                               b + static_cast<int64_t>(k + i) * N + n)
-                         : 0u;
-      }
-      transpose4x4(w);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (n + j < N) {
-          *reinterpret_cast<uint32_t*>(
-              bt + static_cast<int64_t>(n + j) * Kp + k) = w[j];
-        }
-      }
-      return;
-    }
-#pragma unroll 4
-    for (int e = tid; e < PT * PT; e += PACK_THREADS) {
-      const int k = k0 + e / PT, n = n0 + e % PT;
-      tile[e / PT][e % PT] =
-          (k < K && n < N) ? b[static_cast<int64_t>(k) * N + n] : 0;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int e = tid; e < PT * PT; e += PACK_THREADS) {
-      const int n = n0 + e / PT, k = k0 + e % PT;
-      if (n < N && k < Kp) {
-        bt[static_cast<int64_t>(n) * Kp + k] = tile[e % PT][e / PT];
-      }
-    }
-    return;
-  }
-  blk -= bt_blocks;
-  if (blk < ap_blocks) {
-    const int64_t total = static_cast<int64_t>(M) * Kp;
-    for (int64_t e = static_cast<int64_t>(blk) * PACK_THREADS + tid;
-         e < total; e += static_cast<int64_t>(ap_blocks) * PACK_THREADS) {
-      const int64_t m = e / Kp;
-      const int k = static_cast<int>(e - m * Kp);
-      ap[e] = k < K ? a[m * K + k] : 0;
-    }
-    return;
-  }
-  blk -= ap_blocks;
-  const int64_t total = static_cast<int64_t>(M) * N;
-  for (int64_t e = static_cast<int64_t>(blk) * PACK_THREADS + tid;
-       e < total; e += static_cast<int64_t>(zero_blocks) * PACK_THREADS) {
-    out[e] = 0;
-  }
-}
 
 // a: (M, Kp) row-major, bt: (N, Kp) row-major (B transposed), Kp % 16 ==
 // 0; block z takes K tiles [z kps, (z + 1) kps); split: add into out
@@ -183,7 +94,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     __syncthreads();
     const uint32_t sa = base + (i % STAGES) * STAGE_BYTES;
     sm90::wgmma_fence();
-    imma::mma_tile<AS, BS>(acc, sa + wg * 64 * BK, sa + A_BYTES);
+    imma::mma_tile<AS, BS, BN>(acc, sa + wg * 64 * BK, sa + A_BYTES);
     sm90::wgmma_commit();
     if (i + STAGES - 2 < nkt) load(i + STAGES - 2);
     sm90::cp_async_commit();
@@ -191,8 +102,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
   sm90::wgmma_wait<0>();
   sm90::fence_regs(acc);
-  imma::store_m64n256(acc, out, M, N, m0 + wg * 64, n0, tid % 128,
-                      split > 1);
+  imma::store_m64n<BN>(acc, out, M, N, m0 + wg * 64, n0, tid % 128,
+                        split > 1);
 }
 
 namespace {
@@ -213,16 +124,6 @@ int launch(const uint8_t* a, const uint8_t* bt, int32_t* out, int M, int N,
   return static_cast<int>(cudaGetLastError());
 }
 
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return n;
-}
-
 }  // namespace
 
 // a: (M, K), b: (K, N) row-major 8-bit; bt: (N, Kp) scratch, ap: (M, Kp)
@@ -236,39 +137,15 @@ extern "C" int repro_mac_gemm(const void* a, const void* b, void* ap,
   const int Kp = (K + 15) / 16 * 16;
   const int k_tiles = (Kp + BK - 1) / BK;
   const int tiles = ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
-  // split K while the output tiles leave SMs idle, one K tile at least
-  int split = 1;
-  if (k_tiles > 1 && tiles < sm_count()) {
-    split = std::min(k_tiles, std::max(1, sm_count() / tiles));
-  }
-  const int kps = k_tiles ? (k_tiles + split - 1) / split : 0;
-  if (k_tiles) split = (k_tiles + kps - 1) / kps;
-
-  const int bt_cols = (N + PT - 1) / PT;
-  const int bt_blocks = bt_cols * ((Kp + PT - 1) / PT);
-  const int64_t a_bytes = static_cast<int64_t>(M) * Kp;
-  const int ap_blocks =
-      ap ? static_cast<int>(std::min<int64_t>((a_bytes + 1023) / 1024, 2048))
-         : 0;
-  const int64_t n_out = static_cast<int64_t>(M) * N;
-  const int zero_blocks =
-      split > 1
-          ? static_cast<int>(std::min<int64_t>((n_out + 1023) / 1024, 2048))
-          : 0;
+  int split, kps;
+  imma::split_k(k_tiles, tiles, imma::sm_count(), &split, &kps);
   const auto* pa = static_cast<const uint8_t*>(a);
   auto* pap = static_cast<uint8_t*>(ap);
   auto* pbt = static_cast<uint8_t*>(bt);
   auto* po = static_cast<int32_t*>(out);
-  if (bt_blocks + ap_blocks + zero_blocks > 0) {
-    mac_gemm_pack_kernel<<<bt_blocks + ap_blocks + zero_blocks, PACK_THREADS,
-                           0, s>>>(pa, static_cast<const uint8_t*>(b), pap,
-                                   pbt, po, M, N, K, Kp, bt_cols, bt_blocks,
-                                   ap_blocks, zero_blocks,
-                                   N % 4 == 0 && (reinterpret_cast<uintptr_t>(
-                                                      b) & 3) == 0);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  const int err = imma::pack(pa, static_cast<const uint8_t*>(b), pap, pbt,
+                             po, M, N, K, Kp, split > 1, s);
+  if (err) return err;
   const uint8_t* a_op = ap ? pap : pa;
   if (a_signed && b_signed) {
     return launch<true, true>(a_op, pbt, po, M, N, Kp, kps, split, s);

@@ -24,9 +24,10 @@ def flash_attention_kernel(q, k, v, *, causal=True, bq=128, bk=128):
     1/sqrt(D), float32 inside.
 
     ``bq`` and ``bk`` are the reference's query and kv block sizes, kept
-    for parity of the signature and ignored: the kernel's tiles are
-    64 x 64 and it bounds-checks any S, so its result does not depend on
-    them."""
+    for parity of the signature and ignored: the kernels tile 64
+    (bfloat16) or 128 (float32, 3xTF32) query rows against kv tiles of
+    64 or 32 rows and bounds-check any S, so the result does not depend
+    on them."""
     if not (q.dtype == k.dtype == v.dtype and q.dtype in _DTYPES):
         raise TypeError(f"flash_attention_kernel: q, k, v must all be "
                         f"float32 or bfloat16, got {q.dtype}, {k.dtype}, "

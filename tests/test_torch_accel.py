@@ -51,6 +51,8 @@ from repro_torch.kernels import (flash_attention_kernel, fx_log,  # noqa: E402
 from repro_torch.kernels.explog import FX_ONE, fx_log_float  # noqa: E402
 from repro_torch.kernels.explog.ref import LOG_BAD, fx_log_ref  # noqa: E402
 from repro_torch.kernels.flash_attn import flash_attention_ref  # noqa: E402
+from repro_torch.kernels.mac_conv.ops import (  # noqa: E402
+    route as conv_route)
 
 CSRC = ROOT / "src" / "repro_torch" / "csrc"
 I32 = np.iinfo(np.int32)
@@ -191,6 +193,25 @@ def test_mac_conv2d_rejects_what_the_kernel_does_not_take():
         mac_conv2d(x, w, padding="FULL")
     with pytest.raises(ValueError, match="does not fit"):
         mac_conv2d(x[:, :2], w)
+
+
+# the kernel each Fig. 22/23 conv layer takes on the card: the tensor
+# cores where every 16-byte chunk of a patch row lies in one tap
+CONV_ROUTES = {"lenet_c1": "dp4a", "lenet_c3": "dp4a",
+               "vgg16_conv3_256": "wgmma", "resnet50_1x1_b2": "wgmma",
+               "resnet50_3x3_b2": "wgmma", "mobilenetv2_pw": "dp4a"}
+
+
+@pytest.mark.parametrize("name", list(CONV_ROUTES))
+def test_mac_conv2d_route_of_each_fig22_23_layer(name):
+    g = next(g for n, kind, g in dnn_layers.LAYERS if n == name)
+    x_shape = (1, g["h"], g["w"], g["cin"])
+    w_shape = (g["kh"], g["kw"], g["cin"], g["cout"])
+    assert conv_route(x_shape, w_shape) == CONV_ROUTES[name]
+    x = torch.zeros(x_shape[:1] + (g["kh"], g["kw"], g["cin"]),
+                    dtype=torch.int8)
+    assert conv_route(x, torch.zeros(w_shape, dtype=torch.int8)) == \
+        CONV_ROUTES[name]
 
 
 # ------------------------------------------------------------------ attention

@@ -23,6 +23,7 @@ from repro_torch.kernels.explog.ref import FX_ONE, fx_exp_ref, fx_log_ref
 from repro_torch.kernels.flash_attn.ref import flash_attention_ref
 from repro_torch.kernels.lif.ref import lif_step_ref
 from repro_torch.kernels.link_load.ref import link_loads_csc_ref
+from repro_torch.kernels.mac_conv.ops import route as conv_route
 from repro_torch.kernels.mac_conv.ref import mac_conv2d_ref
 from repro_torch.kernels.mac_gemm.ref import mac_gemm_ref
 from repro_torch.kernels.syn_accum.ref import syn_accum_ref
@@ -236,6 +237,80 @@ def test_mac_conv2d_kernel_signedness(cuda, x_t, w_t):
     got = mac_conv2d(x.to(cuda), w.to(cuda), stride=(2, 1), padding="SAME")
     assert torch.equal(got.cpu(), mac_conv2d_ref(x, w, stride=(2, 1),
                                                  padding="SAME"))
+
+
+# the tensor-core route (Cin % 16 == 0): Cout and B Ho Wo off the 128 x
+# N tiles, N of 64, 128 and 256, two tiles of 256 channels, stride (2, 1),
+# both paddings, and a split-K shape (4 output tiles, 18 K tiles)
+WGMMA_CONV_CASES = [
+    ((1, 13, 11, 16), (3, 3, 16, 70), (1, 1), "SAME"),
+    ((2, 17, 9, 48), (3, 2, 48, 200), (2, 1), "VALID"),
+    ((1, 9, 10, 48), (1, 1, 48, 40), (2, 1), "SAME"),
+    ((1, 12, 12, 16), (3, 3, 16, 300), (1, 1), "VALID"),
+    ((1, 20, 20, 256), (3, 3, 256, 256), (1, 1), "SAME"),
+]
+PAIRS = [(torch.int8, torch.int8), (torch.uint8, torch.uint8),
+         (torch.int8, torch.uint8), (torch.uint8, torch.int8)]
+
+
+@pytest.mark.parametrize("x_t,w_t", PAIRS)
+@pytest.mark.parametrize("xs,ws,stride,pad", WGMMA_CONV_CASES)
+def test_mac_conv2d_wgmma_kernel(cuda, xs, ws, stride, pad, x_t, w_t):
+    rng = np.random.default_rng(sum(xs) + sum(ws) + stride[0])
+    x, w = _bytes(rng, xs, x_t), _bytes(rng, ws, w_t)
+    xc, wc = x.to(cuda), w.to(cuda)
+    assert conv_route(xc, wc) == "wgmma"
+    before = mac_conv2d.launches
+    got = mac_conv2d(xc, wc, stride=stride, padding=pad)
+    torch.cuda.synchronize()
+    assert mac_conv2d.launches == before + 1
+    assert torch.equal(got.cpu(), mac_conv2d_ref(x, w, stride=stride,
+                                                 padding=pad))
+
+
+def test_mac_conv2d_wgmma_kernel_wraps(cuda):
+    """uint8 255s over K = 3 * 3 * 4096 > 33025 taps: every interior sum
+    leaves the int32 range and wraps, split K's atomics included."""
+    x = torch.full((1, 5, 5, 4096), 255, dtype=torch.uint8)
+    w = torch.full((3, 3, 4096, 20), 255, dtype=torch.uint8)
+    want = mac_conv2d_ref(x, w, padding="SAME")
+    assert int(want[0, 2, 2, 0]) == (9 * 4096 * 255 * 255 + 2**31) % 2**32 \
+        - 2**31
+    xc = x.to(cuda)
+    assert conv_route(xc, w.to(cuda)) == "wgmma"
+    assert torch.equal(mac_conv2d(xc, w.to(cuda), padding="SAME").cpu(),
+                       want)
+
+
+@pytest.mark.parametrize("cin,kernel", [(15, "dp4a"), (16, "wgmma"),
+                                        (24, "dp4a")])
+def test_mac_conv2d_route_boundary(cuda, cin, kernel):
+    rng = np.random.default_rng(cin)
+    x = _bytes(rng, (2, 10, 9, cin), torch.int8)
+    w = _bytes(rng, (3, 3, cin, 36), torch.uint8)
+    xc, wc = x.to(cuda), w.to(cuda)
+    assert conv_route(xc, wc) == kernel
+    got = mac_conv2d(xc, wc, stride=(2, 1), padding="SAME")
+    assert torch.equal(got.cpu(), mac_conv2d_ref(x, w, stride=(2, 1),
+                                                 padding="SAME"))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [8, 64, 80, 128])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 1000])
+def test_flash_attention_kernel_f32_tiles(cuda, s, d, causal):
+    """The float32 3xTF32 kernel off its 64-query and 32-kv tile edges,
+    D zero-filled to 64 or 128, at the float32 tolerance."""
+    shape = (2, s, 2, d)
+    gen = torch.Generator().manual_seed(s * 1000 + d + 7)
+    q, k, v = (torch.randn(shape, generator=gen) for _ in range(3))
+    got = flash_attention_kernel(q.to(cuda), k.to(cuda), v.to(cuda),
+                                 causal=causal)
+    fold = lambda t: t.transpose(1, 2).reshape(4, s, d)
+    want = flash_attention_ref(fold(q), fold(k), fold(v), causal=causal)
+    want = want.reshape(2, 2, s, d).transpose(1, 2)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got.cpu(), want, atol=2e-5, rtol=1e-4)
 
 
 # bfloat16: one rounding of the output (rtol 2^-7 is one bf16 ulp)

@@ -27,9 +27,11 @@ farm, the DNN pipeline), and checks what comes out:
               each hand kernel's device time per launch inside the tick.
 5. event    — the same ring under exec_mode="auto", which resolves to
               event mode: every record equal to the dense run's
-              (energies at rtol=1e-6), event_link_loads launched every
-              tick, steady µs/tick beside the dense one, and a profile of
-              the event tick; then the 32-PE shot net with src_cap 4 and
+              (energies at rtol=1e-6), event_link_loads and the input
+              set's compaction (compact_lanes) launched once every tick
+              (the dense ring: no compaction), steady µs/tick beside the
+              dense one, and a profile of the event tick, in which no sort
+              kernel may run; then the 32-PE shot net with src_cap 4 and
               2 (overflow ticks), event == dense bitwise.
 6. hybrid   — hybrid_workload at the reference's widths (256 neurons,
               hidden 64, 600 ticks) on the card and on the CPU: integer
@@ -44,11 +46,14 @@ farm, the DNN pipeline), and checks what comes out:
               out, the same latency and records.
 9. kernels  — each kernel against its plain PyTorch version, bitwise, on
               the card at its path's shapes (the 4096-PE ring's weights
-              and incidence, the farm's padded rows, the hybrid encode's
-              operands; mac_gemm also at int8 4096^3, the Fig. 15 uint8
-              (64,128)x(128,64), the Fig. 22/23 FC tile 1x4096x512 and
-              uint8 255s at 64x40000x64, whose sums wrap int32, each a
-              kernel_check line nested in its entry of the kernels line).
+              and incidence, a tick's input set for the compaction, the
+              farm's padded rows, the hybrid encode's operands;
+              event_link_loads also on its global-memory route,
+              compact_lanes also on an overflowing set; mac_gemm also at
+              int8 4096^3, the Fig. 15 uint8 (64,128)x(128,64), the
+              Fig. 22/23 FC tile 1x4096x512 and uint8 255s at
+              64x40000x64, whose sums wrap int32, each a kernel_check
+              line nested in its entry of the kernels line).
               ``ms`` is the kernel's own device time per launch
               (torch.profiler) with the L2 cache flushed before every
               launch, as a tick reads its inputs cold; ``warm_ms`` is
@@ -133,13 +138,18 @@ from repro_torch.core import snn  # noqa: E402
 from repro_torch.core.dvfs import DVFSController  # noqa: E402
 from repro_torch.core.energy import PEEnergyModel  # noqa: E402
 from repro_torch.core.quant import quantize_per_axis  # noqa: E402
-from repro_torch.kernels import (_build, event_link_loads,  # noqa: E402
-                                 flash_attention_kernel, fx_exp, fx_log,
+from repro_torch.kernels import (_build, compact_lanes,  # noqa: E402
+                                 event_link_loads, flash_attention_kernel,
+                                 fx_exp, fx_log,
                                  launch_counts, lif_step, link_loads_csc,
                                  mac_conv2d, mac_gemm, reset_launch_counts,
                                  syn_accum)
+from repro_torch.kernels.event_gather.ops import (  # noqa: E402
+    launch as event_gather_launch)
+from repro_torch.kernels.event_gather.ops import (  # noqa: E402
+    route as event_gather_route)
 from repro_torch.kernels.event_gather.ref import (  # noqa: E402
-    event_link_loads_ref)
+    compact_lanes_ref, event_link_loads_ref)
 from repro_torch.kernels.explog.ops import (from_fx, fx_log_float,  # noqa: E402
                                             to_fx)
 from repro_torch.kernels.explog.ref import (FX_ONE, fx_exp_ref,  # noqa: E402
@@ -196,7 +206,8 @@ KERNEL_SYMBOLS = {"lif_step": r"\blif_step_kernel\b",
                   "fx_exp": r"\bfx_exp_kernel\b",
                   "link_loads_csc": r"\blink_loads_csc_kernel\b",
                   "syn_accum": r"\bsyn_accum_kernel\b",
-                  "event_link_loads": r"\bevent_link_loads_kernel\b",
+                  "event_link_loads": r"\bevent_link_loads(_smem)?_kernel\b",
+                  "compact_lanes": r"\bcompact_lanes_kernel\b",
                   "mac_gemm": r"\bmac_gemm(_dp4a)?_kernel\b",
                   "fx_log": r"\bfx_log_kernel\b",
                   "mac_conv2d": r"\bmac_conv(_igmma)?_kernel\b",
@@ -493,6 +504,7 @@ def phase_board(dev) -> tuple:
     check(sim.use_sparse_noc(), "4096-PE ring must use the sparse NoC")
     check(counts["link_loads_csc"] == BOARD_TICKS,
           f"link_load launched {counts['link_loads_csc']} times")
+    check(counts["compact_lanes"] == 0, "the dense ring ran the compaction")
     check_launched(counts, ("fx_exp", "syn_accum", "lif_step",
                             "link_loads_csc"), "board ring")
     first = first_strong_ticks(recs, 25)
@@ -546,6 +558,8 @@ def profile_ticks(sim):
         device_idle_share=1.0 - busy_us / wall_us,
         kernel_launches_per_tick=sum(c for c, _ in kernels.values())
         / PROFILE_TICKS,
+        sort_launches_per_tick=sum(c for k, (c, _) in kernels.items()
+                                   if "sort" in k.lower()) / PROFILE_TICKS,
         top=[{"kernel": k[:90], "launches_per_tick": c / PROFILE_TICKS,
               "us_per_tick": us / PROFILE_TICKS} for k, (c, us) in top])
     return main, summary, saved, step
@@ -563,6 +577,8 @@ def phase_tick_profile(sim, label: str) -> dict:
     mean active sources of event_link_loads, counted by replaying the
     profiled ticks from the saved state, outside the profile."""
     main, summary, state, step = profile_ticks(sim)
+    check(not sim.use_event_mode() or summary["sort_launches_per_tick"] == 0,
+          f"{label}: the event tick ran sort kernels")
     bits = torch.zeros(2, dtype=torch.int64, device=sim.device)
     active = 0
     for t in range(PROFILE_WARM, PROFILED.stop):
@@ -693,41 +709,88 @@ def phase_kernels(dev, sim, prog, main: dict, main_event: dict,
            main_path_ms_event_tick=main_event["syn_accum"]["ms"])
     del w_all
 
+    # the event tick's compaction of its input set at the ring's size: a
+    # wave's eight receiving PEs and four kicked ones into 64 lanes; other
+    # shape: half the PEs set, which overflows the lanes and the chunks.
+    # Library: the compaction in torch, two torch.sort calls (the plain
+    # version)
+    def compact_row(rows, m, in_tick, **extra):
+        geometry = (snn.EVENT_SRC_CAP, snn.EVENT_MAX_CHUNKS)
+
+        def call():
+            return compact_lanes(m, *geometry)
+
+        def plain():
+            return compact_lanes_ref(m, *geometry)
+        got, want = call(), plain()
+        nbytes = P + got[0].numel() * 4 + 1 + 4
+        kernel_row(
+            rows, flush, "compact_lanes",
+            "src/repro_torch/csrc/event_gather.cu",
+            "src/repro/core/snn.py:348 compact and src/repro/kernels/"
+            "event_gather/ops.py:35 active_source_set (jax.lax.sort, no "
+            "Pallas kernel)", call, plain,
+            torch.cat([t.reshape(-1).to(torch.int32) for t in got]),
+            torch.cat([t.reshape(-1).to(torch.int32) for t in want]),
+            nbytes, P, 500, 50, library=plain,
+            main_bound_ms=bound_ms(nbytes, P)[0], in_tick=in_tick,
+            library_call="two torch.sort calls (the plain version)",
+            pes=P, set_lanes=int(m.sum()), fits=bool(got[1]), **extra)
+        return rows[-1]
+    m = torch.zeros(P, dtype=torch.bool)
+    m[torch.from_numpy(gen.choice(P, 12, replace=False))] = True
+    half = torch.from_numpy(gen.random(P) < 0.5).to(dev)
+    over = compact_row([], half, {},
+                       shape_tag="half the PEs set: overflow")
+    check(not over["fits"], "compact_lanes: half the PEs must overflow")
+    compact_row(rows, m.to(dev), main_event["compact_lanes"],
+                main_path="4096-PE ring, event mode", other_shapes=[over])
+
     # event-mode link loads over the 4096-PE farm's padded rows, every
-    # source active: one packet each, 1-4 flits (graded payloads)
+    # source (idx None: the kernel walks all of them, as the event tick
+    # does), each active: one packet, 1-4 flits (graded payloads).  The
+    # other route (global memory) is timed on the same input
     Pf, Lr = farm_rows.shape
-    idx = torch.arange(Pf, dtype=torch.int32, device=dev)
     w = torch.stack([torch.ones(Pf), torch.from_numpy(
         gen.integers(1, 5, Pf).astype(np.float32))]).to(dev)
-    want = event_link_loads_ref(idx, w, farm_rows, farm_links)
+    want = event_link_loads_ref(None, w, farm_rows, farm_links)
     ids = farm_rows.reshape(-1).long()
     w_entry = w[:, :, None].expand(2, Pf, Lr).reshape(2, -1).contiguous()
     acc = torch.zeros(2, farm_links + 1, device=dev)
     check(torch.equal(acc.index_add(1, ids, w_entry)[:, :farm_links], want),
           "event_link_loads: library call")
     valid = int((farm_rows < farm_links).sum())
+    route = event_gather_route(2, farm_links)
+    other = "global" if route == "smem" else "smem"
+    other_out = torch.empty_like(want)
+    event_gather_launch(None, w, farm_rows, other_out, other)
+    check(torch.equal(other_out, want), f"event_link_loads: {other} route")
 
-    def ev_bytes(cap, active, slots, links):
-        """idx, then the weights and row of each active lane, then the
-        zeroed and accumulated (2, n_links) output."""
-        return cap * 4 + active * (slots * 4 + 2 * 4) + 2 * links * 4
+    def ev_bytes(active, slots, links):
+        """The (2, P) weights, the row of each active source, the (2,
+        n_links) output."""
+        return 2 * Pf * 4 + active * slots * 4 + 2 * links * 4
     farm_ev = farm_main["event_link_loads"]
     act = farm_ev["active_sources"]
     ring_ev = main_event["event_link_loads"]
     record("event_link_loads", "src/repro_torch/csrc/event_gather.cu",
            "src/repro/kernels/event_gather/event_gather.py:28",
-           lambda: event_link_loads(idx, w, farm_rows, n_links=farm_links),
-           lambda: event_link_loads_ref(idx, w, farm_rows, farm_links),
-           event_link_loads(idx, w, farm_rows, n_links=farm_links), want,
-           ev_bytes(Pf, Pf, Lr, farm_links), 2 * valid, 500, 50,
+           lambda: event_link_loads(None, w, farm_rows, n_links=farm_links),
+           lambda: event_link_loads_ref(None, w, farm_rows, farm_links),
+           event_link_loads(None, w, farm_rows, n_links=farm_links), want,
+           ev_bytes(Pf, Lr, farm_links), 2 * valid, 500, 50,
            library=lambda: torch.zeros(2, farm_links + 1,
                                        device=dev).index_add_(1, ids,
                                                               w_entry),
-           main_bound_ms=bound_ms(ev_bytes(Pf, act, Lr, farm_links),
+           main_bound_ms=bound_ms(ev_bytes(act, Lr, farm_links),
                                   2 * act * Lr)[0],
            in_tick=farm_ev, sources=Pf, tree_slots=Lr, entries=valid,
            n_links=farm_links, main_path="4096-PE hybrid farm, event mode",
-           main_path_active_sources=act,
+           main_path_active_sources=act, kernel=route, other_kernel=other,
+           other_kernel_ms=kernel_device_ms(
+               "event_link_loads",
+               lambda: event_gather_launch(None, w, farm_rows, other_out,
+                                           other), flush=flush),
            ring_in_tick_ms=ring_ev["ms"],
            ring_active_sources=ring_ev["active_sources"])
 
@@ -809,8 +872,8 @@ def phase_event_ring(dev, prog, dense_recs: dict, dense_us: float):
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     counts = launch_counts()
-    check(counts["event_link_loads"] == BOARD_TICKS,
-          f"event_link_loads launched {counts['event_link_loads']} times")
+    check(counts["event_link_loads"] == counts["compact_lanes"]
+          == BOARD_TICKS, f"event ring launches {counts}")
     check(counts["syn_accum"] == counts["lif_step"] == BOARD_TICKS,
           f"event ring launches {counts}")
     check(counts["link_loads_csc"] == 0, "event ring ran the CSC kernel")
@@ -1276,6 +1339,7 @@ def main() -> int:
     del log, attn
     # each kernel's launches on the path it was checked at
     home = {"event_link_loads": "hybrid_farm_4096pe", "mac_gemm": "hybrid",
+            "compact_lanes": "event_ring_4096pe",
             "mac_conv2d": "dnn_layers", "fx_log": "elementary",
             "flash_attention_kernel": "attention"}
     for row in rows:

@@ -24,8 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.noc import NocSpec
-from repro_torch.kernels.event_gather.ops import (active_source_set,
-                                                  event_link_loads)
+from repro_torch.kernels.event_gather.ops import event_link_loads
 from repro_torch.kernels.link_load.ops import link_loads_csc
 
 SPIKE_PACKET_BITS = 64        # header-only DNoC spike packet
@@ -273,11 +272,9 @@ class MeshNoc:
         flit_loads) from the active sources' rows, both in one kernel
         launch.  ``idx`` is an optional pre-compacted active-source buffer
         (sentinel P on unused lanes) that must cover every source with
-        nonzero packets; None compacts here at full width, which is
-        always exact."""
+        nonzero packets; None walks every source and skips the quiet
+        ones, which is always exact."""
         pk = packets.to(torch.float32)
-        if idx is None:
-            idx, _ = active_source_set(pk, pk.shape[-1])
         w = torch.stack([pk, pk * self.packet_flits(payload_bits)])
         both = event_link_loads(idx, w, rows_padded, n_links=self.n_links)
         return both[0], both[1]

@@ -18,12 +18,12 @@ noise current; a stimulus pulse kick-starts PE 0.
 ``make_synfire_tick(..., event=True)`` builds the activity-compressed
 tick of the reference's event execution mode: the tick's input set (PEs
 with spike arrivals, noise kicks or stimulus) is compacted into a bounded
-index buffer by the reference's two-level tag sort (``compact``), and the
-synaptic accumulation runs on the listed PEs only.  When the set
-overflows the buffer the kernel covers every PE instead, which is the
-dense result, decided on the device with no host branch.  Either mode's
-records are the reference's bit for bit, given the same background noise
-(see ``make_synfire_tick``).
+index buffer, as by the reference's two-level tag sort (``compact``, one
+kernel on the card), and the synaptic accumulation runs on the listed PEs
+only.  When the set overflows the buffer the kernel covers every PE
+instead, which is the dense result, decided on the device with no host
+branch.  Either mode's records are the reference's bit for bit, given the
+same background noise (see ``make_synfire_tick``).
 """
 from __future__ import annotations
 
@@ -38,6 +38,8 @@ from repro_torch.configs import paper
 from repro_torch.core.dvfs import DVFSController
 from repro_torch.core.energy import PEEnergyModel
 from repro_torch.core.router import ring_exchange
+from repro_torch.kernels.event_gather.ops import compact_lanes
+from repro_torch.kernels.event_gather.ref import CHUNK
 from repro_torch.kernels.explog.ops import to_fx
 from repro_torch.kernels.lif.ops import lif_params_fx, lif_step
 from repro_torch.kernels.syn_accum.ops import syn_accum
@@ -54,9 +56,10 @@ MASK32 = 0xFFFFFFFF
 EVENT_SRC_CAP = 64
 
 # Two-level compaction of the input set: PEs group into chunks of
-# EVENT_CHUNK; up to EVENT_MAX_CHUNKS active chunks are selected by a
-# chunk-tag sort before the per-PE tag sort runs on their lanes only.
-EVENT_CHUNK = 64
+# EVENT_CHUNK; the set PEs of the first EVENT_MAX_CHUNKS active chunks are
+# listed (the reference selects those chunks by a chunk-tag sort before
+# its per-PE tag sort runs on their lanes only).
+EVENT_CHUNK = CHUNK
 EVENT_MAX_CHUNKS = 16
 
 
@@ -107,27 +110,10 @@ def compact(src: torch.Tensor, cap: int):
     ``cap_eff = min(cap, P, EVENT_MAX_CHUNKS * EVENT_CHUNK)`` set PE ids
     in ascending order, sentinel P after; ``fits`` (0-d bool) says the
     whole set is listed (no more than ``cap_eff`` PEs in no more than
-    ``EVENT_MAX_CHUNKS`` chunks).  Two static-size sorts over int32 tags
-    (the reference sorts uint16 below 2**16 PEs: same values, same
-    order), no host synchronisation."""
-    P = src.shape[0]
-    nc = -(-P // EVENT_CHUNK)
-    kc = min(EVENT_MAX_CHUNKS, nc)
-    cap_eff = min(cap, P, kc * EVENT_CHUNK)
-    dev = src.device
-    m = torch.nn.functional.pad(src, (0, nc * EVENT_CHUNK - P))
-    m = m.reshape(nc, EVENT_CHUNK)
-    c_any = m.any(1)
-    ctags = torch.where(c_any, torch.arange(nc, dtype=torch.int32,
-                                            device=dev), nc)
-    cidx = torch.sort(ctags).values[:kc]
-    csafe = cidx.clamp(max=nc - 1)
-    sub = m[csafe] & (cidx < nc)[:, None]                   # (kc, 64)
-    pos = (csafe[:, None] * EVENT_CHUNK
-           + torch.arange(EVENT_CHUNK, dtype=torch.int32, device=dev))
-    stags = torch.where(sub, pos, P)
-    idx = torch.sort(stags.reshape(-1)).values[:cap_eff]
-    fits = (src.sum() <= cap_eff) & (c_any.sum() <= kc)
+    ``EVENT_MAX_CHUNKS`` chunks).  One kernel launch on a CUDA device
+    (``compact_lanes``; the plain version is the reference's two tag
+    sorts), no host synchronisation."""
+    idx, fits, _ = compact_lanes(src, cap, EVENT_MAX_CHUNKS)
     return idx, fits
 
 

@@ -7,7 +7,8 @@ of them, so a run can show that it went through the kernels.
 """
 from __future__ import annotations
 
-from repro_torch.kernels.event_gather.ops import event_link_loads
+from repro_torch.kernels.event_gather.ops import (compact_lanes,
+                                                  event_link_loads)
 from repro_torch.kernels.explog.ops import fx_exp, fx_log
 from repro_torch.kernels.flash_attn.ops import flash_attention_kernel
 from repro_torch.kernels.lif.ops import lif_step
@@ -20,7 +21,8 @@ WRAPPERS = {"fx_exp": fx_exp, "lif_step": lif_step,
             "link_loads_csc": link_loads_csc, "syn_accum": syn_accum,
             "event_link_loads": event_link_loads, "mac_gemm": mac_gemm,
             "fx_log": fx_log, "mac_conv2d": mac_conv2d,
-            "flash_attention_kernel": flash_attention_kernel}
+            "flash_attention_kernel": flash_attention_kernel,
+            "compact_lanes": compact_lanes}
 
 
 def launch_counts() -> dict:

@@ -14,11 +14,14 @@ import torch
 
 from repro_torch.chip import ChipSim, compile
 from repro_torch.chip.workloads import hybrid_workload, synfire_graph
-from repro_torch.kernels import (event_link_loads, flash_attention_kernel,
+from repro_torch.kernels import (compact_lanes, event_link_loads,
+                                 flash_attention_kernel,
                                  fx_exp, fx_log, launch_counts, lif_step,
                                  link_loads_csc, mac_conv2d, mac_gemm,
                                  reset_launch_counts, syn_accum)
-from repro_torch.kernels.event_gather.ref import event_link_loads_ref
+from repro_torch.kernels.event_gather.ops import route as event_gather_route
+from repro_torch.kernels.event_gather.ref import (compact_lanes_ref,
+                                                  event_link_loads_ref)
 from repro_torch.kernels.explog.ref import FX_ONE, fx_exp_ref, fx_log_ref
 from repro_torch.kernels.flash_attn.ref import flash_attention_ref
 from repro_torch.kernels.lif.ref import lif_step_ref
@@ -83,44 +86,126 @@ def test_link_load_kernel(cuda):
     assert torch.equal(got.cpu(), link_loads_csc_ref(w, *args, n_links))
 
 
-def test_syn_accum_kernel(cuda):
-    rng = np.random.default_rng(3)
-    P, NE, NI, N = 512, 200, 50, 250
-    exc, inh = _ints(rng, (P, 7)), _ints(rng, (P, 2))
-    exc[::3], inh[::3] = 0, 0
+# syn_accum inputs: (P, spike words); the kernel gives a block up to 16 PEs,
+# 4 of 1001 and 16 of 4099, so neither P fills its last block
+def _words(rng, P, case):
+    exc, inh = _ints(rng, (P, 7)), _ints(rng, (P, 2))      # bits >= NE, NI
+    if case == "idle":
+        exc[:], inh[:] = 0, 0
+    elif case == "one_full":
+        exc[:], inh[:] = 0, 0
+        exc[P // 2], inh[P // 2] = -1, -1                # every bit set
+    elif case == "wave":
+        keep = torch.from_numpy(rng.random(P) < 0.01)
+        exc[~keep], inh[~keep] = 0, 0
+    else:                                                # "thirds"
+        exc[::3], inh[::3] = 0, 0
+    return exc, inh
+
+
+@pytest.mark.parametrize("P,case", [(512, "thirds"), (512, "idle"),
+                                    (1001, "one_full"), (1001, "wave"),
+                                    (4099, "wave"), (1, "one_full")])
+def test_syn_accum_kernel(cuda, P, case):
+    """Dense form: full-range weights whose sums wrap int32, garbage bits
+    above NE and NI in the last words, P not a multiple of the block's
+    PEs, an all-idle tick, one PE with every bit set."""
+    rng = np.random.default_rng(3 + P)
+    NE, NI, N = 200, 50, 250
+    exc, inh = _words(rng, P, case)
     w_ff, w_inh = _ints(rng, (P, NE, N)), _ints(rng, (P, NI, NE))
     got = syn_accum(*(t.to(cuda) for t in (exc, inh, w_ff, w_inh)))
-    assert torch.equal(got.cpu(), syn_accum_ref(exc, inh, w_ff, w_inh))
+    want = syn_accum_ref(exc, inh, w_ff, w_inh)
+    assert torch.equal(got.cpu(), want)
+    assert (case == "idle") == (not want.any())
 
 
+@pytest.mark.parametrize("P", [512, 1001])
 @pytest.mark.parametrize("fits", [True, False])
-def test_syn_accum_listed_kernel(cuda, fits):
+def test_syn_accum_listed_kernel(cuda, fits, P):
+    """Event form: listed PEs only while the set fits (the rest zero, the
+    sentinel P and ids in a partly filled last block ignored), every PE
+    when it overflowed."""
     rng = np.random.default_rng(4)
-    P, NE, NI, N = 512, 200, 50, 250
+    NE, NI, N = 200, 50, 250
     exc, inh = _ints(rng, (P, 7)), _ints(rng, (P, 2))
     w_ff, w_inh = _ints(rng, (P, NE, N)), _ints(rng, (P, NI, NE))
-    pes = torch.tensor([3, 70, 71, 500] + [P] * 60, dtype=torch.int32)
+    pes = torch.tensor([3, 70, 71, 500, P - 1] + [P] * 59,
+                       dtype=torch.int32)
     args = (exc, inh, w_ff, w_inh, pes, torch.tensor(fits))
     got = syn_accum(*(t.to(cuda) for t in args))
     assert torch.equal(got.cpu(), syn_accum_ref(*args))
 
 
-def test_event_link_loads_kernel(cuda):
-    """Every source of a 4096-source incidence active (trees up to 16
-    links), plus a buffer with sentinel lanes and quiet sources."""
+# compaction grid: P around the 64-lane chunk and up to a 4097-PE mesh,
+# caps, and masks that overflow by lanes and by chunks
+COMPACT_MASKS = ("empty", "full", "sparse", "half", "one_per_chunk")
+
+
+def _mask(rng, P, kind):
+    if kind in ("empty", "full"):
+        return torch.full((P,), kind == "full")
+    if kind == "one_per_chunk":                     # 17 chunks, 1 lane each
+        m = torch.zeros(P, dtype=torch.bool)
+        m[::64][:17] = True
+        return m
+    return torch.from_numpy(rng.random(P) < (0.01 if kind == "sparse"
+                                             else 0.5))
+
+
+@pytest.mark.parametrize("max_chunks", [16, None])
+@pytest.mark.parametrize("P", [1, 63, 64, 65, 1000, 4096, 4097, 65536])
+def test_compact_lanes_kernel(cuda, P, max_chunks):
+    rng = np.random.default_rng(P)
+    for kind in COMPACT_MASKS:
+        m = _mask(rng, P, kind)
+        for cap in (1, 7, 64, 1024, P):
+            before = compact_lanes.launches
+            got = compact_lanes(m.to(cuda), cap, max_chunks)
+            assert compact_lanes.launches == before + 1
+            for g, w in zip(got, compact_lanes_ref(m, cap, max_chunks)):
+                assert g.dtype == w.dtype and torch.equal(g.cpu(), w), \
+                    (kind, cap)
+
+
+def test_compact_lanes_kernel_rows_and_limit(cuda):
+    """A leading batch axis takes one block a row; more lanes than one
+    block holds are refused, not sorted."""
+    rng = np.random.default_rng(9)
+    m = torch.from_numpy(rng.random((3, 700)) < 0.05)
+    got = compact_lanes(m.to(cuda), 20, 4)
+    for g, w in zip(got, compact_lanes_ref(m, 20, 4)):
+        assert torch.equal(g.cpu(), w)
+    with pytest.raises(ValueError, match="at most 65536"):
+        compact_lanes(torch.zeros(65537, dtype=torch.bool, device=cuda), 64)
+
+
+@pytest.mark.parametrize("L", [16, 13])
+@pytest.mark.parametrize("n_links,batch,kernel", [
+    (3968, 1, "smem"), (3968, 2, "smem"), (3968, 3, "global"),
+    (20000, 1, "global"), (20000, 2, "global")])
+def test_event_link_loads_kernel(cuda, n_links, batch, kernel, L):
+    """Both routes (chosen by shape), batch 1-3, rows of 16 slots (16-byte
+    loads) and 13: every source (idx None, quiet sources skipped), every
+    source listed, and a buffer with sentinel lanes and quiet sources;
+    rows padded with sentinels."""
     rng = np.random.default_rng(5)
-    n_src, n_links, L = 4096, 3968, 16
+    n_src = 4096
+    assert event_gather_route(batch, n_links) == kernel
     rows = rng.integers(0, n_links, (n_src, L)).astype(np.int32)
     rows[rng.random((n_src, L)) < 0.3] = n_links           # padding
-    w = rng.integers(0, 5, (2, n_src)).astype(np.float32)
-    for idx in (np.arange(n_src, dtype=np.int32),
+    w = rng.integers(0, 5, (3, n_src)).astype(np.float32)[:batch]
+    w = torch.from_numpy(w.reshape(-1) if batch == 1 else w)
+    rows = torch.from_numpy(rows)
+    for idx in (None, np.arange(n_src, dtype=np.int32),
                 np.sort(np.concatenate([rng.choice(n_src, 900, False),
                                         np.full(100, n_src)])).astype(
                     np.int32)):
-        args = (torch.from_numpy(idx), torch.from_numpy(w),
-                torch.from_numpy(rows))
-        got = event_link_loads(*(a.to(cuda) for a in args), n_links=n_links)
-        assert torch.equal(got.cpu(), event_link_loads_ref(*args, n_links))
+        idx = None if idx is None else torch.from_numpy(idx)
+        got = event_link_loads(None if idx is None else idx.to(cuda),
+                               w.to(cuda), rows.to(cuda), n_links=n_links)
+        assert torch.equal(got.cpu(), event_link_loads_ref(idx, w, rows,
+                                                           n_links))
 
 
 @pytest.mark.parametrize("a_t,b_t", [(torch.int8, torch.int8),
@@ -405,6 +490,7 @@ def test_card_event_run_matches_cpu_run(cuda):
     dense = ChipSim(prog, device=cuda, noc_mode="sparse",
                     exec_mode="dense").run(100)
     assert counts["event_link_loads"] == counts["syn_accum"] == 100
+    assert counts["compact_lanes"] == 100
     assert counts["link_loads_csc"] == 0
     for k, w in want.items():
         assert torch.equal(got[k], dense[k]), k

@@ -29,8 +29,9 @@ from repro.kernels.link_load.ref import link_loads_ref as j_link_loads_ref
 from repro_torch.core import snn
 from repro_torch.core.dvfs import DVFSController
 from repro_torch.core.energy import PEEnergyModel
-from repro_torch.kernels import (event_link_loads, flash_attention_kernel,
-                                 fx_exp, fx_log, launch_counts, lif_step,
+from repro_torch.kernels import (compact_lanes, event_link_loads,
+                                 flash_attention_kernel, fx_exp, fx_log,
+                                 launch_counts, lif_step,
                                  link_loads_csc, mac_conv2d, mac_gemm,
                                  reset_launch_counts, syn_accum)
 from repro_torch.kernels.explog.ref import LN2, LOG_TABLE, MAX_EXP_ARG
@@ -231,11 +232,13 @@ def test_plain_versions_do_not_count_launches():
     mac_conv2d(torch.ones(1, 3, 3, 2, dtype=torch.int8),
                torch.ones(2, 2, 2, 4, dtype=torch.uint8))
     flash_attention_kernel(*[torch.ones(1, 4, 2, 8)] * 3)
+    compact_lanes(torch.ones(5, dtype=torch.bool), 3)
     assert launch_counts() == {"fx_exp": 0, "lif_step": 0,
                                "link_loads_csc": 0, "syn_accum": 0,
                                "event_link_loads": 0, "mac_gemm": 0,
                                "fx_log": 0, "mac_conv2d": 0,
-                               "flash_attention_kernel": 0}
+                               "flash_attention_kernel": 0,
+                               "compact_lanes": 0}
 
 
 # ------------------------------------------------------------------ tick pieces

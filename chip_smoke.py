@@ -9,22 +9,30 @@ synfire main path ``synfire_graph`` -> ``compile`` -> ``ChipSim.run`` ->
 ``chip_power_table`` in dense and event mode, the hybrid channel and
 farm, the DNN pipeline), and checks what comes out:
 
-1. device   — card name and count, torch/CUDA versions, nvidia-smi.
+1. device   — card name and count, torch/CUDA versions, nvidia-smi, and
+              the integer issue rate (SMs x 128 lanes x clocks.max.sm)
+              that bounds the integer kernels.
 2. build    — nvcc build of every kernel, its wall time and registers,
               and the tensor-core instructions of each kernel's SASS
               (cuobjdump): every instantiation of the bf16 flash kernel
               must hold HGMMA, of the float32 flash kernel TF32 HGMMA,
               and of mac_gemm's and mac_conv2d's tensor-core kernels (each
-              signedness pairing, and each tile N of mac_conv) IGMMA.
+              signedness pairing, and each tile N of mac_conv) IGMMA; and
+              the SASS instructions per element of fx_log's and fx_exp's
+              loops (``python3 chip_smoke.py --sass LIB`` prints the same
+              for another build of the library, and needs no card).
 3. paper    — the 8-PE test chip (Gaussian noise, dense NoC), 1200 ticks:
               80-tick wave on every PE and the Table III bands.
 4. board    — the 4096-PE ring at the uncut Table II widths (shot noise,
               sparse NoC), exec_mode="dense", 300 ticks: PE p first
-              fires > 100 spikes at tick 10 p.
+              fires > 100 spikes at tick 10 p; the NoC accounting's one
+              kernel (noc_link_loads) launched once a tick.
    profile  — the same ring again for its steady tick time, and 20
               ticks under torch.profiler: device busy time per tick, the
               device's idle share, the kernels that take the time, and
-              each hand kernel's device time per launch inside the tick.
+              each hand kernel's device time per launch inside the tick;
+              the dense tick's NoC accounting alone runs noc_link_loads'
+              kernel and no where, floor-divide or cat kernel.
 5. event    — the same ring under exec_mode="auto", which resolves to
               event mode: every record equal to the dense run's
               (energies at rtol=1e-6), event_link_loads and the input
@@ -40,14 +48,19 @@ farm, the DNN pipeline), and checks what comes out:
               steady tick and a profile.
 7. farm     — hybrid_farm_graph(n_pairs=2048), 4096 PEs, 256 ticks,
               exec_mode="auto" (event) against "dense": every record
-              bitwise, graded payload bits conserved, µs/tick of both
-              and a profile of the event tick.
+              bitwise, graded payload bits conserved, the dense run's
+              NoC accounting one noc_link_loads launch a tick on the
+              farm's own plan (its route, fan-in and in-tick time),
+              µs/tick of both and a profile of each tick.
 8. dnn      — tiled_dnn_workload on the card and on the CPU: 4 frames
               out, the same latency and records.
 9. kernels  — each kernel against its plain PyTorch version, bitwise, on
               the card at its path's shapes (the 4096-PE ring's weights
-              and incidence, a tick's input set for the compaction, the
-              farm's padded rows, the hybrid encode's operands;
+              and incidence, with flits of 1-4 a packet beside the ring's
+              own single flits, and the farm's plan on both routes with a
+              dense tick's packets and graded flits; a tick's input set
+              for the compaction, the farm's padded rows, the hybrid
+              encode's operands;
               event_link_loads also on its global-memory route,
               compact_lanes also on an overflowing set; mac_gemm also at
               int8 4096^3, the Fig. 15 uint8 (64,128)x(128,64), the
@@ -56,7 +69,9 @@ farm, the DNN pipeline), and checks what comes out:
               line nested in its entry of the kernels line).
               ``ms`` is the kernel's own device time per launch
               (torch.profiler) with the L2 cache flushed before every
-              launch, as a tick reads its inputs cold; ``warm_ms`` is
+              launch, as a tick reads its inputs cold (noc_link_loads,
+              whose evict_last lines outlive the flush, reads copies of
+              its plan and flits that no launch has read); ``warm_ms`` is
               the same back to back, with the inputs left in L2;
               ``call_ms`` is one wrapper call back to back (CUDA events,
               host included); an op that launches a pass besides its
@@ -65,7 +80,9 @@ farm, the DNN pipeline), and checks what comes out:
               in ``pass_ms``;
               the plain version and one PyTorch library call (where
               there is one) are timed with L2 flushed;
-              ``bound_ms`` is the least time the card could take.
+              ``bound_ms`` is the least time the card could take, the
+              larger of ``bound_bytes_ms`` and ``bound_ops_ms`` (integer
+              kernels at the integer issue rate of phase 1).
               ``main_path_ms`` is the device time per launch in the
               profiled ticks, beside the bound of those ticks' data.
 10. parity  — the 256-PE shot-noise ring on the card and on the CPU
@@ -140,10 +157,9 @@ from repro_torch.core.energy import PEEnergyModel  # noqa: E402
 from repro_torch.core.quant import quantize_per_axis  # noqa: E402
 from repro_torch.kernels import (_build, compact_lanes,  # noqa: E402
                                  event_link_loads, flash_attention_kernel,
-                                 fx_exp, fx_log,
-                                 launch_counts, lif_step, link_loads_csc,
-                                 mac_conv2d, mac_gemm, reset_launch_counts,
-                                 syn_accum)
+                                 fx_exp, fx_log, launch_counts, lif_step,
+                                 mac_conv2d, mac_gemm, noc_link_loads,
+                                 reset_launch_counts, syn_accum)
 from repro_torch.kernels.event_gather.ops import (  # noqa: E402
     launch as event_gather_launch)
 from repro_torch.kernels.event_gather.ops import (  # noqa: E402
@@ -157,7 +173,8 @@ from repro_torch.kernels.explog.ref import (FX_ONE, fx_exp_ref,  # noqa: E402
 from repro_torch.kernels.flash_attn.ref import (  # noqa: E402
     flash_attention_ref)
 from repro_torch.kernels.lif.ref import lif_step_ref  # noqa: E402
-from repro_torch.kernels.link_load.ref import link_loads_csc_ref  # noqa: E402
+from repro_torch.kernels.link_load.ref import (  # noqa: E402
+    noc_link_loads_ref)
 from repro_torch.kernels.mac_conv.ops import launch as conv_launch  # noqa: E402
 from repro_torch.kernels.mac_conv.ops import route as conv_route  # noqa: E402
 from repro_torch.kernels.mac_conv.ref import mac_conv2d_ref  # noqa: E402
@@ -167,10 +184,16 @@ from repro_torch.kernels.syn_accum.ref import (pack_spikes,  # noqa: E402
                                                spike_words, syn_accum_ref)
 
 # H100 SXM published peaks (NVIDIA datasheet): HBM bandwidth, the
-# float32 rate outside the tensor cores (used for int32 adds as well) and
-# the dense int8, bf16 and TF32 tensor-core rates
+# float32 rate outside the tensor cores and the dense int8, bf16 and TF32
+# tensor-core rates.  An SM's four schedulers issue one warp instruction
+# a cycle each, 128 lanes: integer work is bounded at that issue rate, not
+# at the 64-lane INT32 pipe, because its adds, shifts and moves also run
+# as IMADs on the FMA pipe beside it.  The rate, SMs x 128 x
+# clocks.max.sm, is read from the card in phase 1 (``RATES``)
 HBM_BYTES_PER_S = 3.35e12
 CUDA_CORE_OPS_PER_S = 67e12
+INT_ISSUE_LANES_PER_SM = 128
+RATES: dict = {}
 INT8_TENSOR_OPS_PER_S = 1979e12
 BF16_TENSOR_OPS_PER_S = 989e12
 TF32_TENSOR_OPS_PER_S = 495e12
@@ -204,7 +227,7 @@ ATTN_TOL = {torch.bfloat16: (4e-3, 2 ** -7), torch.float32: (2e-5, 1e-4)}
 # kernel alone)
 KERNEL_SYMBOLS = {"lif_step": r"\blif_step_kernel\b",
                   "fx_exp": r"\bfx_exp_kernel\b",
-                  "link_loads_csc": r"\blink_loads_csc_kernel\b",
+                  "noc_link_loads": r"\bnoc_link_loads_kernel\b",
                   "syn_accum": r"\bsyn_accum_kernel\b",
                   "event_link_loads": r"\bevent_link_loads(_smem)?_kernel\b",
                   "compact_lanes": r"\bcompact_lanes_kernel\b",
@@ -223,6 +246,11 @@ TENSOR_CORE_KERNELS = {"flash_attn_wgmma_kernel": (4, "HGMMA"),
                        "flash_attn_tf32_kernel": (2, "HGMMA.TF32"),
                        "mac_gemm_kernel": (4, "IGMMA"),
                        "mac_conv_igmma_kernel": (12, "IGMMA")}
+# kernels whose SASS instructions per element phase 2 counts
+SASS_LOOP_KERNELS = ("fx_log_kernel", "fx_exp_kernel")
+# PyTorch kernels of the flit weighting that the tick's NoC accounting
+# no longer launches: torch.where, floor division, torch.stack's cat
+NOC_HELPER_KERNELS = r"where|div_floor|CatArrayBatchedCopy"
 
 
 def emit(phase: str, **fields) -> None:
@@ -315,13 +343,18 @@ def kernel_device_ms(name: str, fn, iters: int = 20, flush=None):
     return per_launch_ms(device_kernels(call, iters)[0], name)[1]
 
 
+def bound_parts(n_bytes: float, n_ops: float = 0.0,
+                ops_per_s: float = CUDA_CORE_OPS_PER_S) -> tuple:
+    """(ms for the bytes at HBM bandwidth, ms for the operations at the
+    rate of their type, default the CUDA-core float32 rate)."""
+    return n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / ops_per_s * 1e3
+
+
 def bound_ms(n_bytes: float, n_ops: float = 0.0,
              ops_per_s: float = CUDA_CORE_OPS_PER_S) -> tuple[float, str]:
-    """Least time for the work: bytes over HBM bandwidth or operations
-    over the rate of their type (default the CUDA-core rate), whichever
-    is larger."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / ops_per_s * 1e3
+    """Least time for the work: the larger of ``bound_parts``, and which
+    one it is."""
+    t_bytes, t_ops = bound_parts(n_bytes, n_ops, ops_per_s)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -368,11 +401,14 @@ def kernel_row(rows: list, flush, name, source, replaces, call, plain, got,
                want, nbytes, nops, iters, plain_iters, library=None,
                main_bound_ms=None, in_tick=None,
                ops_per_s=CUDA_CORE_OPS_PER_S, tol=None, prof_iters=20,
-               **extra) -> None:
+               cold_call=None, **extra) -> None:
     """Hold ``name``'s kernel against its plain version (bitwise, or at
     ``tol`` = (atol, rtol)) on ``got``/``want``, time it, its plain
     version and ``library`` (one PyTorch call computing the same
-    function), and append and print its kernel_check row."""
+    function), and append and print its kernel_check row.  ``cold_call``,
+    where given, takes ``call``'s place in the cold timing (``prof_iters``
+    + 1 calls): for a kernel whose loads keep lines in L2 past the flush,
+    a call on inputs that no launch has read yet."""
     err = max_abs_err(got, want)
     if tol is None:
         check(torch.equal(got, want), f"{name}: kernel != plain version")
@@ -382,7 +418,9 @@ def kernel_row(rows: list, flush, name, source, replaces, call, plain, got,
               f"{name}: kernel != plain version at atol, rtol {tol}: "
               f"max abs err {err}")
     b_ms, b_by = bound_ms(nbytes, nops, ops_per_s)
-    cold = device_kernels(lambda: (flush(), call()), prof_iters)[0]
+    b_bytes, b_ops = bound_parts(nbytes, nops, ops_per_s)
+    cold_fn = cold_call or call
+    cold = device_kernels(lambda: (flush(), cold_fn()), prof_iters)[0]
     ms = per_launch_ms(cold, name)[1] or cuda_ms(call, iters, flush)
     in_tick = in_tick or {}
     rows.append(dict(
@@ -391,7 +429,8 @@ def kernel_row(rows: list, flush, name, source, replaces, call, plain, got,
         warm_ms=kernel_device_ms(name, call, prof_iters),
         call_ms=cuda_ms(call, iters),
         plain_ms=cuda_ms(plain, plain_iters, flush),
-        bound_ms=b_ms, bound_by=b_by,
+        bound_ms=b_ms, bound_by=b_by, bound_bytes_ms=b_bytes,
+        bound_ops_ms=b_ops, ops_per_s=ops_per_s,
         library_ms=(cuda_ms(library, max(plain_iters, 20), flush)
                     if library else None),
         main_path_ms=in_tick.get("ms"),
@@ -405,37 +444,98 @@ def kernel_row(rows: list, flush, name, source, replaces, call, plain, got,
 
 # ---------------------------------------------------------------- phases
 
+def nvidia_smi(query: str) -> list:
+    return subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip().splitlines()
+
+
 def phase_device() -> str:
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip().splitlines()
+    smi = nvidia_smi("name,power.limit")
+    clock = nvidia_smi("clocks.max.sm")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = re.match(r"\s*([0-9.]+)\s*MHz", clock[0] if clock else "")
+    check(mhz is not None, f"nvidia-smi clocks.max.sm: {clock}")
+    RATES["int"] = sms * INT_ISSUE_LANES_PER_SM * float(mhz.group(1)) * 1e6
     emit("device", name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
-         cuda=torch.version.cuda, nvidia_smi=smi)
+         cuda=torch.version.cuda, nvidia_smi=smi, sm_count=sms,
+         clocks_max_sm=clock[0], int_ops_per_s=RATES["int"])
     return smi[0] if smi else "nvidia-smi gave no output"
 
 
-def tensor_core_sass(lib: Path) -> dict:
-    """Per kernel function of the built library (mangled name), the count
-    of each tensor-core instruction in its SASS (``cuobjdump -sass``),
-    TF32 wgmma counted apart as HGMMA.TF32."""
+def sass_functions(lib: Path) -> dict:
+    """Per kernel function of a built library (mangled name), its SASS
+    instructions (``cuobjdump -sass``) as (address, text) pairs, a branch
+    to a label given the label's address."""
     cuobjdump = Path(_build.nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
                           capture_output=True, text=True, check=True,
                           timeout=120).stdout
-    counts, fn = {}, None
+    fns, fn, labels, pending = {}, None, {}, []
     for line in sass.splitlines():
         head = re.search(r"Function : (\S+)", line)
+        label = re.match(r"\s*(\.L\w+):", line)
+        ins = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
         if head:
-            fn = counts.setdefault(head.group(1), {})
-            continue
-        op = re.search(r"\b(" + "|".join(TENSOR_CORE_OPS) + r")(\.\S*)?",
-                       line)
-        if op and fn is not None:
-            key = op.group(1) + (".TF32" if "TF32" in (op.group(2) or "")
-                                 else "")
-            fn[key] = fn.get(key, 0) + 1
+            fn = fns.setdefault(head.group(1), [])
+        elif label:
+            pending.append(label.group(1))
+        elif ins and fn is not None:
+            addr = int(ins.group(1), 16)
+            labels.update((name, addr) for name in pending)
+            pending = []
+            fn.append((addr, ins.group(2)))
+    return {name: [(a, re.sub(r"`?\((\.L\w+)\)", lambda m: hex(
+        labels.get(m.group(1), -1)), t)) for a, t in ins]
+        for name, ins in fns.items()}
+
+
+def opcode(text: str) -> str:
+    """The opcode of a SASS instruction, past its predicate."""
+    words = text.split()
+    return words[1] if words[0].startswith("@") else words[0]
+
+
+def tensor_core_sass(fns: dict) -> dict:
+    """Per kernel function, the count of each tensor-core instruction,
+    TF32 wgmma counted apart as HGMMA.TF32."""
+    counts = {}
+    for name, ins in fns.items():
+        c = counts.setdefault(name, {})
+        for _, text in ins:
+            op = re.match(r"(" + "|".join(TENSOR_CORE_OPS) + r")(\.\S*)?$",
+                          opcode(text))
+            if op:
+                key = op.group(1) + (".TF32" if "TF32" in (op.group(2) or "")
+                                     else "")
+                c[key] = c.get(key, 0) + 1
     return counts
+
+
+def loop_cost(ins: list) -> dict:
+    """A kernel's SASS instructions, and of its loop (a backward branch)
+    that loads the most int32 elements a pass, the instructions a pass
+    per element loaded (an LDG's width over 4 bytes)."""
+    best = {"instructions": len(ins)}
+    for addr, text in ins:
+        target = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", text)
+        if not target or int(target.group(1), 16) > addr:
+            continue
+        body = [opcode(t) for a, t in ins
+                if int(target.group(1), 16) <= a <= addr]
+        body = [op for op in body if op != "NOP"]
+        elements = sum(4 if ".128" in op else 2 if ".64" in op else 1
+                       for op in body if op.startswith("LDG"))
+        if elements > best.get("loop_elements", 0):
+            best.update(loop_instructions=len(body), loop_elements=elements,
+                        per_element=len(body) / elements)
+    return best
+
+
+def sass_loop_costs(fns: dict) -> dict:
+    return {sym: loop_cost(ins) for sym in SASS_LOOP_KERNELS
+            for name, ins in fns.items() if sym in name}
 
 
 def phase_build() -> None:
@@ -443,7 +543,8 @@ def phase_build() -> None:
     _build.library()
     regs = [ln.strip() for ln in _build.build_log.splitlines()
             if "registers" in ln]
-    sass = tensor_core_sass(_build.build())
+    functions = sass_functions(_build.build())
+    sass = tensor_core_sass(functions)
     tc = {fn: ops for fn, ops in sass.items() if ops}
     for symbol, (want, op) in TENSOR_CORE_KERNELS.items():
         fns = [fn for fn in sass if symbol in fn]
@@ -451,9 +552,12 @@ def phase_build() -> None:
               f"build: {symbol} has {len(fns)} instantiations (want "
               f"{want}, each with {op}), tensor-core instructions "
               f"{[sass[fn] for fn in fns]}")
+    loops = sass_loop_costs(functions)
+    check(all("per_element" in loops.get(k, {}) for k in SASS_LOOP_KERNELS),
+          f"build: no element loop found in {loops}")
     emit("build", seconds=time.perf_counter() - t0,
          nvcc_seconds=_build.build_seconds, ptxas=regs,
-         tensor_core_sass=tc)
+         tensor_core_sass=tc, sass_per_element=loops)
 
 
 def phase_paper(dev) -> dict:
@@ -502,11 +606,12 @@ def phase_board(dev) -> tuple:
     t3 = time.perf_counter()
     counts = launch_counts()
     check(sim.use_sparse_noc(), "4096-PE ring must use the sparse NoC")
-    check(counts["link_loads_csc"] == BOARD_TICKS,
-          f"link_load launched {counts['link_loads_csc']} times")
+    check(counts["noc_link_loads"] == BOARD_TICKS
+          and counts["link_loads_csc"] == 0,
+          f"board ring NoC launches {counts}")
     check(counts["compact_lanes"] == 0, "the dense ring ran the compaction")
     check_launched(counts, ("fx_exp", "syn_accum", "lif_step",
-                            "link_loads_csc"), "board ring")
+                            "noc_link_loads"), "board ring")
     first = first_strong_ticks(recs, 25)
     check(all(abs(f - 10 * p) <= 1 for p, f in enumerate(first)),
           f"board ring wave: first strong ticks {first}")
@@ -527,14 +632,15 @@ def phase_board(dev) -> tuple:
     return sim, prog, counts, recs, steady_s / BOARD_TICKS * 1e6
 
 
-def profile_ticks(sim):
-    """Profile ``PROFILE_TICKS`` steady ticks of ``sim``'s stepper after
-    ``PROFILE_WARM`` unprofiled ones.  Returns (main, summary, saved,
-    step): per hand kernel the tick launches, its launches per tick and
-    device ms per launch; the window's device busy time, idle share,
-    launches and top kernels; the state before the window (for replays:
-    the tick is deterministic) and the stepper."""
-    state, step = sim.make_stepper()
+def profile_ticks(sim, exec_mode=None):
+    """Profile ``PROFILE_TICKS`` steady ticks of ``sim``'s stepper (in
+    ``exec_mode`` where given) after ``PROFILE_WARM`` unprofiled ones.
+    Returns (main, summary, saved, step): per hand kernel the tick
+    launches, its launches per tick and device ms per launch; the
+    window's device busy time, idle share, launches and top kernels; the
+    state before the window (for replays: the tick is deterministic) and
+    the stepper."""
+    state, step = sim.make_stepper(exec_mode=exec_mode)
     for t in range(PROFILE_WARM):
         state, _ = step(state, t)
     ticks = iter(range(PROFILE_WARM, 10**9))
@@ -565,6 +671,29 @@ def profile_ticks(sim):
     return main, summary, saved, step
 
 
+def noc_accounting_kernels(sim, state) -> dict:
+    """The device kernels, name -> launches, of the dense tick's NoC
+    accounting alone (``noc_loads`` and ``traffic_energy_j`` on a tick's
+    packets with the ring's static packet costs, as ``make_stepper`` wires
+    them): one noc_link_loads launch and none of ``NOC_HELPER_KERNELS``."""
+    prog, noc, dev = sim.program, sim.noc, sim.device
+    _, rec = sim.make_stepper()[1]({k: v.clone() for k, v in state.items()},
+                                   PROFILE_WARM)
+    packets = rec["packets"].to(torch.float32)
+    plan = noc.device_plan(prog.sinc, dev)
+    flits, bits = noc.packet_costs(torch.as_tensor(prog.payload_bits,
+                                                   device=dev))
+    tree_links = torch.as_tensor(prog.tree_links, dtype=torch.float32,
+                                 device=dev)
+    kernels, _ = device_kernels(lambda: (
+        noc.noc_loads(packets, plan, flits),
+        noc.traffic_energy_j(packets, tree_links, bits)), 5)
+    helpers = [k for k in kernels if re.search(NOC_HELPER_KERNELS, k)]
+    check(not helpers and per_launch_ms(kernels, "noc_link_loads")[0] == 5,
+          f"dense NoC accounting kernels {list(kernels)}")
+    return {k[:90]: n / 5 for k, (n, _) in kernels.items()}
+
+
 # device_kernels runs tick PROFILE_WARM unprofiled, then profiles these
 PROFILED = range(PROFILE_WARM + 1, PROFILE_WARM + 1 + PROFILE_TICKS)
 
@@ -579,6 +708,8 @@ def phase_tick_profile(sim, label: str) -> dict:
     main, summary, state, step = profile_ticks(sim)
     check(not sim.use_event_mode() or summary["sort_launches_per_tick"] == 0,
           f"{label}: the event tick ran sort kernels")
+    if not sim.use_event_mode():
+        summary["noc_accounting_kernels"] = noc_accounting_kernels(sim, state)
     bits = torch.zeros(2, dtype=torch.int64, device=sim.device)
     active = 0
     for t in range(PROFILE_WARM, PROFILED.stop):
@@ -598,13 +729,14 @@ def phase_tick_profile(sim, label: str) -> dict:
 
 def phase_kernels(dev, sim, prog, main: dict, main_event: dict,
                   farm_rows: torch.Tensor, farm_links: int, farm_main: dict,
-                  encode_ops: tuple) -> list:
+                  farm_noc: dict, encode_ops: tuple) -> list:
     """Each kernel against its plain version at the main path's shapes;
     ``main``/``main_event`` are what ``phase_tick_profile`` measured
     inside the dense and the event tick of the 4096-PE ring;
-    ``farm_rows`` is the 4096-PE farm's padded incidence and
-    ``farm_main`` its profiled event ticks, ``encode_ops`` the hybrid
-    encode's int8 operands."""
+    ``farm_rows`` is the 4096-PE farm's padded incidence,
+    ``farm_main`` its profiled event ticks, ``farm_noc`` its incidence,
+    a dense tick's packets and flits and that tick's noc_link_loads
+    profile, ``encode_ops`` the hybrid encode's int8 operands."""
     net = sim.program.graph.semantics.net.to(dev)
     P, NE, N = net.w_ff.shape
     NI = net.w_inh.shape[1]
@@ -629,7 +761,8 @@ def phase_kernels(dev, sim, prog, main: dict, main_event: dict,
     i_syn = torch.from_numpy(gen.integers(-1 << 15, 1 << 15, (P, N),
                                           np.int32))
     v, rc, i_syn = v.to(dev), rc.to(dev), i_syn.to(dev)
-    lif_bound = bound_ms(6 * 4 * v.numel(), 8 * v.numel())
+    int_rate = RATES["int"]
+    lif_bound = bound_ms(6 * 4 * v.numel(), 8 * v.numel(), int_rate)
     record("lif_step", "src/repro_torch/csrc/lif.cu",
            "src/repro/kernels/lif/lif.py:22",
            lambda: lif_step(v, rc, i_syn, **net.lif),
@@ -637,7 +770,7 @@ def phase_kernels(dev, sim, prog, main: dict, main_event: dict,
            torch.stack(lif_step(v, rc, i_syn, **net.lif)),
            torch.stack(lif_step_ref(v, rc, i_syn, **net.lif)),
            6 * 4 * v.numel(), 8 * v.numel(), 200, 20,
-           main_bound_ms=lif_bound[0], neurons=v.numel())
+           main_bound_ms=lif_bound[0], ops_per_s=int_rate, neurons=v.numel())
 
     # fx_exp on the path's one element (the LIF decay argument), and on a
     # 2**20-element sample spanning +-16 in s16.15
@@ -649,36 +782,96 @@ def phase_kernels(dev, sim, prog, main: dict, main_event: dict,
     record("fx_exp", "src/repro_torch/csrc/explog.cu",
            "src/repro/kernels/explog/explog.py:27", lambda: fx_exp(arg),
            lambda: fx_exp_ref(arg), fx_exp(x), fx_exp_ref(x), 8, 60, 500,
-           50, elements=1,
+           50, ops_per_s=int_rate, elements=1,
            ms_1m=kernel_device_ms("fx_exp", lambda: fx_exp(x), flush=flush),
            warm_ms_1m=kernel_device_ms("fx_exp", lambda: fx_exp(x)),
            plain_ms_1m=cuda_ms(lambda: fx_exp_ref(x), 20, flush),
-           bound_ms_1m=bound_ms(8 * x.numel(), 60 * x.numel())[0])
+           bound_ms_1m=bound_ms(8 * x.numel(), 60 * x.numel(), int_rate)[0])
 
-    # link loads over the ring's CSC incidence, packets and flits batched
-    src_sorted, link_ptr = prog.noc.device_plan(prog.sinc, dev)
-    L = prog.noc.n_links
-    w = torch.from_numpy(gen.integers(0, 201, (2, P)).astype(np.float32))
-    w = w.to(dev)
-    want = link_loads_csc_ref(w, src_sorted, link_ptr, L)
-    with warnings.catch_warnings():             # sparse CSR is "beta"
-        warnings.simplefilter("ignore")
-        inc_t = torch.sparse_csr_tensor(
-            link_ptr, src_sorted.long(),
-            torch.ones(src_sorted.numel(), device=dev), (L, P),
-            check_invariants=True)
-    w_t = w.t().contiguous()
-    check(torch.equal((inc_t @ w_t).t(), want), "link_load: library call")
-    nnz = src_sorted.numel()
-    ll_bytes = w.numel() * 4 + nnz * 4 + (L + 1) * 8 + 2 * L * 4
-    record("link_loads_csc", "src/repro_torch/csrc/link_load.cu",
-           "src/repro/kernels/link_load/link_load.py:34",
-           lambda: link_loads_csc(w, src_sorted, link_ptr, n_links=L),
-           lambda: link_loads_csc_ref(w, src_sorted, link_ptr, L),
-           link_loads_csc(w, src_sorted, link_ptr, n_links=L), want,
-           ll_bytes, 2 * nnz, 500, 50, library=lambda: inc_t @ w_t,
-           main_bound_ms=bound_ms(ll_bytes, 2 * nnz)[0], nnz=nnz,
-           n_links=L)
+    # the tick's NoC accounting, noc_link_loads, over a plan of a path:
+    # held against its plain version and against the library call, the
+    # sparse CSR product of the (n_links, P) incidence with the (P, 2)
+    # rows (made beforehand).  Its plan and flits carry an L2 evict_last
+    # policy that outlives the flush, so each cold launch reads copies of
+    # them that no launch has read before
+    def noc_plans(sinc):
+        src_sorted, link_ptr = (torch.as_tensor(a, device=dev)
+                                for a in sinc.csc)
+        return {"padded": (torch.as_tensor(sinc.link_major, device=dev),
+                           None),
+                "csc": (src_sorted.to(torch.int32),
+                        link_ptr.to(torch.int32))}
+
+    def noc_row(rows, sinc, pk, fl, route, in_tick, **extra):
+        L, p = sinc.n_links, noc_plans(sinc)[route]
+        src_sorted, link_ptr = noc_plans(sinc)["csc"]
+        nnz = src_sorted.numel()
+        with warnings.catch_warnings():             # sparse CSR is "beta"
+            warnings.simplefilter("ignore")
+            inc_t = torch.sparse_csr_tensor(
+                link_ptr.long(), src_sorted.long(),
+                torch.ones(nnz, device=dev), (L, sinc.n_sources),
+                check_invariants=True)
+        w_t = torch.stack([pk, pk * fl]).t().contiguous()
+
+        def call():
+            return noc_link_loads(pk, fl, *p, n_links=L)
+
+        def plain():
+            return noc_link_loads_ref(pk, fl, *p, L)
+        fresh = iter([(fl.clone(), *(None if t is None else t.clone()
+                                     for t in p)) for _ in range(21)])
+
+        def cold_call():
+            f, *q = next(fresh)
+            return noc_link_loads(pk, f, *q, n_links=L)
+        got, want = call(), plain()
+        check(torch.equal((inc_t @ w_t).t(), want),
+              "noc_link_loads: library call")
+        nbytes = 2 * pk.numel() * 4 + sum(
+            t.numel() * t.element_size() for t in p if t is not None) \
+            + 2 * L * 4
+        kernel_row(rows, flush, "noc_link_loads",
+                   "src/repro_torch/csrc/link_load.cu",
+                   "src/repro/kernels/link_load/link_load.py:34", call,
+                   plain, got, want, nbytes, 3 * nnz, 500, 50,
+                   library=lambda: inc_t @ w_t, cold_call=cold_call,
+                   main_bound_ms=bound_ms(nbytes, 3 * nnz)[0],
+                   in_tick=in_tick, plan=route, fan_in=sinc.max_fan_in,
+                   nnz=nnz, n_links=L, library_call="sparse CSR (n_links, "
+                   "P) @ (P, 2): torch.sparse_csr_tensor mm", **extra)
+        return rows[-1]
+
+    # the ring: packets 0-200 a source and flits 1-4 a packet, which
+    # differ from the packets, so a swapped or dropped row shows; also the
+    # ring's own flits (spike packets: 1 each) and the other route.  The
+    # farm's dense tick: a tick's packets and graded flits on its plan,
+    # both routes
+    noc = prog.noc
+    pk = torch.from_numpy(gen.integers(0, 201, (2, P))[0].astype(
+        np.float32)).to(dev)
+    flits = torch.from_numpy(np.random.default_rng(12).integers(
+        1, 5, P).astype(np.float32)).to(dev)
+    ring_flits, _ = noc.packet_costs(torch.as_tensor(prog.payload_bits,
+                                                     device=dev))
+    route = "padded" if noc.device_plan(prog.sinc, dev)[1] is None \
+        else "csc"
+    other_route = "csc" if route == "padded" else "padded"
+    other = [noc_row([], prog.sinc, pk, ring_flits, route, {},
+                     shape_tag="the ring's own flits (1 a packet)"),
+             noc_row([], prog.sinc, pk, flits, other_route, {},
+                     shape_tag=f"the {other_route} route")]
+    f_sinc = farm_noc["sinc"]
+    f_route = "padded" if farm_noc["noc"].device_plan(f_sinc, dev)[1] \
+        is None else "csc"
+    for r in (f_route, "csc" if f_route == "padded" else "padded"):
+        noc_row(other, f_sinc, farm_noc["packets"], farm_noc["flits"], r,
+                farm_noc["in_tick"] if r == f_route else {},
+                shape_tag=f"the farm's dense tick, the {r} route"
+                + (" (its route)" if r == f_route else ""))
+    noc_row(rows, prog.sinc, pk, flits, route,
+            main.get("noc_link_loads", {}),
+            main_path="4096-PE ring, dense mode", other_shapes=other)
 
     # syn_accum on the ring's weights, a wave's worth of arrivals: eight
     # PEs receive about half their exc and inh sources, the rest nothing
@@ -702,9 +895,9 @@ def phase_kernels(dev, sim, prog, main: dict, main_event: dict,
            lambda: syn_accum_ref(we, wi, net.w_ff, net.w_inh),
            syn_accum(we, wi, net.w_ff, net.w_inh), want,
            syn_bytes(n_e, n_i), n_e * N + n_i * NE, 500, 3,
-           library=lambda: torch.bmm(arr, w_all),
+           library=lambda: torch.bmm(arr, w_all), ops_per_s=int_rate,
            main_bound_ms=bound_ms(syn_bytes(tick_e, tick_i),
-                                  tick_e * N + tick_i * NE)[0],
+                                  tick_e * N + tick_i * NE, int_rate)[0],
            set_bits=n_e + n_i, pes=P, main_path_bits_per_tick=tick_e + tick_i,
            main_path_ms_event_tick=main_event["syn_accum"]["ms"])
     del w_all
@@ -732,8 +925,8 @@ def phase_kernels(dev, sim, prog, main: dict, main_event: dict,
             "Pallas kernel)", call, plain,
             torch.cat([t.reshape(-1).to(torch.int32) for t in got]),
             torch.cat([t.reshape(-1).to(torch.int32) for t in want]),
-            nbytes, P, 500, 50, library=plain,
-            main_bound_ms=bound_ms(nbytes, P)[0], in_tick=in_tick,
+            nbytes, P, 500, 50, library=plain, ops_per_s=int_rate,
+            main_bound_ms=bound_ms(nbytes, P, int_rate)[0], in_tick=in_tick,
             library_call="two torch.sort calls (the plain version)",
             pes=P, set_lanes=int(m.sum()), fits=bool(got[1]), **extra)
         return rows[-1]
@@ -876,7 +1069,8 @@ def phase_event_ring(dev, prog, dense_recs: dict, dense_us: float):
           == BOARD_TICKS, f"event ring launches {counts}")
     check(counts["syn_accum"] == counts["lif_step"] == BOARD_TICKS,
           f"event ring launches {counts}")
-    check(counts["link_loads_csc"] == 0, "event ring ran the CSC kernel")
+    check(counts["noc_link_loads"] == counts["link_loads_csc"] == 0,
+          "event ring ran the dense NoC kernel")
     worst = compare_records(recs, dense_recs, "event vs dense ring")
     del recs
     t1 = time.perf_counter()
@@ -967,10 +1161,16 @@ def phase_farm(dev):
     check_launched(counts, ("fx_exp", "mac_gemm", "lif_step",
                             "event_link_loads"), "farm")
     check(counts["event_link_loads"] == FARM_TICKS, f"farm {counts}")
+    reset_launch_counts()
     t3 = time.perf_counter()
     dense = sim.run(FARM_TICKS, exec_mode="dense")
     torch.cuda.synchronize()
     t4 = time.perf_counter()
+    dense_counts = launch_counts()
+    check(sim.use_sparse_noc()
+          and dense_counts["noc_link_loads"] == FARM_TICKS
+          and dense_counts["event_link_loads"] == 0,
+          f"farm dense NoC launches {dense_counts}")
     compare_records(recs, dense, "farm event vs dense",
                     close=("hidden_out",))
     bits_out = recs["graded_bits_out"].sum(1)
@@ -988,16 +1188,33 @@ def phase_farm(dev):
     main, summary, _, _ = profile_ticks(sim)
     main["event_link_loads"]["active_sources"] = float(
         recs["active_sources"][PROFILED.start:PROFILED.stop].double().mean())
+    # the dense tick's NoC accounting on the farm's own plan: its route,
+    # its fan-in, noc_link_loads' time in the tick, and one profiled
+    # tick's packets and (graded) flits for the kernel rows
+    dense_main, dense_summary, _, _ = profile_ticks(sim, "dense")
+    plan = prog.noc.device_plan(prog.sinc, dev)
+    t = PROFILED.start
+    noc_in = dict(
+        sinc=prog.sinc, noc=prog.noc, in_tick=dense_main["noc_link_loads"],
+        packets=dense["packets"][t].to(torch.float32).contiguous(),
+        flits=prog.noc.packet_costs(dense["payload_bits"][t])[0])
+    check(bool((noc_in["flits"] > 1).any()), "farm: no multi-flit packet")
+    dense_noc = dict(route="padded" if plan[1] is None else "csc",
+                     max_fan_in=prog.sinc.max_fan_in, nnz=prog.sinc.nnz,
+                     noc_link_loads=dense_main["noc_link_loads"])
     emit("hybrid_farm_4096pe", pairs=FARM_PAIRS, pes=prog.n_pes,
          n_links=prog.noc.n_links, tree_slots=rows.shape[1],
          ticks=FARM_TICKS, launches=counts, records_vs_dense="bitwise",
          build_compile_s=t1 - t0, us_per_tick=(t2 - t1) / FARM_TICKS * 1e6,
          us_per_tick_second_run=steady,
          dense_us_per_tick=(t4 - t3) / FARM_TICKS * 1e6,
+         dense_launches=dense_counts, dense_noc=dense_noc,
+         dense_profile=dict(hand_kernels=dense_main, **dense_summary),
          payload_bits=float(recs["payload_bits"].sum()),
          active_sources_mean=float(recs["active_sources"].double().mean()),
          profile=dict(hand_kernels=main, **summary))
-    return counts, torch.as_tensor(rows, device=dev), prog.noc.n_links, main
+    return (counts, torch.as_tensor(rows, device=dev), prog.noc.n_links,
+            main, noc_in)
 
 
 def phase_dnn(dev) -> dict:
@@ -1265,7 +1482,8 @@ def phase_accel_kernels(dev, log: tuple, attn: dict) -> list:
     kernel_row(rows, flush, "fx_log", "src/repro_torch/csrc/explog.cu",
                "src/repro/kernels/explog/explog.py:46",
                lambda: fx_log(log_x), lambda: fx_log_ref(log_x), log_got,
-               log_want, 8 * n, 80 * n, 200, 20, elements=n,
+               log_want, 8 * n, 80 * n, 200, 20,
+               ops_per_s=RATES["int"], elements=n,
                main_path="elementary (fx_log op)")
 
     # flash attention at the GLM-4-9B prefill (bf16), then float32 S=1024;
@@ -1308,6 +1526,11 @@ def phase_accel_kernels(dev, log: tuple, attn: dict) -> list:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--sass"]:
+        for lib in sys.argv[2:]:
+            print(json.dumps({"library": lib, "sass_per_element":
+                              sass_loop_costs(sass_functions(Path(lib)))}))
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1326,15 +1549,15 @@ def main() -> int:
     del dense_recs
     main_event = phase_tick_profile(ev_sim, "tick_profile_4096pe_event")
     paths["hybrid"], encode_ops = phase_hybrid(dev)
-    paths["hybrid_farm_4096pe"], farm_rows, farm_links, farm_main = \
-        phase_farm(dev)
+    paths["hybrid_farm_4096pe"], farm_rows, farm_links, farm_main, \
+        farm_noc = phase_farm(dev)
     paths["dnn_pipeline"] = phase_dnn(dev)
     paths["mac_efficiency"] = phase_mac_efficiency(dev)
     paths["dnn_layers"] = phase_dnn_layers(dev)
     paths["elementary"], log = phase_elementary(dev)
     paths["attention"], attn = phase_attention(dev)
     rows = phase_kernels(dev, sim, prog, main, main_event, farm_rows,
-                         farm_links, farm_main, encode_ops)
+                         farm_links, farm_main, farm_noc, encode_ops)
     rows += phase_accel_kernels(dev, log, attn)
     del log, attn
     # each kernel's launches on the path it was checked at

@@ -5,7 +5,7 @@ A virtual SpiNNaker2 chip: a W x H QPE mesh of PEs running a compiled
 ``TickSemantics`` advances all PEs as batched axes of the same tensors
 and reports per-PE activity; the engine adds the NoC: each source's
 packet count hits its multicast tree incidence — the dense product over
-the (P, n_links) tensor, the segmented sum over the CSC entries
+the (P, n_links) tensor, the segmented sum over each link's sources
 (``kernels/link_load``), or in event mode the gather of the active
 sources' rows (``kernels/event_gather``) — giving per-link loads in
 packets and DNoC flits, plus NoC energy.  ``noc_mode`` and ``exec_mode``
@@ -139,23 +139,27 @@ class ChipSim:
                       if np.asarray(m).any()}
         tree_links = torch.as_tensor(prog.tree_links, dtype=torch.float32,
                                      device=dev)
-        static_pb = torch.as_tensor(prog.payload_bits, device=dev)
+        # each source's flits and bits a packet, once per run; graded
+        # payloads that vary by tick (the hybrid's spike vector) are priced
+        # in the tick instead
+        static_costs = noc.packet_costs(torch.as_tensor(prog.payload_bits,
+                                                        device=dev))
 
         def chip_tick(state, t: int):
             state, rec = tick(state, t)
             packets = rec["packets"].to(torch.float32)        # (P,)
-            # graded payloads may vary by tick (the hybrid's spike vector)
-            pb = rec.get("payload_bits", static_pb)
+            flits, bits = (noc.packet_costs(rec["payload_bits"])
+                           if "payload_bits" in rec else static_costs)
             if sparse and event:
                 rec["link_load"], rec["link_flits"] = noc.event_noc_loads(
-                    packets, rows, pb)
+                    packets, rows, flits)
             elif sparse:
                 rec["link_load"], rec["link_flits"] = noc.noc_loads(
-                    packets, plan, pb)
+                    packets, plan, flits)
             else:
                 rec["link_load"] = noc.link_loads(packets, inc)
-                rec["link_flits"] = noc.flit_loads(packets, inc, pb)
-            rec["e_noc"] = noc.traffic_energy_j(packets, tree_links, pb)
+                rec["link_flits"] = noc.flit_loads(packets, inc, flits)
+            rec["e_noc"] = noc.traffic_energy_j(packets, tree_links, bits)
             active = (rec["packets"] > 0).sum(-1, dtype=torch.int32)
             rec["active_sources"] = active
             rec["active_frac"] = active.to(torch.float32) * inv_src

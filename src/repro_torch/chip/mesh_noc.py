@@ -9,11 +9,14 @@ points of its X/Y tree, so a tree's cost is its set of distinct links.
   stored as a CSR ``SparseIncidence`` of (link_ids, source_ptr).
 * **per tick** (torch, on the sim's device) — per-link loads are either
   the dense product ``packets @ inc`` over the densified incidence
-  (small meshes), the segmented sum over the link-major (CSC) entries of
-  ``kernels/link_load`` (board-scale meshes, dense execution), or, in
-  event execution mode, the gather of the active sources' padded rows
-  with an atomic accumulation (``kernels/event_gather``).  All are exact
-  on integer-valued packet counts, so they agree bitwise.
+  (small meshes), the segmented sum over each link's sources of
+  ``kernels/link_load`` (board-scale meshes, dense execution; one launch
+  for both the packet and the flit rows), or, in event execution mode,
+  the gather of the active sources' padded rows with an atomic
+  accumulation (``kernels/event_gather``).  All are exact on
+  integer-valued packet counts, so they agree bitwise.  The flits and
+  bits of each source's packet (``packet_costs``) are computed once per
+  run where the payload bits are static.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ import torch
 
 from repro_torch.core.noc import NocSpec
 from repro_torch.kernels.event_gather.ops import event_link_loads
-from repro_torch.kernels.link_load.ops import link_loads_csc
+from repro_torch.kernels.link_load.ops import noc_link_loads
 
 SPIKE_PACKET_BITS = 64        # header-only DNoC spike packet
 
@@ -35,6 +38,13 @@ SPIKE_PACKET_BITS = 64        # header-only DNoC spike packet
 DENSE_DENSITY = 0.25
 MAX_SPARSE_COLS = 128
 MIN_SPARSE_LINKS = 128
+# the sparse accounting's plan: the padded link-major table up to this
+# fan-in, the CSC layout above it.  The padded walk learns only from a
+# slot's load whether the next slot is used; CSC reads a link's extent
+# first, and its entries' loads then need not wait on each other.
+# Measured on an H100 (PERF.md section 6): padded is faster at the
+# 4096-PE ring's fan-in of 1, CSC at the 4096-PE farm's fan-in of 64
+PADDED_MAX_FAN_IN = 1
 
 
 @dataclass(frozen=True)
@@ -136,6 +146,22 @@ class SparseIncidence:
         link_ptr = np.zeros(self.n_links + 1, np.int64)
         np.cumsum(counts, out=link_ptr[1:])
         return self.src_of_entry[order], link_ptr
+
+    @functools.cached_property
+    def link_major(self) -> np.ndarray:
+        """(max_fan_in, n_links) int32: column l lists link l's sources in
+        CSC order, padded with the sentinel ``n_sources`` — the padded
+        plan of ``kernels/link_load``, slot-major so that a warp's links
+        read each slot in one coalesced load."""
+        src_sorted, link_ptr = self.csc
+        out = np.full((self.max_fan_in, self.n_links), self.n_sources,
+                      np.int32)
+        if self.nnz:
+            counts = np.diff(link_ptr)
+            link = np.repeat(np.arange(self.n_links), counts)
+            slot = np.arange(self.nnz) - np.repeat(link_ptr[:-1], counts)
+            out[slot, link] = src_sorted
+        return out
 
     @functools.cached_property
     def padded_rows(self) -> np.ndarray:
@@ -247,19 +273,22 @@ class MeshNoc:
         return SparseIncidence.from_rows(rows, self.n_links, hops)
 
     def device_plan(self, sinc: SparseIncidence, device) -> tuple:
-        """The CSC layout on ``device``: (src_sorted int32, link_ptr
-        int64).  Build once per run, outside the tick loop."""
+        """The sparse accounting's plan on ``device``, by the incidence's
+        shape: (link_major, None) for a max fan-in up to
+        ``PADDED_MAX_FAN_IN``, else the CSC layout (src_sorted, link_ptr),
+        both int32.  Build once per run, outside the tick loop."""
+        if sinc.max_fan_in <= PADDED_MAX_FAN_IN:
+            return torch.as_tensor(sinc.link_major, device=device), None
         src_sorted, link_ptr = sinc.csc
         return (torch.as_tensor(src_sorted.astype(np.int32), device=device),
-                torch.as_tensor(link_ptr, device=device))
+                torch.as_tensor(link_ptr.astype(np.int32), device=device))
 
-    def noc_loads(self, packets, plan, payload_bits):
-        """One tick's (link_loads, flit_loads) through the CSC plan: both
-        rows in one kernel launch."""
-        src_sorted, link_ptr = plan
-        pk = packets.to(torch.float32)
-        w = torch.stack([pk, pk * self.packet_flits(payload_bits)])
-        both = link_loads_csc(w, src_sorted, link_ptr, n_links=self.n_links)
+    def noc_loads(self, packets, plan, flits):
+        """One tick's (link_loads, flit_loads) through ``device_plan``'s
+        plan, both rows in one kernel launch; ``flits`` (P,) float32 from
+        ``packet_costs``."""
+        both = noc_link_loads(packets.to(torch.float32), flits, *plan,
+                              n_links=self.n_links)
         return both[0], both[1]
 
     def event_plan(self, sinc: SparseIncidence, device) -> torch.Tensor:
@@ -267,15 +296,16 @@ class MeshNoc:
         Build once per run, outside the tick loop."""
         return torch.as_tensor(sinc.padded_rows, device=device)
 
-    def event_noc_loads(self, packets, rows_padded, payload_bits, idx=None):
+    def event_noc_loads(self, packets, rows_padded, flits, idx=None):
         """Event-mode twin of ``noc_loads``: one tick's (link_loads,
         flit_loads) from the active sources' rows, both in one kernel
         launch.  ``idx`` is an optional pre-compacted active-source buffer
         (sentinel P on unused lanes) that must cover every source with
         nonzero packets; None walks every source and skips the quiet
-        ones, which is always exact."""
+        ones, which is always exact.  ``flits`` (P,) float32 from
+        ``packet_costs``."""
         pk = packets.to(torch.float32)
-        w = torch.stack([pk, pk * self.packet_flits(payload_bits)])
+        w = torch.stack([pk, pk * flits])
         both = event_link_loads(idx, w, rows_padded, n_links=self.n_links)
         return both[0], both[1]
 
@@ -284,11 +314,11 @@ class MeshNoc:
         n_links) float32.  Returns (..., n_links) loads."""
         return packets.to(torch.float32) @ inc
 
-    def flit_loads(self, packets, inc, payload_bits) -> torch.Tensor:
+    def flit_loads(self, packets, inc, flits) -> torch.Tensor:
         """Per-link flit traffic: each source's packets weighted by its
-        packet's flit count before hitting the incidence tensor."""
-        w = packets.to(torch.float32) * self.packet_flits(payload_bits)
-        return w @ inc
+        packet's flit count (``packet_costs``) before hitting the
+        incidence tensor."""
+        return (packets.to(torch.float32) * flits) @ inc
 
     def packet_flits(self, payload_bits) -> torch.Tensor:
         """Flits per packet given per-source payload bits (0 = header-only
@@ -296,20 +326,23 @@ class MeshNoc:
         pb = payload_bits
         return torch.where(pb > 0, -(-pb // self.spec.payload_bits), 1)
 
-    def packet_bits(self, payload_bits) -> torch.Tensor:
-        """Bits on the wire per link traversal of one packet: 64 b for a
-        spike packet, ceil(bits/128) flits of 192 b for graded payloads."""
-        pb = payload_bits
-        return torch.where(pb > 0,
-                           self.packet_flits(pb) * self.spec.flit_bits,
+    def packet_costs(self, payload_bits) -> tuple:
+        """(flits, bits) of each source's packet given its payload bits:
+        flits per packet (``packet_flits``) as float32, and bits on the
+        wire per link traversal, 64 b for a spike packet, ceil(bits/128)
+        flits of 192 b for graded payloads — the per-source weights of the
+        flit loads and of ``traffic_energy_j``."""
+        flits = self.packet_flits(payload_bits)
+        bits = torch.where(payload_bits > 0, flits * self.spec.flit_bits,
                            SPIKE_PACKET_BITS)
+        return flits.to(torch.float32), bits
 
-    def traffic_energy_j(self, packets, tree_links, payload_bits):
+    def traffic_energy_j(self, packets, tree_links, bits):
         """Energy of one tick's multicast traffic, packet-class aware:
-        packets (..., P), tree_links (P,) float32, payload_bits (P,)."""
-        bits = (packets.to(torch.float32) * tree_links
-                * self.packet_bits(payload_bits))
-        return bits.sum(-1) * self.spec.pj_per_bit_hop * 1e-12
+        packets (..., P), tree_links (P,) float32, bits (P,) per link
+        traversal of each source's packet (``packet_costs``)."""
+        traffic = packets.to(torch.float32) * tree_links * bits
+        return traffic.sum(-1) * self.spec.pj_per_bit_hop * 1e-12
 
     def tier_masks(self) -> dict:
         """Named 0/1 masks over the link-id space, one per link tier; a

@@ -29,3 +29,18 @@ def link_loads_csc_ref(weights, src_sorted, link_ptr, n_links: int):
     link_ids = torch.repeat_interleave(
         torch.arange(n_links, device=weights.device), torch.diff(link_ptr))
     return link_loads_ref(weights, link_ids, src_sorted, n_links)
+
+
+def noc_link_loads_ref(packets, flits, ids, link_ptr, n_links: int):
+    """One tick's (2, n_links) link and flit loads: the rows ``pk`` and
+    ``pk * flits`` summed over each link's sources, the arithmetic of the
+    reference's ``MeshNoc.noc_loads``.  The plan is the padded link-major
+    table ``ids`` (F, n_links) with sentinel P when ``link_ptr`` is None,
+    else the CSC layout (``ids`` = src_sorted)."""
+    pk = packets.to(torch.float32)
+    w = torch.stack([pk, pk * flits])
+    if link_ptr is not None:
+        return link_loads_csc_ref(w, ids, link_ptr, n_links)
+    valid = ids < pk.shape[-1]
+    link_ids = torch.arange(n_links, device=ids.device).expand(ids.shape)
+    return link_loads_ref(w, link_ids[valid], ids[valid], n_links)

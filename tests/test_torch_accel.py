@@ -49,7 +49,8 @@ from repro_torch.kernels import (flash_attention_kernel, fx_log,  # noqa: E402
                                  launch_counts, mac_conv2d,
                                  reset_launch_counts)
 from repro_torch.kernels.explog import FX_ONE, fx_log_float  # noqa: E402
-from repro_torch.kernels.explog.ref import LOG_BAD, fx_log_ref  # noqa: E402
+from repro_torch.kernels.explog.ref import (LN2, LOG_BAD,  # noqa: E402
+                                            LOG_TABLE, fx_log_ref)
 from repro_torch.kernels.flash_attn import flash_attention_ref  # noqa: E402
 from repro_torch.kernels.mac_conv.ops import (  # noqa: E402
     route as conv_route)
@@ -133,13 +134,17 @@ def test_fx_log_keeps_shape():
 
 
 def test_explog_cuda_log_ladder_matches_the_plain_version():
-    """The kernel's shift ladders and flag value are the plain
-    version's."""
+    """The kernel's ladder table, ln 2, normalising shift and flag value
+    are the plain version's.  The kernel normalises with one shift after
+    a count of leading zeros; tests/test_torch_fxlog.py holds that, its
+    select-free ladder and its division against the plain version's
+    steps."""
     src = (CSRC / "explog.cu").read_text()
-    arrays = re.search(r"down\[5\]\s*=\s*\{([^}]*)\},\s*up\[5\]\s*=\s*"
-                       r"\{([^}]*)\}", src)
-    assert [int(v) for v in arrays.group(1).split(",")] == [15, 8, 4, 2, 1]
-    assert [int(v) for v in arrays.group(2).split(",")] == [8, 4, 2, 1, 1]
+    table = re.search(r"kLogTable\[15\]\s*=\s*\{([^}]*)\}", src)
+    assert tuple(int(v) for v in table.group(1).split(",")) == LOG_TABLE
+    assert int(re.search(r"kLn2\s*=\s*(\d+)", src).group(1)) == LN2
+    assert "(z0 << lead) >> 16" in src
+    assert "imad(lead, -kLn2, 16 * kLn2)" in src          # (16 - lead) ln 2
     assert re.search(r"kLogBad\s*=\s*-\(1 << 30\)", src)
     assert LOG_BAD == -(1 << 30)
 

@@ -13,19 +13,22 @@ import pytest
 import torch
 
 from repro_torch.chip import ChipSim, compile
+from repro_torch.chip.mesh_noc import SparseIncidence
 from repro_torch.chip.workloads import hybrid_workload, synfire_graph
 from repro_torch.kernels import (compact_lanes, event_link_loads,
                                  flash_attention_kernel,
                                  fx_exp, fx_log, launch_counts, lif_step,
                                  link_loads_csc, mac_conv2d, mac_gemm,
-                                 reset_launch_counts, syn_accum)
+                                 noc_link_loads, reset_launch_counts,
+                                 syn_accum)
 from repro_torch.kernels.event_gather.ops import route as event_gather_route
 from repro_torch.kernels.event_gather.ref import (compact_lanes_ref,
                                                   event_link_loads_ref)
 from repro_torch.kernels.explog.ref import FX_ONE, fx_exp_ref, fx_log_ref
 from repro_torch.kernels.flash_attn.ref import flash_attention_ref
 from repro_torch.kernels.lif.ref import lif_step_ref
-from repro_torch.kernels.link_load.ref import link_loads_csc_ref
+from repro_torch.kernels.link_load.ref import (link_loads_csc_ref,
+                                               noc_link_loads_ref)
 from repro_torch.kernels.mac_conv.ops import route as conv_route
 from repro_torch.kernels.mac_conv.ref import mac_conv2d_ref
 from repro_torch.kernels.mac_gemm.ref import mac_gemm_ref
@@ -71,7 +74,8 @@ def test_lif_kernel(cuda, v_min):
         assert torch.equal(g.cpu(), w)
 
 
-def test_link_load_kernel(cuda):
+@pytest.mark.parametrize("batch", [1, 2, 3])
+def test_link_load_kernel(cuda, batch):
     rng = np.random.default_rng(2)
     n_src, n_links = 4096, 3968
     link_ids = rng.integers(0, n_links, 20000).astype(np.int32)
@@ -79,11 +83,65 @@ def test_link_load_kernel(cuda):
     src = rng.integers(0, n_src, 20000).astype(np.int32)[order]
     ptr = np.zeros(n_links + 1, np.int64)
     np.cumsum(np.bincount(link_ids, minlength=n_links), out=ptr[1:])
-    w = torch.from_numpy(rng.integers(0, 200, (2, n_src)).astype(np.float32))
+    w = torch.from_numpy(rng.integers(0, 200, (batch, n_src)).astype(
+        np.float32))
+    w = w[0] if batch == 1 else w
     args = (torch.from_numpy(src), torch.from_numpy(ptr))
     got = link_loads_csc(w.to(cuda), *(a.to(cuda) for a in args),
                          n_links=n_links)
     assert torch.equal(got.cpu(), link_loads_csc_ref(w, *args, n_links))
+
+
+def test_link_loads_csc_rows_past_the_grid(cuda):
+    """More rows than the grid's y extent: one launch for each 65535."""
+    rng = np.random.default_rng(3)
+    n_src, n_links, rows = 8, 5, 65535 + 2
+    link_ids = rng.integers(0, n_links, 20).astype(np.int32)
+    order = np.argsort(link_ids, kind="stable")
+    src = torch.from_numpy(rng.integers(0, n_src, 20).astype(np.int32)[order])
+    ptr = np.zeros(n_links + 1, np.int64)
+    np.cumsum(np.bincount(link_ids, minlength=n_links), out=ptr[1:])
+    ptr = torch.from_numpy(ptr)
+    w = torch.from_numpy(rng.integers(0, 200, (rows, n_src)).astype(
+        np.float32))
+    before = link_loads_csc.launches
+    got = link_loads_csc(w.to(cuda), src.to(cuda), ptr.to(cuda),
+                         n_links=n_links)
+    assert link_loads_csc.launches == before + 2
+    assert torch.equal(got.cpu(), link_loads_csc_ref(w, src, ptr, n_links))
+
+
+# noc_link_loads: (sources, links, entries); links with no source, one
+# heavy link, P not a multiple of 4, one source
+NOC_CASES = [(4096, 3968, 1054), (4099, 700, 12000), (1, 5, 3)]
+
+
+@pytest.mark.parametrize("route", ["padded", "csc"])
+@pytest.mark.parametrize("n_src,n_links,nnz", NOC_CASES)
+def test_noc_link_loads_kernel(cuda, route, n_src, n_links, nnz):
+    rng = np.random.default_rng(n_links)
+    link_ids = rng.integers(0, n_links // 2 + 1, nnz).astype(np.int32)
+    link_ids[: nnz // 10] = n_links - 1
+    src = rng.integers(0, n_src, nnz)
+    sinc = SparseIncidence.from_rows(
+        [np.unique(link_ids[src == p]) for p in range(n_src)], n_links,
+        np.zeros(n_src, np.int32))
+    pk = torch.from_numpy(rng.integers(0, 201, n_src).astype(np.float32))
+    fl = torch.from_numpy(rng.integers(1, 5, n_src).astype(np.float32))
+    pk[0], fl[0] = pk[0] + 1, 3
+    src_sorted, link_ptr = sinc.csc
+    plan = ((torch.from_numpy(sinc.link_major), None) if route == "padded"
+            else (torch.from_numpy(src_sorted),
+                  torch.from_numpy(link_ptr.astype(np.int32))))
+    want = noc_link_loads_ref(pk, fl, *plan, n_links)
+    before = noc_link_loads.launches
+    got = noc_link_loads(pk.to(cuda), fl.to(cuda),
+                         *(None if t is None else t.to(cuda) for t in plan),
+                         n_links=n_links)
+    torch.cuda.synchronize()
+    assert noc_link_loads.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+    assert float(want[1].sum()) > float(want[0].sum())
 
 
 # syn_accum inputs: (P, spike words); the kernel gives a block up to 16 PEs,
@@ -260,6 +318,28 @@ def test_mac_gemm_kernel_wraps(cuda, fill, a_shape, b_shape, dtype):
     assert (want.long() == (a_shape[1] * fill * fill + 2**31) % 2**32
             - 2**31).all()
     assert torch.equal(mac_gemm(a.to(cuda), b.to(cuda)).cpu(), want)
+
+
+def test_fx_log_kernel_every_int32(cuda):
+    """Every positive int32 in chunks, then 0, negatives and INT32_MIN."""
+    chunk = 1 << 26
+    for lo in range(1, 1 << 31, chunk):
+        x = torch.arange(lo, min(lo + chunk, 1 << 31), dtype=torch.int64,
+                         device=cuda).to(torch.int32)
+        assert torch.equal(fx_log(x), fx_log_ref(x)), lo
+    x = torch.tensor([0, -1, -5, -(1 << 15), I32.min + 1, I32.min],
+                     dtype=torch.int32, device=cuda)
+    assert torch.equal(fx_log(x), fx_log_ref(x))
+
+
+@pytest.mark.parametrize("start,stop", [(0, None), (1, None), (3, -2),
+                                        (0, 3)])
+def test_fx_log_kernel_unaligned_views_and_tails(cuda, start, stop):
+    """Views that start off a 16-byte boundary take the one-element loop;
+    lengths not a multiple of 4 leave a tail."""
+    rng = np.random.default_rng(7)
+    x = _ints(rng, (1 << 16) + 3)[start:stop]
+    assert torch.equal(fx_log(x.to(cuda)).cpu(), fx_log_ref(x))
 
 
 def test_fx_log_kernel(cuda):
@@ -468,7 +548,8 @@ def test_card_run_matches_cpu_run(cuda):
     counts = launch_counts()
     want = ChipSim(prog, noc_mode="sparse", device="cpu").run(100)
     assert counts["syn_accum"] == counts["lif_step"] == 100
-    assert counts["link_loads_csc"] == 100
+    assert counts["noc_link_loads"] == 100
+    assert counts["link_loads_csc"] == 0
     for k, w in want.items():
         g = got[k].cpu()
         if w.is_floating_point() and k.startswith("e_"):
@@ -491,7 +572,7 @@ def test_card_event_run_matches_cpu_run(cuda):
                     exec_mode="dense").run(100)
     assert counts["event_link_loads"] == counts["syn_accum"] == 100
     assert counts["compact_lanes"] == 100
-    assert counts["link_loads_csc"] == 0
+    assert counts["noc_link_loads"] == counts["link_loads_csc"] == 0
     for k, w in want.items():
         assert torch.equal(got[k], dense[k]), k
         g = got[k].cpu()

@@ -33,7 +33,8 @@ from repro_torch.kernels import (compact_lanes, event_link_loads,
                                  flash_attention_kernel, fx_exp, fx_log,
                                  launch_counts, lif_step,
                                  link_loads_csc, mac_conv2d, mac_gemm,
-                                 reset_launch_counts, syn_accum)
+                                 noc_link_loads, reset_launch_counts,
+                                 syn_accum)
 from repro_torch.kernels.explog.ref import LN2, LOG_TABLE, MAX_EXP_ARG
 from repro_torch.kernels.lif.ops import lif_params_fx
 from repro_torch.kernels.link_load.ref import link_loads_ref
@@ -233,8 +234,11 @@ def test_plain_versions_do_not_count_launches():
                torch.ones(2, 2, 2, 4, dtype=torch.uint8))
     flash_attention_kernel(*[torch.ones(1, 4, 2, 8)] * 3)
     compact_lanes(torch.ones(5, dtype=torch.bool), 3)
+    noc_link_loads(torch.ones(3), torch.ones(3),
+                   torch.zeros(1, 4, dtype=torch.int32), n_links=4)
     assert launch_counts() == {"fx_exp": 0, "lif_step": 0,
-                               "link_loads_csc": 0, "syn_accum": 0,
+                               "link_loads_csc": 0, "noc_link_loads": 0,
+                               "syn_accum": 0,
                                "event_link_loads": 0, "mac_gemm": 0,
                                "fx_log": 0, "mac_conv2d": 0,
                                "flash_attention_kernel": 0,

@@ -52,13 +52,32 @@ farm, the DNN pipeline), and checks what comes out:
               NoC accounting one noc_link_loads launch a tick on the
               farm's own plan (its route, fan-in and in-tick time),
               µs/tick of both and a profile of each tick.
+   board    — the reference benchmark's 48-chip board (4x12 chips of
+              4x2 QPEs, 1536 PEs) through BoardSpec.parse ->
+              *_board_graph -> compile_board -> ChipSim.run ->
+              chip_power_table: the synfire ring at Table II widths,
+              400 ticks, dense on the board's sparse plan and in event
+              mode, records equal; the 768-channel farm board in event
+              mode, its chip-to-chip shares of flits and NoC energy equal
+              to BENCH_pr4.json's row of the same board; each run held
+              against the CPU (every kernel's plain version) over a window
+              of its ticks with chip-to-chip traffic, from the card's own
+              state: records bitwise, energies at rtol=1e-6; per run the
+              set-up seconds, µs and launches a tick, a profile, the
+              chip-to-chip share of flits and energy; then the 1x1-board
+              golden (compile_board == compile, bitwise).
 8. dnn      — tiled_dnn_workload on the card and on the CPU: 4 frames
               out, the same latency and records.
 9. kernels  — each kernel against its plain PyTorch version, bitwise, on
               the card at its path's shapes (the 4096-PE ring's weights
               and incidence, with flits of 1-4 a packet beside the ring's
               own single flits, and the farm's plan on both routes with a
-              dense tick's packets and graded flits; a tick's input set
+              dense tick's packets and graded flits; fx_exp at the paths'
+              one element and at 2^20, each also on the route its size
+              does not take, with the table route's bank conflicts, and
+              a fx_exp_routes line of both kernels over n beside the
+              uint16 mantissa table, filled per block or multicast
+              across a cluster; a tick's input set
               for the compaction, the farm's padded rows, the hybrid
               encode's operands;
               event_link_loads also on its global-memory route,
@@ -146,10 +165,11 @@ import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from repro_torch.bench import dnn_layers, mac_efficiency  # noqa: E402
+from repro_torch.board import BoardSpec, compile_board, partition  # noqa: E402
 from repro_torch.chip import ChipSim, chip_power_table, compile  # noqa: E402
-from repro_torch.chip.workloads import (hybrid_farm_graph,  # noqa: E402
-                                        hybrid_workload, synfire_graph,
-                                        tiled_dnn_workload)
+from repro_torch.chip.workloads import (  # noqa: E402
+    hybrid_farm_board_graph, hybrid_farm_graph, hybrid_workload,
+    synfire_board_graph, synfire_graph, tiled_dnn_workload)
 from repro_torch.configs import paper  # noqa: E402
 from repro_torch.core import snn  # noqa: E402
 from repro_torch.core.dvfs import DVFSController  # noqa: E402
@@ -166,10 +186,11 @@ from repro_torch.kernels.event_gather.ops import (  # noqa: E402
     route as event_gather_route)
 from repro_torch.kernels.event_gather.ref import (  # noqa: E402
     compact_lanes_ref, event_link_loads_ref)
-from repro_torch.kernels.explog.ops import (from_fx, fx_log_float,  # noqa: E402
-                                            to_fx)
-from repro_torch.kernels.explog.ref import (FX_ONE, fx_exp_ref,  # noqa: E402
-                                            fx_log_ref)
+from repro_torch.kernels.explog.ops import (  # noqa: E402
+    EXP_TABLE_MIN_N, exp_route, exp_table, from_fx, fx_exp_launch,
+    fx_exp_mantissa_launch, fx_log_float, to_fx)
+from repro_torch.kernels.explog.ref import (FX_ONE, LN2,  # noqa: E402
+                                            fx_exp_ref, fx_log_ref)
 from repro_torch.kernels.flash_attn.ref import (  # noqa: E402
     flash_attention_ref)
 from repro_torch.kernels.lif.ref import lif_step_ref  # noqa: E402
@@ -203,10 +224,27 @@ PARITY_PES, PARITY_TICKS = 256, 100
 PROFILE_WARM, PROFILE_TICKS = 5, 20
 HYBRID_TICKS, HYBRID_RMSE_MAX = 600, 0.25   # band of tests/test_nef_hybrid.py
 FARM_PAIRS, FARM_TICKS = 2048, 256
+# the reference benchmark's headline board (benchmarks/board_scale.py);
+# its ring's wave reaches PE 32, the first on the second chip, at tick
+# 320, so the ring runs 400 ticks to load the chip-to-chip tier
+BOARD_GRID, BOARD_CHIP, BOARD_RING_TICKS = "4x12", "4x2", 400
+# the windows (first tick, ticks) each board run is held against the CPU
+# in: the ring's spans the wave's first chip-to-chip crossing
+BOARD_RING_WINDOW, BOARD_FARM_WINDOW = (305, 30), (100, 16)
+# the reference benchmark's row of the same farm board, whose chip-to-chip
+# shares of flits and NoC energy the port's must equal to the 4 decimals
+# it keeps
+BOARD_FARM_BENCH = ("BENCH_pr4.json", "board_hybrid_4x12chips_1536pe")
+GOLDEN_PES, GOLDEN_TICKS = 64, 120
 GEMM_SAMPLE = 4096              # the int8 GEMM sample: 4096^3
 FLOAT_RTOL, FLOAT_ATOL, ENERGY_RTOL = 1e-5, 1e-6, 1e-6
 L2_FLUSH_BYTES = 256 << 20      # five times the H100's 50 MB L2
 LOG_SAMPLE = 1 << 20            # fx_log's check: 2^20 int32 values
+EXP_SAMPLE = 1 << 20            # fx_exp's check: 2^20 int32 values
+# fx_exp's operations an element, the table route's arithmetic: clamp
+# (2), bias, multiply-high, shift, r (IMAD), exp in float32 (4), the
+# lookup and its add (2), the saturating shift (4)
+EXP_OPS = 16
 CONV_BATCH = 32                 # mac_conv2d's second check: VGG conv3 x 32
 # mac_gemm's wrap check: uint8 255s summed over K = 40000 leave int32;
 # the reference's int32 matmul keeps the low 32 bits
@@ -226,7 +264,7 @@ ATTN_TOL = {torch.bfloat16: (4e-3, 2 ** -7), torch.float32: (2e-5, 1e-4)}
 # output; mac_gemm's K <= 32 and mac_conv2d's Cin % 16 != 0 take a dp4a
 # kernel alone)
 KERNEL_SYMBOLS = {"lif_step": r"\blif_step_kernel\b",
-                  "fx_exp": r"\bfx_exp_kernel\b",
+                  "fx_exp": r"\bfx_exp_(table|ladder)_kernel\b",
                   "noc_link_loads": r"\bnoc_link_loads_kernel\b",
                   "syn_accum": r"\bsyn_accum_kernel\b",
                   "event_link_loads": r"\bevent_link_loads(_smem)?_kernel\b",
@@ -247,7 +285,9 @@ TENSOR_CORE_KERNELS = {"flash_attn_wgmma_kernel": (4, "HGMMA"),
                        "mac_gemm_kernel": (4, "IGMMA"),
                        "mac_conv_igmma_kernel": (12, "IGMMA")}
 # kernels whose SASS instructions per element phase 2 counts
-SASS_LOOP_KERNELS = ("fx_log_kernel", "fx_exp_kernel")
+SASS_LOOP_KERNELS = ("fx_log_kernel", "fx_exp_table_kernel",
+                     "fx_exp_ladder_kernel", "fx_exp_mantissa_kernel",
+                     "fx_exp_mantissa_multicast_kernel")
 # PyTorch kernels of the flit weighting that the tick's NoC accounting
 # no longer launches: torch.where, floor division, torch.stack's cat
 NOC_HELPER_KERNELS = r"where|div_floor|CatArrayBatchedCopy"
@@ -320,13 +360,14 @@ def device_kernels(fn, iters: int) -> tuple[dict, float]:
 
 
 def per_launch_ms(kernels: dict, name: str, passes_only: bool = False):
-    """(launches, mean device ms per launch) of ``name``'s kernel in a
-    profile from ``device_kernels``, the passes a call adds included (or,
+    """(launches, mean device ms per launch) of ``name``'s kernel (a
+    wrapper's, or a kernel's own symbol) in a profile from
+    ``device_kernels``, the passes a call adds included (or,
     with ``passes_only``, those passes alone); (0, None) when it is not
     there."""
     launches, us, pass_us = 0, 0.0, 0.0
     for key, (n, t) in kernels.items():
-        if re.search(KERNEL_SYMBOLS[name], key):
+        if re.search(KERNEL_SYMBOLS.get(name, rf"\b{name}\b"), key):
             launches, us = launches + n, us + t
         elif name in PASS_SYMBOLS and re.search(PASS_SYMBOLS[name], key):
             pass_us += t
@@ -341,6 +382,18 @@ def kernel_device_ms(name: str, fn, iters: int = 20, flush=None):
     recorded no such kernel."""
     call = fn if flush is None else (lambda: (flush(), fn()))
     return per_launch_ms(device_kernels(call, iters)[0], name)[1]
+
+
+def copy_device_ms(x: torch.Tensor, flush, iters: int = 20):
+    """Mean device time of ``Tensor.copy_`` of ``x``, L2 flushed before
+    each call: the time of the bytes alone (None when the profiler
+    recorded no copy)."""
+    out = torch.empty_like(x)
+    kernels = device_kernels(lambda: (flush(), out.copy_(x)), iters)[0]
+    # a same-type copy is a device-to-device memcpy ("Memcpy DtoD")
+    us = [t for k, (_, t) in kernels.items()
+          if re.search(r"copy|memcpy", k, re.I)]
+    return sum(us) / iters / 1e3 if us else None
 
 
 def bound_parts(n_bytes: float, n_ops: float = 0.0,
@@ -515,8 +568,9 @@ def tensor_core_sass(fns: dict) -> dict:
 
 def loop_cost(ins: list) -> dict:
     """A kernel's SASS instructions, and of its loop (a backward branch)
-    that loads the most int32 elements a pass, the instructions a pass
-    per element loaded (an LDG's width over 4 bytes)."""
+    that loads the most int32 elements a pass and stores to global memory
+    (not a loop that fills shared memory), the instructions a pass per
+    element loaded (an LDG's width over 4 bytes)."""
     best = {"instructions": len(ins)}
     for addr, text in ins:
         target = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", text)
@@ -525,6 +579,8 @@ def loop_cost(ins: list) -> dict:
         body = [opcode(t) for a, t in ins
                 if int(target.group(1), 16) <= a <= addr]
         body = [op for op in body if op != "NOP"]
+        if not any(op.startswith("STG") for op in body):
+            continue
         elements = sum(4 if ".128" in op else 2 if ".64" in op else 1
                        for op in body if op.startswith("LDG"))
         if elements > best.get("loop_elements", 0):
@@ -538,7 +594,7 @@ def sass_loop_costs(fns: dict) -> dict:
             for name, ins in fns.items() if sym in name}
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
     t0 = time.perf_counter()
     _build.library()
     regs = [ln.strip() for ln in _build.build_log.splitlines()
@@ -558,6 +614,7 @@ def phase_build() -> None:
     emit("build", seconds=time.perf_counter() - t0,
          nvcc_seconds=_build.build_seconds, ptxas=regs,
          tensor_core_sass=tc, sass_per_element=loops)
+    return loops
 
 
 def phase_paper(dev) -> dict:
@@ -675,7 +732,12 @@ def noc_accounting_kernels(sim, state) -> dict:
     """The device kernels, name -> launches, of the dense tick's NoC
     accounting alone (``noc_loads`` and ``traffic_energy_j`` on a tick's
     packets with the ring's static packet costs, as ``make_stepper`` wires
-    them): one noc_link_loads launch and none of ``NOC_HELPER_KERNELS``."""
+    them): one noc_link_loads launch a call and none of
+    ``NOC_HELPER_KERNELS``.  The launches are the wrapper's own count;
+    the profile shows which kernels ran.  Its counts are reported, not
+    checked: the profiler loses a kernel's record now and then (20
+    profiled ticks of the board ring, the same ticks each run, counted
+    174 launches a tick in one run and 173.9 or 173.95 in others)."""
     prog, noc, dev = sim.program, sim.noc, sim.device
     _, rec = sim.make_stepper()[1]({k: v.clone() for k, v in state.items()},
                                    PROFILE_WARM)
@@ -685,12 +747,18 @@ def noc_accounting_kernels(sim, state) -> dict:
                                                    device=dev))
     tree_links = torch.as_tensor(prog.tree_links, dtype=torch.float32,
                                  device=dev)
+    before = launch_counts()["noc_link_loads"]
     kernels, _ = device_kernels(lambda: (
         noc.noc_loads(packets, plan, flits),
         noc.traffic_energy_j(packets, tree_links, bits)), 5)
+    # device_kernels makes one call outside the profile, then 5 in it
+    launches = launch_counts()["noc_link_loads"] - before
     helpers = [k for k in kernels if re.search(NOC_HELPER_KERNELS, k)]
-    check(not helpers and per_launch_ms(kernels, "noc_link_loads")[0] == 5,
-          f"dense NoC accounting kernels {list(kernels)}")
+    check(not helpers and launches == 6
+          and per_launch_ms(kernels, "noc_link_loads")[0] > 0,
+          f"dense NoC accounting: {launches} noc_link_loads launches in 6 "
+          f"calls, {per_launch_ms(kernels, 'noc_link_loads')[0]} in the "
+          f"profile of 5; kernels {list(kernels)}")
     return {k[:90]: n / 5 for k, (n, _) in kernels.items()}
 
 
@@ -729,14 +797,15 @@ def phase_tick_profile(sim, label: str) -> dict:
 
 def phase_kernels(dev, sim, prog, main: dict, main_event: dict,
                   farm_rows: torch.Tensor, farm_links: int, farm_main: dict,
-                  farm_noc: dict, encode_ops: tuple) -> list:
+                  farm_noc: dict, encode_ops: tuple, sass: dict) -> list:
     """Each kernel against its plain version at the main path's shapes;
     ``main``/``main_event`` are what ``phase_tick_profile`` measured
     inside the dense and the event tick of the 4096-PE ring;
     ``farm_rows`` is the 4096-PE farm's padded incidence,
     ``farm_main`` its profiled event ticks, ``farm_noc`` its incidence,
     a dense tick's packets and flits and that tick's noc_link_loads
-    profile, ``encode_ops`` the hybrid encode's int8 operands."""
+    profile, ``encode_ops`` the hybrid encode's int8 operands, ``sass``
+    phase 2's SASS instructions an element of fx_exp's two kernels."""
     net = sim.program.graph.semantics.net.to(dev)
     P, NE, N = net.w_ff.shape
     NI = net.w_inh.shape[1]
@@ -772,21 +841,87 @@ def phase_kernels(dev, sim, prog, main: dict, main_event: dict,
            6 * 4 * v.numel(), 8 * v.numel(), 200, 20,
            main_bound_ms=lif_bound[0], ops_per_s=int_rate, neurons=v.numel())
 
-    # fx_exp on the path's one element (the LIF decay argument), and on a
-    # 2**20-element sample spanning +-16 in s16.15
+    # fx_exp on the path's one element (the LIF decay argument), on the
+    # ladder route; other shape: a 2^20-element sample spanning +-16 in
+    # s16.15, on the table route.  Each row also times the route its
+    # shape does not take; ``fx_exp_routes`` times both over n
     arg = torch.tensor([int(to_fx(np.float32(-1.0 / 10.0)))],
                        dtype=torch.int32, device=dev)
-    x = torch.from_numpy(gen.integers(-16 << 15, 16 << 15, 1 << 20,
+    x = torch.from_numpy(gen.integers(-16 << 15, 16 << 15, EXP_SAMPLE,
                                       np.int32)).to(dev)
     check(torch.equal(fx_exp(arg), fx_exp_ref(arg)), "fx_exp: alpha")
-    record("fx_exp", "src/repro_torch/csrc/explog.cu",
-           "src/repro/kernels/explog/explog.py:27", lambda: fx_exp(arg),
-           lambda: fx_exp_ref(arg), fx_exp(x), fx_exp_ref(x), 8, 60, 500,
-           50, ops_per_s=int_rate, elements=1,
-           ms_1m=kernel_device_ms("fx_exp", lambda: fx_exp(x), flush=flush),
-           warm_ms_1m=kernel_device_ms("fx_exp", lambda: fx_exp(x)),
-           plain_ms_1m=cuda_ms(lambda: fx_exp_ref(x), 20, flush),
-           bound_ms_1m=bound_ms(8 * x.numel(), 60 * x.numel(), int_rate)[0])
+
+    def exp_row(rows, xx, **extra):
+        n, route = xx.numel(), exp_route(xx.numel())
+        other = "ladder" if route == "table" else "table"
+        out = torch.empty_like(xx)
+        kernel_row(rows, flush, "fx_exp", "src/repro_torch/csrc/explog.cu",
+                   "src/repro/kernels/explog/explog.py:27", lambda: fx_exp(xx),
+                   lambda: fx_exp_ref(xx), fx_exp(xx), fx_exp_ref(xx), 8 * n,
+                   EXP_OPS * n, 500 if n == 1 else 200, 50 if n == 1 else 20,
+                   ops_per_s=int_rate, elements=n,
+                   kernel=f"fx_exp_{route}_kernel",
+                   sass_per_element=sass[f"fx_exp_{route}_kernel"][
+                       "per_element"],
+                   other_kernel=f"fx_exp_{other}_kernel",
+                   other_kernel_ms=kernel_device_ms(
+                       "fx_exp", lambda: fx_exp_launch(xx, out, other),
+                       flush=flush),
+                   other_kernel_warm_ms=kernel_device_ms(
+                       "fx_exp", lambda: fx_exp_launch(xx, out, other)),
+                   other_sass_per_element=sass[f"fx_exp_{other}_kernel"][
+                       "per_element"], **extra)
+        return rows[-1]
+    # shared-memory bank conflicts of the table route's lookups on the
+    # sample, counted from its residues: a warp's 32 lanes read one
+    # int8 each of a component of their int4s at once
+    xs = np.clip(x.cpu().numpy().astype(np.int64), -15 << 15, 15 << 15)
+    words = (xs % LN2 >> 2).reshape(-1, 32, 4).transpose(0, 2, 1)
+    words = words.reshape(-1, 32)                   # one lookup a row
+    banks = words % 32
+    ways = np.zeros(len(words), np.int64)
+    for b in range(32):
+        w = np.sort(np.where(banks == b, words, -1), axis=1)
+        ways = np.maximum(ways, ((np.diff(w, axis=1) != 0) & (w[:, 1:] >= 0)
+                                 ).sum(1) + (w[:, 0] >= 0))
+    table = exp_table(dev)[:LN2]
+    big = exp_row([], x, shape_tag="2^20 elements",
+                  table_corrections=[int(table.min()), int(table.max())],
+                  bank_ways_mean=float(ways.mean()),
+                  bank_ways_max=int(ways.max()),
+                  copy_ms=copy_device_ms(x, flush),
+                  copy_call="Tensor.copy_ of the same 8 MB (no kernel of "
+                            "the port: the bytes' own time)")
+    exp_row(rows, arg, main_path="LIF decay alpha (once per build)",
+            other_shapes=[big])
+    # both routes over n, and the uint16 mantissa table they were chosen
+    # over (every block fills it, or a cluster shares one multicast load)
+    kernels = {
+        "fx_exp_ladder_kernel": lambda xx, out: fx_exp_launch(xx, out,
+                                                              "ladder"),
+        "fx_exp_table_kernel": lambda xx, out: fx_exp_launch(xx, out,
+                                                             "table"),
+        "fx_exp_mantissa_kernel": lambda xx, out: fx_exp_mantissa_launch(
+            xx, out, False),
+        "fx_exp_mantissa_multicast_kernel":
+            lambda xx, out: fx_exp_mantissa_launch(xx, out, True)}
+    routes = []
+    for n in (1, 1 << 10, 1 << 14, 1 << 15, 1 << 16, 1 << 18, EXP_SAMPLE):
+        xx, out = x[:n].contiguous(), torch.empty(n, dtype=torch.int32,
+                                                  device=dev)
+        for kernel, launch in kernels.items():
+            out.fill_(0)
+            launch(xx, out)
+            check(torch.equal(out, fx_exp_ref(xx)), f"{kernel} n={n}")
+            routes.append(dict(
+                n=n, kernel=kernel,
+                chosen=kernel == f"fx_exp_{exp_route(n)}_kernel",
+                ms=kernel_device_ms(kernel, lambda: launch(xx, out),
+                                    flush=flush),
+                warm_ms=kernel_device_ms(kernel, lambda: launch(xx, out))))
+    emit("fx_exp_routes", table_min_n=EXP_TABLE_MIN_N,
+         sass_per_element={k: sass[k]["per_element"] for k in kernels},
+         routes=routes)
 
     # the tick's NoC accounting, noc_link_loads, over a plan of a path:
     # held against its plain version and against the library call, the
@@ -1217,6 +1352,201 @@ def phase_farm(dev):
             main, noc_in)
 
 
+def board_run(sim, what: str, exec_mode: str, ticks: int) -> tuple:
+    """Run ``sim`` (its NoC mode) for ``ticks`` in ``exec_mode`` twice
+    (the second for the steady time) and profile its tick: (records,
+    fields)."""
+    t0 = time.perf_counter()
+    recs = sim.run(ticks, exec_mode=exec_mode)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    sim.run(ticks, exec_mode=exec_mode)
+    torch.cuda.synchronize()
+    steady_us = (time.perf_counter() - t1) / ticks * 1e6
+    main, summary, _, _ = profile_ticks(sim, exec_mode)
+    check(exec_mode != "event" or summary["sort_launches_per_tick"] == 0,
+          f"{what}: the event tick ran sort kernels")
+    x_flits = float(recs["flits_xchip"].sum())
+    tot = float(recs["link_flits"].sum())
+    return recs, dict(
+        exec_mode=exec_mode, ticks=ticks, run_s=run_s,
+        us_per_tick=run_s / ticks * 1e6, us_per_tick_second_run=steady_us,
+        launches_per_tick=summary["kernel_launches_per_tick"],
+        device_busy_us_per_tick=summary["device_busy_us_per_tick"],
+        device_idle_share=summary["device_idle_share"],
+        hand_kernels=main, flits_total=tot, xchip_frac=x_flits / tot,
+        energy_noc_j=float(recs["e_noc"].sum()),
+        energy_xchip_j=float(recs["e_noc_xchip"].sum()))
+
+
+def window_vs_cpu(sim, recs: dict, what: str, exec_mode: str, start: int,
+                  ticks: int, close=()) -> dict:
+    """Hold ticks [start, start + ticks) of ``recs``, a card run of
+    ``sim`` in ``exec_mode``, against the same ticks stepped on the CPU,
+    where every wrapper runs its plain version, from the card's own state
+    at tick ``start``: the board's kernels at its own shapes and plan
+    against their plain versions.  Records as ``compare_records``;
+    returns the window's fields."""
+    state, step = sim.make_stepper(exec_mode=exec_mode)
+    for t in range(start):
+        state, _ = step(state, t)
+    cpu = ChipSim(sim.program, noc_mode=sim.noc_mode, device="cpu")
+    _, cpu_step = cpu.make_stepper(exec_mode=exec_mode)
+    state = {k: v.cpu() for k, v in state.items()}
+    t0 = time.perf_counter()
+    want = snn.run_ticks(lambda s, t: cpu_step(s, start + t), state, ticks)
+    cpu_s = time.perf_counter() - t0
+    got = {k: v[start:start + ticks] for k, v in recs.items()}
+    worst = compare_records(got, want, f"{what} card vs CPU", close=close)
+    return dict(ticks=[start, start + ticks], records="bitwise",
+                energy_max_rel_err=worst, cpu_s=cpu_s,
+                flits_xchip=float(want["flits_xchip"].sum()))
+
+
+def board_plan(sim) -> dict:
+    """The board program's sparse plan: route, fan-in, links."""
+    prog = sim.program
+    return dict(route="padded" if prog.noc.device_plan(
+        prog.sinc, sim.device)[1] is None else "csc",
+        max_fan_in=prog.sinc.max_fan_in, nnz=prog.sinc.nnz,
+        n_links=prog.noc.n_links, n_xchip_links=prog.noc.n_xchip_links,
+        cut_flits=prog.part.cut_flits,
+        chips_used=int((prog.part.chips_of_graph() > 0).sum()),
+        worst_path_latency_s=prog.worst_path_latency_s)
+
+
+def phase_multichip_board(dev) -> dict:
+    """The reference benchmark's headline board, 4x12 chips of 4x2 QPEs
+    (48 chips, 1536 PEs), through BoardSpec.parse -> *_board_graph ->
+    compile_board -> ChipSim.run -> chip_power_table: the synfire ring at
+    Table II widths (shot noise, 400 ticks: the wave enters the second
+    chip at tick 320), dense on the sparse NoC (noc_link_loads
+    on the board's plan) and in event mode (compact_lanes,
+    event_link_loads), event == dense bitwise; the hybrid farm board
+    (768 channels of 32 neurons -> 16) in event mode, its chip-to-chip
+    split equal to the reference benchmark's row.  Each run is held
+    against the CPU's plain versions over a window of its ticks with
+    chip-to-chip traffic (``window_vs_cpu``).  Then the 1x1-board golden
+    at a small size: compile_board == compile, bitwise."""
+    board = BoardSpec.parse(BOARD_GRID, chip=BOARD_CHIP)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    graph = synfire_board_graph(board, noise_model="shot", device=dev)
+    t1 = time.perf_counter()
+    part = partition(graph, board)
+    t2 = time.perf_counter()
+    prog = compile_board(graph, board, part=part)
+    sim = ChipSim(prog, device=dev)
+    t3 = time.perf_counter()
+    check(prog.n_pes == board.n_pes, f"board PEs {prog.n_pes}")
+    check(sim.use_sparse_noc() and sim.use_event_mode(),
+          "the board ring must use the sparse NoC and event mode")
+    before = launch_counts()
+    dense, dense_f = board_run(sim, "board ring", "dense", BOARD_RING_TICKS)
+    mid = launch_counts()
+    check(mid["noc_link_loads"] - before["noc_link_loads"]
+          >= BOARD_RING_TICKS
+          and mid["compact_lanes"] == before["compact_lanes"],
+          f"board ring dense launches {mid}")
+    event, event_f = board_run(sim, "board ring", "event", BOARD_RING_TICKS)
+    after = launch_counts()
+    check(after["compact_lanes"] - mid["compact_lanes"] >= BOARD_RING_TICKS
+          and after["event_link_loads"] - mid["event_link_loads"]
+          >= BOARD_RING_TICKS, f"board ring event launches {after}")
+    worst = compare_records(event, dense, "board ring event vs dense")
+    windows = {mode: window_vs_cpu(sim, recs, f"board ring {mode}", mode,
+                                   *BOARD_RING_WINDOW)
+               for mode, recs in (("dense", dense), ("event", event))}
+    check(windows["dense"]["flits_xchip"] > 0,
+          "board ring: no chip-to-chip traffic in the CPU window")
+    first = first_strong_ticks(dense, 36)
+    check(all(abs(f - 10 * p) <= 1 for p, f in enumerate(first)),
+          f"board ring wave: first strong ticks {first}")
+    check(float(dense["flits_xchip"].sum()) > 0,
+          "board ring: the wave never crossed a chip")
+    tab = chip_power_table(sim, dense)
+    check(tab["board"] == (board.chips_x, board.chips_y)
+          and "xchip" in tab["noc"],
+          "board power table")
+    ring = dict(build_s=t1 - t0, partition_s=t2 - t1,
+                compile_s=t3 - t2, plan=board_plan(sim), dense=dense_f,
+                event=event_f, records_event_vs_dense="bitwise",
+                card_vs_cpu=windows,
+                energy_max_rel_err=worst, first_strong_ticks=first,
+                noc_xchip=tab["noc"]["xchip"],
+                worst_hop_latency_s=tab["noc"]["worst_hop_latency_s"])
+    del dense, event, sim, prog, graph
+
+    t0 = time.perf_counter()
+    fgraph = hybrid_farm_board_graph(board, device=dev)
+    t1 = time.perf_counter()
+    fpart = partition(fgraph, board)
+    t2 = time.perf_counter()
+    fprog = compile_board(fgraph, board, part=fpart)
+    # the channels' chip-to-chip links carry more sources than the
+    # reference's auto-select allows the sparse NoC (MAX_SPARSE_COLS), so
+    # "auto" is dense there; event mode and its accounting are asked for
+    fsim = ChipSim(fprog, noc_mode="sparse", device=dev)
+    t3 = time.perf_counter()
+    frecs, farm_f = board_run(fsim, "farm board", "event", FARM_TICKS)
+    bits_out = frecs["graded_bits_out"].sum(1)
+    check(bits_out.sum() > 0 and torch.equal(
+        bits_out[:-1], frecs["graded_bits_in"].sum(1)[1:]),
+        "farm board: graded payload not conserved")
+    fwindow = window_vs_cpu(fsim, frecs, "farm board", "event",
+                            *BOARD_FARM_WINDOW, close=("hidden_out",))
+    check(fwindow["flits_xchip"] > 0,
+          "farm board: no chip-to-chip traffic in the CPU window")
+    bench, row = BOARD_FARM_BENCH
+    ref = next(r["values"] for r in json.loads(
+        (ROOT / bench).read_text())["rows"] if r["name"] == row)
+    split = {"xchip_flit_frac": farm_f["xchip_frac"],
+             "xchip_energy_frac": farm_f["energy_xchip_j"]
+             / farm_f["energy_noc_j"]}
+    check(all(abs(v - ref[k]) <= 5e-5 for k, v in split.items()),
+          f"farm board: chip-to-chip split {split} != {bench} {row} "
+          f"{ {k: ref[k] for k in split} }")
+    ftab = chip_power_table(fsim, frecs)
+    farm = dict(pairs=len(fgraph.populations) // 2, build_s=t1 - t0,
+                partition_s=t2 - t1, compile_s=t3 - t2,
+                auto_exec_mode="event" if ChipSim(
+                    fprog, device=dev).use_event_mode() else "dense",
+                plan=board_plan(fsim), event=farm_f, card_vs_cpu=fwindow,
+                xchip_split_vs_reference=f"{bench} {row}: equal",
+                noc_xchip=ftab["noc"]["xchip"])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check_launched(counts, ("fx_exp", "syn_accum", "lif_step",
+                            "noc_link_loads", "compact_lanes",
+                            "event_link_loads", "mac_gemm"),
+                   "multichip board")
+    max_mem = torch.cuda.max_memory_allocated()
+    del frecs, fsim, fprog, fgraph
+
+    # the 1x1-board golden at a small size: the same records bit for bit
+    small = synfire_graph(GOLDEN_PES, noise_model="shot", device=dev)
+    single = compile(small)
+    one = compile_board(small, BoardSpec(1, 1, chip=single.mesh))
+    for k in ("link_ids", "source_ptr", "tree_hops"):
+        check(np.array_equal(getattr(single.sinc, k), getattr(one.sinc, k)),
+              f"1x1 board: sinc.{k} differs")
+    for mode in ("dense", "event"):
+        a = ChipSim(single, device=dev).run(GOLDEN_TICKS, exec_mode=mode,
+                                            noc_mode="sparse")
+        b = ChipSim(one, device=dev).run(GOLDEN_TICKS, exec_mode=mode,
+                                         noc_mode="sparse")
+        check(set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a),
+              f"1x1 board != single chip ({mode})")
+    emit("multichip_board", board=f"{BOARD_GRID} chips of {BOARD_CHIP} QPEs",
+         chips=board.n_chips, pes=board.n_pes, launches=counts,
+         max_memory_allocated=max_mem, synfire_ring=ring, hybrid_farm=farm,
+         golden_1x1=f"{GOLDEN_PES}-PE ring, {GOLDEN_TICKS} ticks, dense "
+                    f"and event: compile_board == compile, bitwise")
+    return counts
+
+
 def phase_dnn(dev) -> dict:
     reset_launch_counts()
     got = tiled_dnn_workload(device=dev)
@@ -1527,9 +1857,12 @@ def phase_accel_kernels(dev, log: tuple, attn: dict) -> list:
 
 def main() -> int:
     if sys.argv[1:2] == ["--sass"]:
+        # any build's fx_exp / fx_log kernels, whatever their names
         for lib in sys.argv[2:]:
-            print(json.dumps({"library": lib, "sass_per_element":
-                              sass_loop_costs(sass_functions(Path(lib)))}))
+            fns = sass_functions(Path(lib))
+            print(json.dumps({"library": lib, "sass_per_element": {
+                name: loop_cost(ins) for name, ins in fns.items()
+                if re.search(r"fx_(exp|log)\w*_kernel", name)}}))
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1539,7 +1872,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = phase_device()
-    phase_build()
+    sass = phase_build()
     paths = {"paper_chip_8pe": phase_paper(dev)}
     sim, prog, paths["board_ring_4096pe"], dense_recs, dense_us = \
         phase_board(dev)
@@ -1551,13 +1884,14 @@ def main() -> int:
     paths["hybrid"], encode_ops = phase_hybrid(dev)
     paths["hybrid_farm_4096pe"], farm_rows, farm_links, farm_main, \
         farm_noc = phase_farm(dev)
+    paths["multichip_board"] = phase_multichip_board(dev)
     paths["dnn_pipeline"] = phase_dnn(dev)
     paths["mac_efficiency"] = phase_mac_efficiency(dev)
     paths["dnn_layers"] = phase_dnn_layers(dev)
     paths["elementary"], log = phase_elementary(dev)
     paths["attention"], attn = phase_attention(dev)
     rows = phase_kernels(dev, sim, prog, main, main_event, farm_rows,
-                         farm_links, farm_main, farm_noc, encode_ops)
+                         farm_links, farm_main, farm_noc, encode_ops, sass)
     rows += phase_accel_kernels(dev, log, attn)
     del log, attn
     # each kernel's launches on the path it was checked at

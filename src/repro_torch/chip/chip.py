@@ -1,7 +1,9 @@
 """``ChipSim`` — the workload-agnostic chip engine, on one CUDA device.
 
 A virtual SpiNNaker2 chip: a W x H QPE mesh of PEs running a compiled
-``ChipProgram`` (SNN, DNN or hybrid) tick by tick.  The program's
+``ChipProgram`` (SNN, DNN or hybrid) tick by tick, or, for a
+``board.BoardProgram``, a whole multi-chip board: the engine is the
+same, only the incidence and the NoC's pricing differ.  The program's
 ``TickSemantics`` advances all PEs as batched axes of the same tensors
 and reports per-PE activity; the engine adds the NoC: each source's
 packet count hits its multicast tree incidence — the dense product over
@@ -31,7 +33,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.chip.compile import ChipProgram
 from repro_torch.chip.mesh_noc import (DENSE_DENSITY, MAX_SPARSE_COLS,
-                                       MIN_SPARSE_LINKS, MeshNoc,
+                                       MIN_SPARSE_LINKS, NocAccounting,
                                        SPIKE_PACKET_BITS)
 from repro_torch.core.dvfs import DVFSController
 from repro_torch.core.energy import PEEnergyModel
@@ -81,7 +83,7 @@ class ChipSim:
             self.dvfs = make() if make else DVFSController()
 
     @property
-    def noc(self) -> MeshNoc:
+    def noc(self) -> NocAccounting:
         return self.program.noc
 
     def use_sparse_noc(self, noc_mode: str | None = None) -> bool:
@@ -137,8 +139,18 @@ class ChipSim:
         tier_masks = {tier: torch.as_tensor(m, device=dev)
                       for tier, m in noc.tier_masks().items()
                       if np.asarray(m).any()}
-        tree_links = torch.as_tensor(prog.tree_links, dtype=torch.float32,
-                                     device=dev)
+        # (P,) link counts on a chip; on a board (P, 2) [on-chip,
+        # chip-to-chip], priced by its tiered traffic_energy_j
+        tree_links = torch.as_tensor(prog.energy_tree_links,
+                                     dtype=torch.float32, device=dev)
+        # a board's chip-to-chip tier: its link mask and each source's
+        # chip-to-chip link count.  A 1x1 board has no such tier, and its
+        # records stay exactly the single chip's
+        tiered = getattr(noc, "n_xchip_links", 0) > 0
+        if tiered:
+            xmask = torch.as_tensor(noc.xlink_mask, device=dev)
+            tree_links_x = torch.as_tensor(prog.tree_links_x,
+                                           dtype=torch.float32, device=dev)
         # each source's flits and bits a packet, once per run; graded
         # payloads that vary by tick (the hybrid's spike vector) are priced
         # in the tick instead
@@ -167,6 +179,11 @@ class ChipSim:
             rec["touched_links"] = hit.sum(-1)
             for tier, m in tier_masks.items():
                 rec[f"touched_links_{tier}"] = hit @ m
+            if tiered:
+                rec["load_xchip"] = (rec["link_load"] * xmask).sum(-1)
+                rec["flits_xchip"] = (rec["link_flits"] * xmask).sum(-1)
+                rec["e_noc_xchip"] = noc.xchip_energy_j(packets,
+                                                        tree_links_x, bits)
             return state, rec
 
         return init, chip_tick
@@ -180,7 +197,13 @@ class ChipSim:
         link_flits (T, n_links) — DNoC flits per link per tick
         e_noc      (T,)         — NoC traffic energy per tick [J]
         active_sources, active_frac (T,) — sources emitting >= 1 packet
-        touched_links, touched_links_onchip (T,) — links carrying traffic
+        touched_links, touched_links_<tier> (T,) — links carrying traffic
+
+        and, on a board with chip-to-chip links, the tier's share:
+
+        load_xchip / flits_xchip (T,) — packet / flit traversals of
+                                        chip-to-chip links
+        e_noc_xchip (T,)        — chip-to-chip share of e_noc [J]
 
         ``noc_mode`` and ``exec_mode`` override the sim's choices for this
         run; every choice gives bit-identical records.
@@ -195,7 +218,9 @@ def chip_power_table(sim: ChipSim, recs: dict,
     """Chip-level Table III: ``per_pe`` (averaged over all PEs), ``chip``
     (summed over the mesh) [mW], and ``noc``: average NoC power, peak
     link load in packets and flits per tick, utilization against link
-    capacity, worst multicast hop depth."""
+    capacity, worst multicast hop depth; on a board with chip-to-chip
+    links also ``noc["xchip"]``, the tier's share, with utilization and
+    worst latency taken over both tiers at their own rates."""
     per_pe = synfire_power_table(recs, t_sys_s=t_sys_s)
     P = sim.program.n_pes
     chip = {mode: {k: v * P for k, v in per_pe[mode].items()}
@@ -221,5 +246,36 @@ def chip_power_table(sim: ChipSim, recs: dict,
             sim.program.worst_tree_hops),
         "n_links": sim.noc.n_links,
     }
-    return {"per_pe": per_pe, "chip": chip, "noc": noc, "n_pes": P,
-            "mesh": (sim.program.mesh.width, sim.program.mesh.height)}
+    if "flits_xchip" in recs:
+        xmask = np.asarray(sim.noc.xlink_mask) > 0
+        x_flits = float(recs["flits_xchip"].sum())
+        tot_flits = float(flits.sum())
+        e_xchip = recs["e_noc_xchip"].cpu().numpy()
+        e_x, e_tot = float(e_xchip.sum()), float(e_noc.sum())
+        peak_x = (float(flits[:, xmask].max())
+                  if xmask.any() and flits.size else 0.0)
+        # the chip-to-chip tier has its own, slower flit clock
+        xspec = sim.noc.xspec
+        cap_x = t_sys_s * xspec.freq_hz / xspec.hop_cycles
+        noc["xchip"] = {
+            "n_links": int(xmask.sum()),
+            "flits": x_flits,
+            "flits_frac": x_flits / tot_flits if tot_flits else 0.0,
+            "energy_frac": e_x / e_tot if e_tot else 0.0,
+            "power_mw": float(e_xchip.mean() / t_sys_s * 1e3),
+            "peak_xlink_flits": peak_x,
+            "link_capacity_flits": cap_x,
+            "peak_utilization": peak_x / cap_x,
+        }
+        # tier-aware roll-ups: the worse tier against its own capacity,
+        # and the worst latency with each tier at its own hop cost
+        peak_on = (float(flits[:, ~xmask].max())
+                   if (~xmask).any() and flits.size else 0.0)
+        noc["peak_utilization"] = max(peak_on / cap_flits, peak_x / cap_x)
+        noc["worst_hop_latency_s"] = sim.program.worst_path_latency_s
+    out = {"per_pe": per_pe, "chip": chip, "noc": noc, "n_pes": P,
+           "mesh": (sim.program.mesh.width, sim.program.mesh.height)}
+    board = getattr(sim.program, "board", None)
+    if board is not None:
+        out["board"] = (board.chips_x, board.chips_y)
+    return out

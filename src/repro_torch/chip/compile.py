@@ -4,8 +4,9 @@
 placement of population tiles on consecutive PEs in snake order
 (validated against mesh capacity and the 128 kB PE SRAM first), a dense
 ``RoutingTable``, each source's X/Y multicast tree as a CSR
-``SparseIncidence``, and per-source packet classes.  Plastic projections
-are not ported yet and raise.
+``SparseIncidence`` (X-first, or Y-first per population), and
+per-source packet classes.  Plastic projections are not ported yet and
+raise.
 """
 from __future__ import annotations
 
@@ -49,6 +50,13 @@ class ChipProgram:
         """(P,) multicast-tree link count per source."""
         return self.sinc.tree_links
 
+    @property
+    def energy_tree_links(self) -> np.ndarray:
+        """Per-source link counts the engine prices NoC energy with: one
+        link tier on a chip, so ``tree_links``; a ``BoardProgram`` gives a
+        (P, 2) [on-chip, chip-to-chip] split for its tiered pricing."""
+        return self.tree_links
+
     @functools.cached_property
     def worst_tree_hops(self) -> int:
         return int(self.sinc.tree_hops.max(initial=0))
@@ -73,8 +81,20 @@ class ChipProgram:
                     device=device) if make else None
 
 
-def check_tile_sram(graph: NetGraph, pe: PESpec) -> None:
-    """SRAM constraint per population tile, naming the population."""
+def check_compilable(graph: NetGraph, pe: PESpec) -> None:
+    """What the chip and the board compilers refuse up front: a graph
+    without tick semantics, a plastic projection (on-mesh learning is not
+    ported yet) and a tile over the PE SRAM, each naming its culprit."""
+    if graph.semantics is None:
+        raise ValueError(f"graph {graph.name!r} has no tick semantics; "
+                         "attach one before compiling")
+    plastic = [f"{pr.src}->{pr.dst}" for pr in graph.projections
+               if pr.plasticity is not None]
+    if plastic:
+        raise NotImplementedError(
+            f"graph {graph.name!r}: plastic projections {plastic} need "
+            f"on-mesh learning, which repro_torch has not ported yet "
+            f"(ROADMAP queue A, learning)")
     for pop in graph.populations:
         if pop.sram_bytes > pe.sram_bytes:
             raise ValueError(
@@ -99,26 +119,19 @@ def source_packet_classes(graph: NetGraph) -> dict:
 
 
 def compile(graph: NetGraph, mesh: MeshSpec | None = None,
-            pe: PESpec = PESpec()) -> ChipProgram:  # noqa: A001
+            pe: PESpec = PESpec(),
+            orientations: dict | None = None) -> ChipProgram:  # noqa: A001
     """Compile ``graph`` onto ``mesh`` (auto-sized when None).
 
-    Every multicast tree is X-first.  Raises ``ValueError`` up front,
-    naming the population at fault, when a tile exceeds the PE SRAM or
-    the graph exceeds the mesh; raises ``NotImplementedError`` for a
-    plastic projection.
+    ``orientations`` optionally maps population name -> tree orientation
+    ("xy"/"yx", ``core.noc.ORIENTATIONS``); unlisted populations, and the
+    default None, keep X-first trees.  Orientation changes only the NoC
+    link accounting, never neuron-state records.  Raises ``ValueError``
+    up front, naming the population at fault, when a tile exceeds the PE
+    SRAM or the graph exceeds the mesh; raises ``NotImplementedError``
+    for a plastic projection.
     """
-    if graph.semantics is None:
-        raise ValueError(f"graph {graph.name!r} has no tick semantics; "
-                         "attach one before compiling")
-    plastic = [f"{pr.src}->{pr.dst}" for pr in graph.projections
-               if pr.plasticity is not None]
-    if plastic:
-        raise NotImplementedError(
-            f"graph {graph.name!r}: plastic projections {plastic} need "
-            f"on-mesh learning, which repro_torch has not ported yet "
-            f"(ROADMAP queue A, learning)")
-
-    check_tile_sram(graph, pe)
+    check_compilable(graph, pe)
 
     pes_per_qpe = (mesh.pes_per_qpe if mesh is not None
                    else MeshSpec.for_pes(1).pes_per_qpe)
@@ -165,11 +178,14 @@ def compile(graph: NetGraph, mesh: MeshSpec | None = None,
         dst_slices[pr.src].append(pe_slices[pr.dst])
     empty = np.empty((0, 2), np.int64)
     dst_lists = []
+    orients = []
     for pop in graph.populations:
         sls = dst_slices[pop.name]
         dst_xy = np.concatenate([coords[sl] for sl in sls]) if sls else empty
         dst_lists.extend([dst_xy] * pop.n_tiles)
-    sinc = noc.sparse_incidence(coords, dst_lists)
+        orients.extend([(orientations or {}).get(pop.name, "xy")]
+                       * pop.n_tiles)
+    sinc = noc.sparse_incidence(coords, dst_lists, orientations=orients)
 
     sram = np.zeros(n_pes, np.int64)
     for pop in graph.populations:

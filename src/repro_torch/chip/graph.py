@@ -108,6 +108,12 @@ class NetGraph:
     def n_tiles_total(self) -> int:
         return sum(p.n_tiles for p in self.populations)
 
+    def population(self, name: str) -> Population:
+        for p in self.populations:
+            if p.name == name:
+                return p
+        raise KeyError(name)
+
 
 # ---------------------------------------------------------------------------
 # Shared accounting helpers for semantics implementations

@@ -4,9 +4,10 @@ The chip is a W x H mesh of QPEs (4 PEs each) joined by directed links.
 Spike delivery is multicast: the router duplicates a packet at branch
 points of its X/Y tree, so a tree's cost is its set of distinct links.
 
-* **setup** (numpy, as in the reference) — each source's X/Y multicast
-  tree is derived arithmetically from its destination coordinates and
-  stored as a CSR ``SparseIncidence`` of (link_ids, source_ptr).
+* **setup** (numpy, as in the reference) — each source's X-first (or
+  Y-first) multicast tree is derived arithmetically from its destination
+  coordinates and stored as a CSR ``SparseIncidence`` of (link_ids,
+  source_ptr).
 * **per tick** (torch, on the sim's device) — per-link loads are either
   the dense product ``packets @ inc`` over the densified incidence
   (small meshes), the segmented sum over each link's sources of
@@ -16,7 +17,8 @@ points of its X/Y tree, so a tree's cost is its set of distinct links.
   accumulation (``kernels/event_gather``).  All are exact on
   integer-valued packet counts, so they agree bitwise.  The flits and
   bits of each source's packet (``packet_costs``) are computed once per
-  run where the payload bits are static.
+  run where the payload bits are static.  ``NocAccounting`` holds this
+  per-tick part, shared by ``MeshNoc`` and the board's ``BoardNoc``.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from repro_torch.core.noc import NocSpec
+from repro_torch.core.noc import ORIENTATIONS, NocSpec
 from repro_torch.kernels.event_gather.ops import event_link_loads
 from repro_torch.kernels.link_load.ops import noc_link_loads
 
@@ -184,93 +186,15 @@ class SparseIncidence:
         return m
 
 
-@dataclass
-class MeshNoc:
-    """Link enumeration + incidence construction + per-tick accounting.
-
-    The accounting methods take and return tensors on the caller's device
-    and hold no state."""
-    mesh: MeshSpec
-    spec: NocSpec = field(default_factory=NocSpec)
-
-    def __post_init__(self):
-        links = []
-        for y in range(self.mesh.height):
-            for x in range(self.mesh.width):
-                if x + 1 < self.mesh.width:
-                    links.append(((x, y), (x + 1, y)))
-                    links.append(((x + 1, y), (x, y)))
-                if y + 1 < self.mesh.height:
-                    links.append(((x, y), (x, y + 1)))
-                    links.append(((x, y + 1), (x, y)))
-        self.links = links
-        # arithmetic link-id tables, keyed by the link's lower endpoint
-        W, H = self.mesh.width, self.mesh.height
-        self._id_e = np.full((W, H), -1, np.int32)   # (x,y) -> (x+1,y)
-        self._id_w = np.full((W, H), -1, np.int32)   # (x+1,y) -> (x,y)
-        self._id_n = np.full((W, H), -1, np.int32)   # (x,y) -> (x,y+1)
-        self._id_s = np.full((W, H), -1, np.int32)   # (x,y+1) -> (x,y)
-        for i, ((x0, y0), (x1, y1)) in enumerate(links):
-            if x1 == x0 + 1:
-                self._id_e[x0, y0] = i
-            elif x1 == x0 - 1:
-                self._id_w[x1, y1] = i
-            elif y1 == y0 + 1:
-                self._id_n[x0, y0] = i
-            else:
-                self._id_s[x0, y1] = i
-
-    @property
-    def n_links(self) -> int:
-        return len(self.links)
-
-    def tree_link_ids(self, src, dst_xy: np.ndarray) -> np.ndarray:
-        """Distinct link ids of the X-first multicast tree src -> dst
-        coords: one X trunk through the source row plus one Y run per
-        destination column."""
-        d = np.asarray(dst_xy, np.int64).reshape(-1, 2)
-        if not d.size:
-            return np.empty(0, np.int32)
-        sx, sy = int(src[0]), int(src[1])
-        dx, dy = d[:, 0], d[:, 1]
-        parts = []
-        xmax, xmin = int(dx.max()), int(dx.min())
-        if xmax > sx:
-            parts.append(self._id_e[sx:xmax, sy])
-        if xmin < sx:
-            parts.append(self._id_w[xmin:sx, sy])
-        up = dy > sy
-        if up.any():
-            top = np.full(self.mesh.width, sy, np.int64)
-            np.maximum.at(top, dx[up], dy[up])
-            cols = np.flatnonzero(top > sy)
-            lens = top[cols] - sy
-            ys = _concat_ranges(np.full(cols.size, sy, np.int64), lens)
-            parts.append(self._id_n[np.repeat(cols, lens), ys])
-        dn = dy < sy
-        if dn.any():
-            bot = np.full(self.mesh.width, sy, np.int64)
-            np.minimum.at(bot, dx[dn], dy[dn])
-            cols = np.flatnonzero(bot < sy)
-            lens = sy - bot[cols]
-            ys = _concat_ranges(bot[cols], lens)
-            parts.append(self._id_s[np.repeat(cols, lens), ys])
-        if not parts:
-            return np.empty(0, np.int32)
-        return np.concatenate(parts).astype(np.int32)
-
-    def sparse_incidence(self, src_coords, dst_coord_lists
-                         ) -> SparseIncidence:
-        """CSR incidence + per-source tree hop depths in one pass."""
-        src = np.asarray(src_coords, np.int64).reshape(-1, 2)
-        rows = []
-        hops = np.zeros(len(src), np.int32)
-        for i, (s, d) in enumerate(zip(src, dst_coord_lists)):
-            d = np.asarray(d, np.int64).reshape(-1, 2)
-            rows.append(self.tree_link_ids(s, d))
-            if d.size:
-                hops[i] = int(np.abs(d - s).sum(axis=1).max())
-        return SparseIncidence.from_rows(rows, self.n_links, hops)
+class NocAccounting:
+    """Per-tick NoC accounting over a multicast incidence, shared by the
+    on-chip ``MeshNoc`` and the board-level ``repro_torch.board.BoardNoc``:
+    anything with a ``spec`` (``NocSpec``) and an ``n_links`` link count
+    prices traffic the same way, so single-chip and board programs run on
+    one engine.  The methods take and return tensors on the caller's
+    device and hold no state; the sparse accounting dispatches on the
+    tensors' device (plain versions on the CPU, kernels on the card).
+    """
 
     def device_plan(self, sinc: SparseIncidence, device) -> tuple:
         """The sparse accounting's plan on ``device``, by the incidence's
@@ -358,3 +282,116 @@ class MeshNoc:
 
     def hop_latency_s(self, n_hops) -> float:
         return n_hops * self.spec.hop_cycles / self.spec.freq_hz
+
+
+@dataclass
+class MeshNoc(NocAccounting):
+    """Link enumeration + incidence construction of a W x H QPE mesh; the
+    per-tick accounting is ``NocAccounting``'s."""
+    mesh: MeshSpec
+    spec: NocSpec = field(default_factory=NocSpec)
+
+    def __post_init__(self):
+        links = []
+        for y in range(self.mesh.height):
+            for x in range(self.mesh.width):
+                if x + 1 < self.mesh.width:
+                    links.append(((x, y), (x + 1, y)))
+                    links.append(((x + 1, y), (x, y)))
+                if y + 1 < self.mesh.height:
+                    links.append(((x, y), (x, y + 1)))
+                    links.append(((x, y + 1), (x, y)))
+        self.links = links
+        # arithmetic link-id tables, keyed by the link's lower endpoint
+        W, H = self.mesh.width, self.mesh.height
+        self._id_e = np.full((W, H), -1, np.int32)   # (x,y) -> (x+1,y)
+        self._id_w = np.full((W, H), -1, np.int32)   # (x+1,y) -> (x,y)
+        self._id_n = np.full((W, H), -1, np.int32)   # (x,y) -> (x,y+1)
+        self._id_s = np.full((W, H), -1, np.int32)   # (x,y+1) -> (x,y)
+        for i, ((x0, y0), (x1, y1)) in enumerate(links):
+            if x1 == x0 + 1:
+                self._id_e[x0, y0] = i
+            elif x1 == x0 - 1:
+                self._id_w[x1, y1] = i
+            elif y1 == y0 + 1:
+                self._id_n[x0, y0] = i
+            else:
+                self._id_s[x0, y1] = i
+
+    @property
+    def n_links(self) -> int:
+        return len(self.links)
+
+    def tree_link_ids(self, src, dst_xy: np.ndarray,
+                      orientation: str = "xy") -> np.ndarray:
+        """Distinct link ids of the dimension-ordered multicast tree
+        src -> dst coords: one trunk through the source along the
+        first-routed dimension plus one perpendicular run per destination
+        lane.  ``orientation`` "xy" routes X first, "yx" Y first: the
+        same arithmetic over the transposed link-id tables."""
+        d = np.asarray(dst_xy, np.int64).reshape(-1, 2)
+        if not d.size:
+            return np.empty(0, np.int32)
+        if orientation == "yx":
+            # transposed space: u = y, v = x; +u links are north, +v east
+            return self._oriented_tree_ids(
+                (int(src[1]), int(src[0])), d[:, ::-1],
+                self._id_n.T, self._id_s.T, self._id_e.T, self._id_w.T,
+                self.mesh.height)
+        if orientation != "xy":
+            raise ValueError(f"unknown orientation {orientation!r}; "
+                             f"expected one of {ORIENTATIONS}")
+        return self._oriented_tree_ids(
+            (int(src[0]), int(src[1])), d,
+            self._id_e, self._id_w, self._id_n, self._id_s,
+            self.mesh.width)
+
+    @staticmethod
+    def _oriented_tree_ids(src, d, id_pos, id_neg, id_up, id_dn,
+                           width) -> np.ndarray:
+        """Trunk + branch runs in (u, v) coordinates, u the trunk
+        dimension: ``id_pos``/``id_neg`` the +u/-u link tables,
+        ``id_up``/``id_dn`` the +v/-v tables, ``width`` the u-extent."""
+        su, sv = src
+        du, dv = d[:, 0], d[:, 1]
+        parts = []
+        umax, umin = int(du.max()), int(du.min())
+        if umax > su:
+            parts.append(id_pos[su:umax, sv])
+        if umin < su:
+            parts.append(id_neg[umin:su, sv])
+        up = dv > sv
+        if up.any():
+            top = np.full(width, sv, np.int64)
+            np.maximum.at(top, du[up], dv[up])
+            cols = np.flatnonzero(top > sv)
+            lens = top[cols] - sv
+            vs = _concat_ranges(np.full(cols.size, sv, np.int64), lens)
+            parts.append(id_up[np.repeat(cols, lens), vs])
+        dn = dv < sv
+        if dn.any():
+            bot = np.full(width, sv, np.int64)
+            np.minimum.at(bot, du[dn], dv[dn])
+            cols = np.flatnonzero(bot < sv)
+            lens = sv - bot[cols]
+            vs = _concat_ranges(bot[cols], lens)
+            parts.append(id_dn[np.repeat(cols, lens), vs])
+        if not parts:
+            return np.empty(0, np.int32)
+        return np.concatenate(parts).astype(np.int32)
+
+    def sparse_incidence(self, src_coords, dst_coord_lists,
+                         orientations=None) -> SparseIncidence:
+        """CSR incidence + per-source tree hop depths in one pass;
+        ``orientations`` optionally gives each source's tree orientation
+        ("xy"/"yx"), None keeps every tree X-first."""
+        src = np.asarray(src_coords, np.int64).reshape(-1, 2)
+        rows = []
+        hops = np.zeros(len(src), np.int32)
+        for i, (s, d) in enumerate(zip(src, dst_coord_lists)):
+            d = np.asarray(d, np.int64).reshape(-1, 2)
+            o = orientations[i] if orientations is not None else "xy"
+            rows.append(self.tree_link_ids(s, d, orientation=o))
+            if d.size:
+                hops[i] = int(np.abs(d - s).sum(axis=1).max())
+        return SparseIncidence.from_rows(rows, self.n_links, hops)

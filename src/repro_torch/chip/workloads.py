@@ -14,6 +14,10 @@ tick by tick by the workload-agnostic ``ChipSim``:
   one QPE spiking into an event-triggered MAC MLP (DNN path) on another,
   the per-tick spike vector crossing the mesh as a graded payload
   packet; ``hybrid_farm_graph`` runs many such channels at board scale.
+
+The ``*_board_graph`` builders size the same workloads to a multi-chip
+board (``repro_torch.board``), and ``board_workload`` compiles and runs
+one across it.
 """
 from __future__ import annotations
 
@@ -623,6 +627,77 @@ def hybrid_farm_graph(n_pairs: int, n_neurons: int = 32, hidden: int = 16,
                               n_pairs=n_pairs)
     return NetGraph(populations=pops, projections=projs, semantics=sem,
                     name=f"hybrid_farm{n_pairs}")
+
+
+# -------------------------------------------------------------------------
+# Board-scale variants: the same three workload classes sized to fill a
+# multi-chip board and compiled across chip boundaries
+# -------------------------------------------------------------------------
+
+def synfire_board_graph(board, fill: float = 1.0, seed: int = 0,
+                        sp: paper.SynfireParams = paper.SYNFIRE,
+                        device=None, **build_kw) -> NetGraph:
+    """Synfire ring sized to ``fill`` of a board's PEs — one population
+    per PE, so the ring snakes through every chip and the wrap-around
+    edge crosses the whole chip grid."""
+    return synfire_graph(n_pes=max(2, int(board.n_pes * fill)), seed=seed,
+                         sp=sp, device=device, **build_kw)
+
+
+def dnn_board_graph(board, layer: dict | None = None,
+                    pe: PESpec = PESpec(), bytes_per: int = 1) -> NetGraph:
+    """Feedforward conv pipeline sized to a board: the template ``layer``
+    (default: a 64x64x32->64 conv, ~13 tiles under the 128 kB SRAM)
+    repeats until the tiled stack fills the board's PEs, so consecutive
+    layers land on neighbouring chips and every inter-layer activation
+    burst that crosses a boundary rides a chip-to-chip link."""
+    layer = layer or dict(h=64, w=64, cin=32, cout=64, kh=3, kw=3)
+    _, _, tiles = partition_layer_to_sram(
+        pe, layer["h"], layer["w"], layer["cin"], layer["cout"],
+        layer["kh"], layer["kw"], bytes_per=bytes_per)
+    # populations are atomic on a chip, so size by whole layers per chip
+    n_layers = max(2, (board.chip.n_pes // tiles) * board.n_chips)
+    return dnn_graph([dict(layer, name=f"conv{i}") for i in range(n_layers)],
+                     pe=pe, bytes_per=bytes_per)
+
+
+def hybrid_farm_board_graph(board, n_neurons: int = 32, hidden: int = 16,
+                            n_ticks: int = 256, seed: int = 0,
+                            **kw) -> NetGraph:
+    """Hybrid NEF -> event-MAC farm sized to a board: one channel per PE
+    pair.  All NEF populations precede all MLP populations, so after
+    partitioning most channels span chips — the traffic-heavy layout for
+    the chip-to-chip tier.  ``kw`` as ``hybrid_farm_graph``'s."""
+    return hybrid_farm_graph(n_pairs=max(1, board.n_pes // 2),
+                             n_neurons=n_neurons, hidden=hidden,
+                             n_ticks=n_ticks, seed=seed, **kw)
+
+
+def board_workload(graph: NetGraph, board, n_ticks: int = 64,
+                   refine: bool = True, **sim_kw) -> dict:
+    """Partition + compile ``graph`` across ``board``, run it on the
+    unchanged engine (``sim_kw`` to ``ChipSim``, e.g. ``device``), and
+    report the per-tier traffic split."""
+    from repro_torch.board import compile_board
+    prog = compile_board(graph, board, refine=refine)
+    sim = ChipSim(prog, **sim_kw)
+    recs = sim.run(n_ticks)
+    x_flits = float(recs["flits_xchip"].sum()) if "flits_xchip" in recs \
+        else 0.0
+    tot = float(recs["link_flits"].sum())
+    return {
+        "sim": sim, "recs": recs, "table": chip_power_table(sim, recs),
+        "program": prog,
+        "n_chips_used": int((prog.part.chips_of_graph() > 0).sum()),
+        "cut_flits": prog.part.cut_flits,
+        "flits_total": tot,
+        "flits_xchip": x_flits,
+        "xchip_frac": x_flits / tot if tot else 0.0,
+        "energy_noc_j": float(recs["e_noc"].sum()),
+        "energy_xchip_j": float(recs["e_noc_xchip"].sum())
+        if "e_noc_xchip" in recs else 0.0,
+        "worst_path_latency_s": prog.worst_path_latency_s,
+    }
 
 
 def hybrid_workload(n_neurons: int = 256, hidden: int = 64,

@@ -24,7 +24,8 @@ from repro_torch.kernels import (compact_lanes, event_link_loads,
 from repro_torch.kernels.event_gather.ops import route as event_gather_route
 from repro_torch.kernels.event_gather.ref import (compact_lanes_ref,
                                                   event_link_loads_ref)
-from repro_torch.kernels.explog.ref import FX_ONE, fx_exp_ref, fx_log_ref
+from repro_torch.kernels.explog.ops import exp_table, fx_exp_launch
+from repro_torch.kernels.explog.ref import FX_ONE, LN2, fx_exp_ref, fx_log_ref
 from repro_torch.kernels.flash_attn.ref import flash_attention_ref
 from repro_torch.kernels.lif.ref import lif_step_ref
 from repro_torch.kernels.link_load.ref import (link_loads_csc_ref,
@@ -59,6 +60,38 @@ def test_fx_exp_kernel(cuda):
     torch.cuda.synchronize()
     assert fx_exp.launches == before + 1
     assert torch.equal(got.cpu(), fx_exp_ref(x))
+
+
+def _exp_domain():
+    """Every x of fx_exp's clamped domain, 4 past each end, and the int32
+    ends."""
+    return torch.cat([torch.arange(-(15 << 15) - 4, (15 << 15) + 5),
+                      torch.tensor([I32.min, I32.min + 1, I32.max - 1,
+                                    I32.max])]).to(torch.int32)
+
+
+@pytest.mark.parametrize("route", ["table", "ladder"])
+def test_fx_exp_kernel_routes_every_input(cuda, route):
+    """Both routes over the whole clamped domain; the table's corrections
+    to the card's exp lie near the exact exp's [-7, 2]."""
+    x = _exp_domain()
+    out = torch.empty_like(x, device=cuda)
+    fx_exp_launch(x.to(cuda), out, route)
+    assert torch.equal(out.cpu(), fx_exp_ref(x))
+    table = exp_table(cuda).cpu()
+    assert -16 <= int(table[:LN2].min()) and int(table[:LN2].max()) <= 16
+
+
+@pytest.mark.parametrize("route", ["table", "ladder"])
+@pytest.mark.parametrize("n", range(1, 10))
+def test_fx_exp_kernel_tails_and_unaligned_views(cuda, route, n):
+    x = _ints(np.random.default_rng(n), n + 1, -16 << 15, 16 << 15)
+    xc = x.to(cuda)
+    for view, want in ((xc[:n], x[:n]), (xc[1:], x[1:])):  # x[1:] unaligned
+        out = torch.empty(n, dtype=torch.int32, device=cuda)
+        fx_exp_launch(view, out, route)
+        assert torch.equal(out.cpu(), fx_exp_ref(want))
+    assert torch.equal(fx_exp(xc[1:]).cpu(), fx_exp_ref(x[1:]))
 
 
 @pytest.mark.parametrize("v_min", [None, -(1 << 15)])

@@ -34,6 +34,9 @@ def test_port_imports_without_jax():
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
     assert len(_port_modules()) >= 16
+    assert {"repro_torch.board", "repro_torch.board.route",
+            "repro_torch.routeopt", "repro_torch.core.packets"} <= set(
+        _port_modules())
 
 
 def test_port_sources_do_not_name_the_reference():

@@ -66,6 +66,30 @@ farm, the DNN pipeline), and checks what comes out:
               set-up seconds, µs and launches a tick, a profile, the
               chip-to-chip share of flits and energy; then the 1x1-board
               golden (compile_board == compile, bitwise).
+   learn    — on-mesh learning through adaptive_control_workload and
+              stdp_pair_workload at the reference learning benchmark's
+              widths: the adaptive-control loop (6 channels of 100
+              neurons, PES, 2048 ticks) on one chip and on a 2x2 board of
+              2x1-QPE chips (refine=False: loops cross chips) converges;
+              its convergence tick, final error and learning-energy share
+              beside BENCH_pr5.json's row; fx_exp launched twice (the LIF
+              alpha, and the trace decay once a run), lif_step once a
+              tick, mac_gemm once (the drive's encode, checked against
+              mac_gemm_ref at its (2048, 1) x (1, 100) shape); the whole
+              run held against the same workload on the CPU (spikes,
+              traces, PLs, packets and link loads bitwise, the float32
+              sums over the decoders at rtol 1e-5, energies at rtol
+              1e-6, the same convergence tick); µs, launches and device
+              busy µs a tick beside the frozen twin's (no plasticity).
+              The STDP pair (24 x 8, 512 ticks), every record against
+              the CPU's.  The loop on the 48-chip board, one channel a
+              PE pair (768, one PES group of 768 slots), 256 ticks, its
+              drive's encode and a window of ticks against the CPU, its
+              tick beside the frozen twin's.
+   probes   — the 4096-PE ring (dense) with the default probe set at a
+              stride of 64 and keep_records=False: every probe equal,
+              bitwise, to the same fold of an unprobed run's records; µs
+              and launches a tick with and without probes.
 8. dnn      — tiled_dnn_workload on the card and on the CPU: 4 frames
               out, the same latency and records.
 9. kernels  — each kernel against its plain PyTorch version, bitwise, on
@@ -136,7 +160,7 @@ farm, the DNN pipeline), and checks what comes out:
     device kernels of the SDPA call they are compared with.
 
 Launch counters are zeroed just before each path's run (phases 3-8 and
-11-14; the
+11-14, and each learning path and the probed run; the
 graph's build is part of the path, except in phase 5, which reuses phase
 4's net) and read just after; a kernel of that path that never launched
 fails the run.  Every phase prints one JSON line; any failed check
@@ -168,8 +192,9 @@ from repro_torch.bench import dnn_layers, mac_efficiency  # noqa: E402
 from repro_torch.board import BoardSpec, compile_board, partition  # noqa: E402
 from repro_torch.chip import ChipSim, chip_power_table, compile  # noqa: E402
 from repro_torch.chip.workloads import (  # noqa: E402
-    hybrid_farm_board_graph, hybrid_farm_graph, hybrid_workload,
-    synfire_board_graph, synfire_graph, tiled_dnn_workload)
+    adaptive_control_workload, hybrid_farm_board_graph, hybrid_farm_graph,
+    hybrid_workload, stdp_pair_workload, synfire_board_graph, synfire_graph,
+    tiled_dnn_workload)
 from repro_torch.configs import paper  # noqa: E402
 from repro_torch.core import snn  # noqa: E402
 from repro_torch.core.dvfs import DVFSController  # noqa: E402
@@ -203,6 +228,10 @@ from repro_torch.kernels.mac_gemm.ref import mac_gemm_ref  # noqa: E402
 from repro_torch.kernels.syn_accum.ref import (pack_spikes,  # noqa: E402
                                                popcount_words,
                                                spike_words, syn_accum_ref)
+from repro_torch.core.nef import build_ensemble, encode_drive  # noqa: E402
+from repro_torch.learn.adaptive import adaptive_control_graph  # noqa: E402
+from repro_torch.learn.engine import group_slots  # noqa: E402
+from repro_torch.obs.probes import default_probes  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA datasheet): HBM bandwidth, the
 # float32 rate outside the tensor cores and the dense int8, bf16 and TF32
@@ -236,6 +265,24 @@ BOARD_RING_WINDOW, BOARD_FARM_WINDOW = (305, 30), (100, 16)
 # it keeps
 BOARD_FARM_BENCH = ("BENCH_pr4.json", "board_hybrid_4x12chips_1536pe")
 GOLDEN_PES, GOLDEN_TICKS = 64, 120
+# on-mesh learning at the reference learning benchmark's widths
+# (benchmarks/learning.py:109): 6 adaptive-control channels of 100
+# neurons, 2048 ticks, on one chip and on a 2x2 board of 2x1-QPE chips
+# (refine=False: the loops cross chips); its rows in BENCH_pr5.json are
+# printed beside the port's convergence tick, final error and learning
+# energy share.  Each run is held against the same run on the CPU
+LEARN_CHANNELS, LEARN_NEURONS, LEARN_TICKS = 6, 100, 2048
+LEARN_BOARD = ("2x2", "2x1")
+LEARN_BENCH = "BENCH_pr5.json"
+LEARN_SEED = 0
+STDP_PRE, STDP_POST, STDP_TICKS = 24, 8, 512
+# the adaptive loop on the headline board: one channel a PE pair
+LEARN_BIG_CHANNELS, LEARN_BIG_TICKS, LEARN_BIG_WINDOW = 768, 256, (32, 16)
+LEARN_STEADY_TICKS = 256        # ticks timed for µs a tick, plastic/frozen
+# records of the adaptive loop that are float32 sums over the decoders
+ADAPT_FLOAT = ("u", "y", "track_err", "dec_norm")
+# the probes phase: the 4096-PE ring with the default probe set
+PROBE_TICKS, PROBE_STRIDE = 300, 64
 GEMM_SAMPLE = 4096              # the int8 GEMM sample: 4096^3
 FLOAT_RTOL, FLOAT_ATOL, ENERGY_RTOL = 1e-5, 1e-6, 1e-6
 L2_FLUSH_BYTES = 256 << 20      # five times the H100's 50 MB L2
@@ -1392,16 +1439,18 @@ def window_vs_cpu(sim, recs: dict, what: str, exec_mode: str, start: int,
     for t in range(start):
         state, _ = step(state, t)
     cpu = ChipSim(sim.program, noc_mode=sim.noc_mode, device="cpu")
-    _, cpu_step = cpu.make_stepper(exec_mode=exec_mode)
-    state = {k: v.cpu() for k, v in state.items()}
     t0 = time.perf_counter()
-    want = snn.run_ticks(lambda s, t: cpu_step(s, start + t), state, ticks)
+    want = cpu.run(ticks, exec_mode=exec_mode, start=start,
+                   state={k: v.cpu() for k, v in state.items()})
     cpu_s = time.perf_counter() - t0
     got = {k: v[start:start + ticks] for k, v in recs.items()}
     worst = compare_records(got, want, f"{what} card vs CPU", close=close)
-    return dict(ticks=[start, start + ticks], records="bitwise",
+    return dict(ticks=[start, start + ticks],
+                records="bitwise" + (f"; {len(close)} float keys at rtol "
+                                     f"{FLOAT_RTOL}" if close else ""),
                 energy_max_rel_err=worst, cpu_s=cpu_s,
-                flits_xchip=float(want["flits_xchip"].sum()))
+                flits_xchip=float(want["flits_xchip"].sum())
+                if "flits_xchip" in want else 0.0)
 
 
 def board_plan(sim) -> dict:
@@ -1544,6 +1593,274 @@ def phase_multichip_board(dev) -> dict:
          max_memory_allocated=max_mem, synfire_ring=ring, hybrid_farm=farm,
          golden_1x1=f"{GOLDEN_PES}-PE ring, {GOLDEN_TICKS} ticks, dense "
                     f"and event: compile_board == compile, bitwise")
+    return counts
+
+
+def steady_us(sim, ticks: int, **run_kw) -> float:
+    """µs a tick of a second run of ``sim`` (the first warms it)."""
+    sim.run(ticks, **run_kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.run(ticks, **run_kw)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / ticks * 1e6
+
+
+def tick_cost(sim) -> dict:
+    """A steady tick of ``sim``: µs a tick and, from a profile, launches
+    a tick, device busy µs a tick and the device's idle share."""
+    _, summary, _, _ = profile_ticks(sim)
+    return dict(us_per_tick=steady_us(sim, LEARN_STEADY_TICKS),
+                **{k: summary[k] for k in (
+                    "kernel_launches_per_tick", "device_busy_us_per_tick",
+                    "device_idle_share")})
+
+
+def learn_close(recs: dict) -> tuple:
+    """The adaptive loop's float32 sums over the decoders, and every
+    slot's dw and arrived error, held at rtol 1e-5 against the CPU."""
+    return ADAPT_FLOAT + tuple(k for k in recs
+                               if k.endswith(("/dw", "/err")))
+
+
+def bench_row(name: str) -> dict:
+    return next(r["values"] for r in json.loads(
+        (ROOT / LEARN_BENCH).read_text())["rows"] if r["name"] == name)
+
+
+def frozen_twin(dev, board, channels: int, ticks: int):
+    """The adaptive loop without plasticity (fixed decoders), compiled
+    as the plastic one."""
+    graph = adaptive_control_graph(channels, LEARN_NEURONS, n_ticks=ticks,
+                                   plastic=False, device=dev)
+    prog = (compile(graph) if board is None
+            else compile_board(graph, board, refine=False))
+    return ChipSim(prog, device=dev)
+
+
+def drive_vs_cpu(sim, what: str) -> dict:
+    """The adaptive loop's reference drive, encoded at the graph's build
+    by mac_gemm at the path's (T, 1) x (1, N) shape, against the plain
+    versions: the kernel's int32 sums against ``mac_gemm_ref`` on the
+    same operands, and the whole drive table against an independent CPU
+    build of the ensemble (every wrapper's plain version), bitwise."""
+    sem = sim.program.graph.semantics
+    r = torch.as_tensor(np.asarray(sem.r_table, np.float32)[:, None],
+                        device=sim.device)
+    xq, _ = quantize_per_axis(r, axis=1)
+    got = mac_gemm(xq, sem.ens.enc_q)
+    want = mac_gemm_ref(xq.cpu(), sem.ens.enc_q.cpu())
+    check(torch.equal(got.cpu(), want),
+          f"{what}: mac_gemm {tuple(xq.shape)} x "
+          f"{tuple(sem.ens.enc_q.shape)} != mac_gemm_ref")
+    ens = build_ensemble(sem.ens.n_neurons, 1, seed=LEARN_SEED,
+                         device="cpu")
+    drive = encode_drive(ens, np.asarray(sem.r_table)[:, None])
+    check(torch.equal(sem.drive_fx.cpu(), drive),
+          f"{what}: the card's drive table != the CPU's")
+    return dict(mac_gemm_shape=[list(xq.shape), list(sem.ens.enc_q.shape)],
+                vs_plain="bitwise", drive_table_vs_cpu="bitwise")
+
+
+def phase_learn_adaptive(dev, board=None) -> dict:
+    """The adaptive-control loop with on-mesh PES learning at the
+    reference benchmark's widths through ``adaptive_control_workload``,
+    on one chip or on the 2x2 board (refine=False): it converges, its
+    convergence tick, final error and learning-energy share beside the
+    reference's BENCH_pr5.json row, the whole run against the same
+    workload on the CPU (every wrapper's plain version, mac_gemm's
+    encode of the drive included), and its tick beside the frozen
+    twin's."""
+    spec = None if board is None else BoardSpec.parse(board[0],
+                                                      chip=board[1])
+    where = "chip" if board is None else f"board{board[0]}"
+    label = f"learn_adaptive_{where}"
+    kw = dict(n_channels=LEARN_CHANNELS, n_neurons=LEARN_NEURONS,
+              n_ticks=LEARN_TICKS, board=spec, refine=False, seed=LEARN_SEED)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = adaptive_control_workload(device=dev, **kw)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = launch_counts()
+    check_launched(counts, ("fx_exp", "lif_step", "mac_gemm"), label)
+    # fx_exp: the LIF alpha at the ensemble's build, the trace decay once
+    # a run; lif_step once a tick
+    check(counts["fx_exp"] == 2 and counts["lif_step"] == LEARN_TICKS,
+          f"{label} launches {counts}")
+    check(rep["convergence_tick"] >= 0 and rep["final_err"] < 0.1,
+          f"{label}: never converged (final_err {rep['final_err']})")
+    sim, recs = rep["sim"], rep["recs"]
+    if spec is not None:
+        check(float(recs["flits_xchip"].sum()) > 0,
+              f"{label}: no chip-to-chip traffic")
+    t0 = time.perf_counter()
+    cpu = adaptive_control_workload(device="cpu", **kw)
+    cpu_s = time.perf_counter() - t0
+    worst = compare_records(recs, cpu["recs"], f"{label} card vs CPU",
+                            close=learn_close(recs))
+    check(cpu["convergence_tick"] == rep["convergence_tick"],
+          f"{label}: convergence tick {rep['convergence_tick']} on the "
+          f"card, {cpu['convergence_tick']} on the CPU")
+    vs_cpu = dict(ticks=[0, LEARN_TICKS], records=(
+        f"bitwise; {len(learn_close(recs))} float keys at rtol "
+        f"{FLOAT_RTOL}"), energy_max_rel_err=worst, cpu_s=cpu_s,
+        convergence_tick="equal", encode=drive_vs_cpu(sim, label))
+    ref = bench_row(f"learn_adaptive_{where}_{LEARN_CHANNELS}ch")
+    emit(label, channels=LEARN_CHANNELS, neurons=LEARN_NEURONS,
+         pes=sim.program.n_pes, ticks=LEARN_TICKS, run_s=run_s,
+         launches=counts, noc_mode="sparse" if sim.use_sparse_noc()
+         else "dense", convergence_tick=rep["convergence_tick"],
+         final_err=rep["final_err"], initial_err=rep["initial_err"],
+         learn_energy_frac=rep["learn_energy_frac"],
+         e_learn_j=rep["e_learn_j"], dec_norm=rep["dec_norm"],
+         reference={"source": LEARN_BENCH, "conv_tick": ref["conv_tick"],
+                    "final_err": ref["final_err"],
+                    "learn_energy_frac": ref["learn_energy_frac"]},
+         flits_xchip=float(recs["flits_xchip"].sum())
+         if "flits_xchip" in recs else 0.0,
+         card_vs_cpu=vs_cpu, plastic=tick_cost(sim),
+         frozen=tick_cost(frozen_twin(dev, spec, LEARN_CHANNELS,
+                                      LEARN_TICKS)))
+    return counts
+
+
+def phase_learn_stdp(dev) -> dict:
+    """The STDP pair at the reference benchmark's widths, every record
+    against the CPU's plain versions."""
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = stdp_pair_workload(n_pre=STDP_PRE, n_post=STDP_POST,
+                             n_ticks=STDP_TICKS, device=dev)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = launch_counts()
+    check_launched(counts, ("fx_exp", "lif_step"), "stdp pair")
+    check(counts["fx_exp"] == 2 and counts["lif_step"] == STDP_TICKS,
+          f"stdp pair launches {counts}")
+    cpu = stdp_pair_workload(n_pre=STDP_PRE, n_post=STDP_POST,
+                             n_ticks=STDP_TICKS, device="cpu")
+    worst = compare_records(rep["recs"], cpu["recs"], "stdp pair card vs CPU")
+    check(rep["w_mean_last"] != rep["w_mean_first"]
+          and rep["post_spikes"] > 0, "stdp pair: no learning")
+    ref = bench_row("learn_stdp_pair")
+    emit("learn_stdp_pair", n_pre=STDP_PRE, n_post=STDP_POST,
+         ticks=STDP_TICKS, run_s=run_s, launches=counts,
+         records_vs_cpu="bitwise", energy_max_rel_err=worst,
+         **{k: rep[k] for k in ("w_mean_first", "w_mean_last",
+                                "post_spikes", "e_learn_j",
+                                "learn_energy_frac")},
+         reference={"source": LEARN_BENCH, **{
+             k: ref[k] for k in ("w_mean_last", "post_spikes",
+                                 "learn_energy_frac")}},
+         plastic=tick_cost(rep["sim"]))
+    return counts
+
+
+def phase_learn_board(dev) -> dict:
+    """The adaptive loop on the reference's headline board (4x12 chips of
+    4x2 QPEs): one channel a PE pair, 768 channels on its 1536 PEs,
+    refine=False, so every loop crosses chips and the PES group holds
+    hundreds of slots; the drive's encode and a window of ticks against
+    the CPU; launches and µs a tick beside the frozen twin's."""
+    board = BoardSpec.parse(BOARD_GRID, chip=BOARD_CHIP)
+    channels = LEARN_BIG_CHANNELS
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = adaptive_control_workload(
+        n_channels=channels, n_neurons=LEARN_NEURONS,
+        n_ticks=LEARN_BIG_TICKS, board=board, refine=False,
+        seed=LEARN_SEED, device=dev)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = launch_counts()
+    sim, recs = rep["sim"], rep["recs"]
+    noc = ("noc_link_loads",) if sim.use_sparse_noc() else ()
+    check_launched(counts, ("fx_exp", "lif_step", "mac_gemm") + noc,
+                   "learn board")
+    check(counts["fx_exp"] == 2 and counts["lif_step"] == LEARN_BIG_TICKS,
+          f"learn board launches {counts}")
+    check(float(recs["flits_xchip"].sum()) > 0,
+          "learn board: no chip-to-chip traffic")
+    window = window_vs_cpu(sim, recs, "learn board", None,
+                           *LEARN_BIG_WINDOW, close=learn_close(recs))
+    window["encode"] = drive_vs_cpu(sim, "learn board")
+    groups = group_slots(sim.program.learn_slots)
+    emit("learn_board_48chip", board=f"{BOARD_GRID} chips of {BOARD_CHIP} "
+         f"QPEs", channels=channels, pes=sim.program.n_pes,
+         learn_slots=len(sim.program.learn_slots),
+         slot_groups=[len(g) for g in groups], ticks=LEARN_BIG_TICKS,
+         run_s=run_s, launches=counts,
+         noc_mode="sparse" if sim.use_sparse_noc() else "dense",
+         final_err=rep["final_err"], initial_err=rep["initial_err"],
+         learn_energy_frac=rep["learn_energy_frac"],
+         flits_xchip=float(recs["flits_xchip"].sum()), card_vs_cpu=window,
+         plastic=tick_cost(sim),
+         frozen=tick_cost(frozen_twin(dev, board, channels,
+                                      LEARN_BIG_TICKS)))
+    return counts
+
+
+def fold_records(x: torch.Tensor, op: str, stride: int, alpha: float):
+    """A probe's windowed reduction of the (T, ...) records ``x``, tick
+    by tick in the probe step's order."""
+    T = x.shape[0]
+    s = T if stride is None else min(stride, T)
+    out, ema = [], None
+    for w0 in range(0, T, s):
+        acc = None
+        for t in range(w0, min(w0 + s, T)):
+            v = x[t].to(torch.float32)
+            if op == "ema":
+                ema = v.clone() if ema is None else \
+                    ema * (1.0 - alpha) + alpha * v
+            elif acc is None or op == "last":
+                acc = v.clone()
+            elif op == "peak":
+                acc = torch.maximum(acc, v)
+            else:
+                acc = acc + v
+        n = torch.tensor(float(min(w0 + s, T) - w0), device=x.device)
+        out.append(ema if op == "ema" else acc / n if op == "mean" else acc)
+    return torch.stack(out)
+
+
+def phase_probes(dev, sim) -> dict:
+    """The 4096-PE ring (dense) with the default probe set and
+    keep_records=False: every probe equal to the same fold of the
+    unprobed card run's records; µs and launches a tick with and without
+    probes."""
+    recs = sim.run(PROBE_TICKS)
+    specs = default_probes(sim.program, stride=PROBE_STRIDE)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = sim.run(PROBE_TICKS, probes=specs, keep_records=False)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = launch_counts()
+    check(set(out) == {"probes"}, "probes: records kept")
+    check_launched(counts, ("syn_accum", "lif_step", "noc_link_loads"),
+                   "probes")
+    for p in specs:
+        want = fold_records(recs[p.key], p.op, p.stride, p.alpha)
+        check(torch.equal(out["probes"][p.name], want),
+              f"probe {p.name} != the fold of the unprobed records")
+    del recs
+    # whole runs, set-up and record writes included: bare, probed with
+    # the records kept, probed without them
+    runs = {"bare": {}, "probed": dict(probes=specs),
+            "probed_no_records": dict(probes=specs, keep_records=False)}
+    ticks = 50
+    launches = {k: sum(c for c, _ in device_kernels(
+        lambda: sim.run(ticks, **kw), 1)[0].values()) / ticks
+        for k, kw in runs.items()}
+    emit("probes", pes=sim.program.n_pes, ticks=PROBE_TICKS,
+         stride=PROBE_STRIDE, probes=[p.name for p in specs],
+         run_s=run_s, launches=counts,
+         probes_vs_unprobed_records="bitwise",
+         us_per_tick={k: steady_us(sim, PROBE_TICKS, **kw)
+                      for k, kw in runs.items()},
+         launches_per_tick=launches)
     return counts
 
 
@@ -1885,6 +2202,11 @@ def main() -> int:
     paths["hybrid_farm_4096pe"], farm_rows, farm_links, farm_main, \
         farm_noc = phase_farm(dev)
     paths["multichip_board"] = phase_multichip_board(dev)
+    paths["learn_adaptive_chip"] = phase_learn_adaptive(dev)
+    paths["learn_adaptive_board2x2"] = phase_learn_adaptive(dev, LEARN_BOARD)
+    paths["learn_stdp_pair"] = phase_learn_stdp(dev)
+    paths["learn_board_48chip"] = phase_learn_board(dev)
+    paths["probes_ring_4096pe"] = phase_probes(dev, sim)
     paths["dnn_pipeline"] = phase_dnn(dev)
     paths["mac_efficiency"] = phase_mac_efficiency(dev)
     paths["dnn_layers"] = phase_dnn_layers(dev)

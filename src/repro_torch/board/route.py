@@ -32,8 +32,9 @@ the whole board, with per-tier flit/energy accounting riding on the
 Golden anchor: a 1x1 board IS the single-chip path — same slot
 assignment, same snake coords, same link enumeration, same CSR — so
 ``compile_board(g, BoardSpec(1, 1, chip=mesh))`` is bit-identical to
-``compile(g, mesh)`` end to end.  Plastic projections are refused, as
-the chip compiler refuses them, until on-mesh learning is ported.
+``compile(g, mesh)`` end to end, learn slots included: plastic
+projections lower with the chip compiler's ``lower_plasticity``, so a
+plastic graph trains the same on one chip and across a board.
 """
 from __future__ import annotations
 
@@ -53,6 +54,7 @@ from repro_torch.chip.mesh_noc import MeshSpec, SparseIncidence
 from repro_torch.core.noc import build_tree, oriented_route
 from repro_torch.core.pe import PESpec
 from repro_torch.core.router import RoutingTable
+from repro_torch.learn.lower import lower_plasticity
 from repro_torch.routeopt.config import RouteConfig
 
 
@@ -309,9 +311,9 @@ def compile_board(graph: NetGraph, board: Optional[BoardSpec] = None,
     carries the free routing choices (tree orientations + border-port
     assignment, see ``routeopt.RouteConfig``); ``None`` keeps the fixed
     routes.  Raises ``ValueError`` up front for SRAM / capacity
-    violations, naming the population at fault, and
-    ``NotImplementedError`` for a plastic projection (same contract as
-    the single-chip compiler).
+    violations, naming the population at fault, and for a plasticity
+    rule that does not fit its projection's payload, naming the edge
+    (same contract as the single-chip compiler).
     """
     check_compilable(graph, pe)
 
@@ -389,7 +391,8 @@ def compile_board(graph: NetGraph, board: Optional[BoardSpec] = None,
     return BoardProgram(graph=graph, mesh=chip_mesh, noc=noc,
                         coords=coords.astype(np.int32), table=table,
                         sinc=sinc, payload_bits=payload_bits,
-                        sram_bytes=sram, pe_slices=pe_slices, board=board,
-                        part=part, chip_of_pe=chip_of_pe,
+                        sram_bytes=sram, pe_slices=pe_slices,
+                        learn_slots=lower_plasticity(graph, pe_slices),
+                        board=board, part=part, chip_of_pe=chip_of_pe,
                         coords_local=coords_local, tree_links_x=tl_x,
                         path_hops=path_hops, route=route)

@@ -15,9 +15,15 @@ packets and DNoC flits, plus NoC energy.  ``noc_mode`` and ``exec_mode``
 incidence shape as the reference does; every choice gives the same
 records bit for bit.
 
+A program with plastic projections (``learn_slots``) also advances its
+weights and traces each tick, right after the semantics' tick
+(``learn.engine``), and prices the work into a per-PE ``e_learn``
+record; a frozen program runs exactly the frozen tick.
+
 ``run`` is a Python loop over host integer ticks that writes into
 (T, ...) record tensors on the device: no host synchronisation and no
-data-dependent branch inside the loop.
+data-dependent branch inside the loop.  ``run(probes=...)`` folds
+windowed telemetry (``obs.probes``) over the same records.
 
 ``chip_power_table`` gives the per-PE Table III split, chip totals, NoC
 power and the peak-link-load bottleneck check.
@@ -113,9 +119,9 @@ class ChipSim:
     def make_stepper(self, seed: int = 1, noc_mode: str | None = None,
                      noise=None, exec_mode: str | None = None):
         """``(init_state, step)`` where ``step(state, t) -> (state, rec)``
-        is the engine's full per-tick body: the semantics' tick, then the
-        NoC accounting.  ``noise`` is passed to the semantics (see
-        ``core.snn.make_synfire_tick``)."""
+        is the engine's full per-tick body: the semantics' tick, on-mesh
+        learning, then the NoC accounting.  ``noise`` is passed to the
+        semantics (see ``core.snn.make_synfire_tick``)."""
         prog, noc, dev = self.program, self.noc, self.device
         event = self.use_event_mode(exec_mode)
         kw = dict(dvfs=self.dvfs, em=self.em, seed=seed, noise=noise,
@@ -125,6 +131,20 @@ class ChipSim:
         tick = (prog.make_event_tick(**kw) if event else None) \
             or prog.make_tick(**kw)
         init = prog.init_state(dev)
+        # on-mesh learning: a plastic program's state carries per-slot
+        # weights and traces, advanced right after the semantics' tick;
+        # a frozen program (learn_slots == ()) never reaches the engine
+        # (imported here: learn reaches back into chip)
+        learn = None
+        if prog.learn_slots:
+            from repro_torch.learn.engine import make_learn_step
+            if not isinstance(init, dict) or "learn" not in init:
+                raise ValueError(
+                    f"graph {prog.graph.name!r} has plastic projections "
+                    "but its semantics' init_state does not carry a "
+                    "'learn' subtree; include "
+                    "repro_torch.learn.init_learn_state(program, device)")
+            learn = make_learn_step(prog, dev)
         sparse = self.use_sparse_noc(noc_mode)
         if sparse and event:
             rows = noc.event_plan(prog.sinc, dev)
@@ -159,6 +179,10 @@ class ChipSim:
 
         def chip_tick(state, t: int):
             state, rec = tick(state, t)
+            if learn is not None:
+                lstate, lrec = learn(state["learn"], rec)
+                state = {**state, "learn": lstate}
+                rec.update(lrec)
             packets = rec["packets"].to(torch.float32)        # (P,)
             flits, bits = (noc.packet_costs(rec["payload_bits"])
                            if "payload_bits" in rec else static_costs)
@@ -189,7 +213,8 @@ class ChipSim:
         return init, chip_tick
 
     def run(self, n_ticks: int, seed: int = 1, noc_mode: str | None = None,
-            noise=None, exec_mode: str | None = None) -> dict:
+            noise=None, exec_mode: str | None = None, probes=(),
+            keep_records: bool = True, state=None, start: int = 0) -> dict:
         """Per-tick records on the sim's device: everything the program's
         semantics reports (spike rasters, PLs, Eq. (1) energies) plus
 
@@ -199,6 +224,11 @@ class ChipSim:
         active_sources, active_frac (T,) — sources emitting >= 1 packet
         touched_links, touched_links_<tier> (T,) — links carrying traffic
 
+        and, when the program has plastic projections, the learning tier:
+
+        e_learn    (T, P)       — per-PE learning energy [J]
+        learn/<slot>/dw (T,)    — mean |weight change| of each slot
+
         and, on a board with chip-to-chip links, the tier's share:
 
         load_xchip / flits_xchip (T,) — packet / flit traversals of
@@ -207,10 +237,61 @@ class ChipSim:
 
         ``noc_mode`` and ``exec_mode`` override the sim's choices for this
         run; every choice gives bit-identical records.
+
+        ``probes`` (``obs.probes``: ProbeSpec instances or registry names)
+        folds windowed telemetry over the records, returned under
+        ``recs["probes"]``.  The probes read records, never state, so a
+        probed run's records are the bare run's; ``probes=()`` is exactly
+        the bare path.  ``keep_records=False`` (probed runs only) keeps no
+        (T, ...) records and returns the probe output alone.
+
+        ``state`` (a ``make_stepper`` state on this sim's device, e.g.
+        another sim's at tick ``start``) continues a run: ticks ``start``
+        .. ``start + n_ticks - 1`` from it, in place of the program's
+        initial state at tick 0.
         """
-        init, chip_tick = self.make_stepper(seed=seed, noc_mode=noc_mode,
-                                            noise=noise, exec_mode=exec_mode)
-        return run_ticks(chip_tick, init, n_ticks)
+        if not probes and not keep_records:
+            raise ValueError("keep_records=False without probes would "
+                             "record nothing; pass probes=...")
+        init, step = self.make_stepper(seed=seed, noc_mode=noc_mode,
+                                       noise=noise, exec_mode=exec_mode)
+        if state is not None:
+            init = state
+        chip_tick = step if not start else (
+            lambda s, t: step(s, start + t))
+        # a plastic run records each slot group's signals stacked
+        # (learn.engine); probes read its per-slot keys as rows of them,
+        # and the run hands them out as the reference's per-slot records
+        groups, views = (), {}
+        if self.program.learn_slots:
+            from repro_torch.learn.engine import (expand_learn_records,
+                                                  group_slots,
+                                                  learn_record_views)
+            groups = group_slots(self.program.learn_slots)
+            views = learn_record_views(groups)
+        if not probes:
+            recs = run_ticks(chip_tick, init, n_ticks)
+        else:
+            # the probes compile against the first tick's records and
+            # fold every tick's after it (imported here: obs reaches back
+            # into chip)
+            from repro_torch.obs.probes import make_probe_step, resolve_probes
+            specs = resolve_probes(self.program, probes)
+            done = []
+
+            def observe(rec):
+                obs, fold, finalize = make_probe_step(specs, rec, n_ticks,
+                                                      row_views=views)
+                done.append(lambda: finalize(obs))
+                return lambda r, t: fold(obs, r, t)
+
+            recs = run_ticks(chip_tick, init, n_ticks, observe=observe,
+                             keep_records=keep_records)
+        if groups:
+            recs = expand_learn_records(recs, groups)
+        if probes:
+            recs["probes"] = done[0]() if done else {}
+        return recs
 
 
 def chip_power_table(sim: ChipSim, recs: dict,
@@ -220,7 +301,8 @@ def chip_power_table(sim: ChipSim, recs: dict,
     link load in packets and flits per tick, utilization against link
     capacity, worst multicast hop depth; on a board with chip-to-chip
     links also ``noc["xchip"]``, the tier's share, with utilization and
-    worst latency taken over both tiers at their own rates."""
+    worst latency taken over both tiers at their own rates; for a plastic
+    program ``learn``, the learning energy and its share of the total."""
     per_pe = synfire_power_table(recs, t_sys_s=t_sys_s)
     P = sim.program.n_pes
     chip = {mode: {k: v * P for k, v in per_pe[mode].items()}
@@ -275,6 +357,19 @@ def chip_power_table(sim: ChipSim, recs: dict,
         noc["worst_hop_latency_s"] = sim.program.worst_path_latency_s
     out = {"per_pe": per_pe, "chip": chip, "noc": noc, "n_pes": P,
            "mesh": (sim.program.mesh.width, sim.program.mesh.height)}
+    # on-mesh learning: e_learn's share of the total energy (Eq. (1)
+    # terms + NoC traffic + learning)
+    if "e_learn" in recs:
+        e_l = recs["e_learn"].cpu().numpy()
+        e_pe = sum(float(recs[k].cpu().numpy().sum())
+                   for k in ("e_dvfs_baseline", "e_dvfs_neuron",
+                             "e_dvfs_synapse"))
+        tot = e_pe + float(e_noc.sum()) + float(e_l.sum())
+        out["learn"] = {
+            "power_mw": float(e_l.sum(axis=-1).mean() / t_sys_s * 1e3),
+            "energy_j": float(e_l.sum()),
+            "energy_frac": float(e_l.sum()) / tot if tot else 0.0,
+        }
     board = getattr(sim.program, "board", None)
     if board is not None:
         out["board"] = (board.chips_x, board.chips_y)

@@ -5,8 +5,9 @@ placement of population tiles on consecutive PEs in snake order
 (validated against mesh capacity and the 128 kB PE SRAM first), a dense
 ``RoutingTable``, each source's X/Y multicast tree as a CSR
 ``SparseIncidence`` (X-first, or Y-first per population), and
-per-source packet classes.  Plastic projections are not ported yet and
-raise.
+per-source packet classes; projections with a ``plasticity=`` rule lower
+into ``LearnSlot`` descriptors (``learn.lower``), which the engine turns
+into per-tick weight updates.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from repro_torch.chip.mapping import assign_slots, snake_coords
 from repro_torch.chip.mesh_noc import MeshNoc, MeshSpec, SparseIncidence
 from repro_torch.core.pe import PESpec
 from repro_torch.core.router import RoutingTable
+from repro_torch.learn.lower import lower_plasticity
 
 
 @dataclass
@@ -34,7 +36,7 @@ class ChipProgram:
     payload_bits: np.ndarray    # (P,) int: payload bits per packet (0=spike)
     sram_bytes: np.ndarray      # (P,) int: per-PE workload state
     pe_slices: dict             # population name -> slice of logical PEs
-    learn_slots: tuple = ()     # plastic projections: none until ported
+    learn_slots: tuple = ()     # lowered plastic projections (learn)
 
     @property
     def n_pes(self) -> int:
@@ -83,18 +85,11 @@ class ChipProgram:
 
 def check_compilable(graph: NetGraph, pe: PESpec) -> None:
     """What the chip and the board compilers refuse up front: a graph
-    without tick semantics, a plastic projection (on-mesh learning is not
-    ported yet) and a tile over the PE SRAM, each naming its culprit."""
+    without tick semantics and a tile over the PE SRAM, each naming its
+    culprit."""
     if graph.semantics is None:
         raise ValueError(f"graph {graph.name!r} has no tick semantics; "
                          "attach one before compiling")
-    plastic = [f"{pr.src}->{pr.dst}" for pr in graph.projections
-               if pr.plasticity is not None]
-    if plastic:
-        raise NotImplementedError(
-            f"graph {graph.name!r}: plastic projections {plastic} need "
-            f"on-mesh learning, which repro_torch has not ported yet "
-            f"(ROADMAP queue A, learning)")
     for pop in graph.populations:
         if pop.sram_bytes > pe.sram_bytes:
             raise ValueError(
@@ -128,8 +123,8 @@ def compile(graph: NetGraph, mesh: MeshSpec | None = None,
     default None, keep X-first trees.  Orientation changes only the NoC
     link accounting, never neuron-state records.  Raises ``ValueError``
     up front, naming the population at fault, when a tile exceeds the PE
-    SRAM or the graph exceeds the mesh; raises ``NotImplementedError``
-    for a plastic projection.
+    SRAM or the graph exceeds the mesh, and naming the edge when a
+    plasticity rule does not fit its projection's payload.
     """
     check_compilable(graph, pe)
 
@@ -193,4 +188,5 @@ def compile(graph: NetGraph, mesh: MeshSpec | None = None,
 
     return ChipProgram(graph=graph, mesh=mesh, noc=noc, coords=coords,
                        table=table, sinc=sinc, payload_bits=payload_bits,
-                       sram_bytes=sram, pe_slices=pe_slices)
+                       sram_bytes=sram, pe_slices=pe_slices,
+                       learn_slots=lower_plasticity(graph, pe_slices))

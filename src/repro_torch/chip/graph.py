@@ -50,9 +50,9 @@ class Projection:
 
     SPIKE packets are header-only (64 b); GRADED packets carry
     ``bits_per_packet`` payload bits, priced as ceil(bits / 128) flits of
-    192 bits per link traversal (paper Sec. III-A).  ``plasticity`` is
-    accepted for compatibility with the reference's graphs, but learning
-    is not ported yet: ``compile`` rejects a plastic projection.
+    192 bits per link traversal (paper Sec. III-A).  ``plasticity``
+    attaches a learning rule (``learn.STDP`` on a SPIKE projection,
+    ``learn.PES`` on a GRADED one); ``compile`` lowers it to a learn slot.
     """
     src: str
     dst: str

@@ -700,6 +700,22 @@ def board_workload(graph: NetGraph, board, n_ticks: int = 64,
     }
 
 
+def adaptive_control_workload(**kw) -> dict:
+    """Closed-loop adaptive control with on-mesh PES learning (Yan et
+    al., arXiv:2009.08921).  Lives in ``learn.adaptive``; re-exported here
+    (lazily: the learn package imports this module's neighbours) so the
+    workload catalog has one front door."""
+    from repro_torch.learn.adaptive import adaptive_control_workload as f
+    return f(**kw)
+
+
+def stdp_pair_workload(**kw) -> dict:
+    """Poisson -> LIF pair with an on-mesh STDP projection (see
+    ``learn.adaptive.stdp_pair_workload``)."""
+    from repro_torch.learn.adaptive import stdp_pair_workload as f
+    return f(**kw)
+
+
 def hybrid_workload(n_neurons: int = 256, hidden: int = 64,
                     n_ticks: int = 600, mesh: MeshSpec | None = None,
                     seed: int = 0, *, ens: Ensemble | None = None, wq=None,

@@ -362,19 +362,27 @@ def make_synfire_tick(net: SynfireNet, *, dvfs: DVFSController,
     return tick
 
 
-def run_ticks(step, state, n_ticks: int) -> dict:
+def run_ticks(step, state, n_ticks: int, observe=None,
+              keep_records: bool = True) -> dict:
     """Drive ``step(state, t)`` for t = 0..n_ticks-1 and stack its records
     into (T, ...) tensors allocated once, after the first tick shows the
-    record shapes."""
-    recs = None
+    record shapes.  ``observe(rec)``, called with the first tick's
+    records, returns ``fold(rec, t)``, which then sees every tick's
+    records (the probes' accumulators, allocated once the same way);
+    ``keep_records=False`` stacks none of them."""
+    recs, fold = None, None
     for t in range(n_ticks):
         state, rec = step(state, t)
         if recs is None:
             recs = {k: torch.empty((n_ticks,) + tuple(v.shape),
                                    dtype=v.dtype, device=v.device)
-                    for k, v in rec.items()}
-        for k, v in rec.items():
-            recs[k][t] = v
+                    for k, v in rec.items()} if keep_records else {}
+            fold = observe(rec) if observe is not None else None
+        if keep_records:
+            for k, v in rec.items():
+                recs[k][t] = v
+        if fold is not None:
+            fold(rec, t)
     return recs or {}
 
 

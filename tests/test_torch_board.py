@@ -252,7 +252,7 @@ def test_board_compile_refuses_plastic_graphs_and_foreign_partitions():
     plastic = NetGraph([Population("a", 8, 64), Population("b", 8, 64)],
                        [Projection("a", "b", plasticity=object())],
                        semantics=object())
-    with pytest.raises(NotImplementedError, match="plastic"):
+    with pytest.raises(ValueError, match="a->b: unknown plasticity rule"):
         compile_board(plastic, BoardSpec(1, 1))
     with pytest.raises(ValueError, match="orientation"):
         RouteConfig(tree_orient={"a": "zz"}).validate(BoardSpec(1, 1))

@@ -24,11 +24,12 @@ from repro.core import snn as jsnn
 
 import repro_torch
 from repro_torch.chip import ChipSim, chip_power_table, compile
-from repro_torch.chip.graph import NetGraph, Population, Projection
+from repro_torch.chip.graph import GRADED, NetGraph, Population, Projection
 from repro_torch.chip.mesh_noc import MeshNoc, MeshSpec
 from repro_torch.chip.workloads import synfire_graph, synfire_workload
 from repro_torch.core import snn
 from repro_torch.kernels.lif.ops import lif_params_fx
+from repro_torch.learn import PES, STDP
 
 INT_RECORDS = ("spikes_exc", "spikes_inh", "pl", "n_fifo", "syn_events",
                "packets", "active_sources")
@@ -127,9 +128,20 @@ def test_tree_link_ids_match_reference(width, height, seed):
 
 
 def test_compile_rejects_plastic_projections():
+    """What the reference's lowering refuses, naming the edge: a rule that
+    is neither STDP nor PES, STDP on a GRADED projection and PES on a
+    SPIKE one."""
     g, _ = _ring_graphs(8)
     g.projections[0] = Projection("pe0", "pe1", plasticity=object())
-    with pytest.raises(NotImplementedError, match="learning"):
+    with pytest.raises(ValueError,
+                       match="pe0->pe1: unknown plasticity rule"):
+        compile(g)
+    g.projections[0] = Projection("pe0", "pe1", payload=GRADED,
+                                  bits_per_packet=32, plasticity=STDP())
+    with pytest.raises(ValueError, match="pe0->pe1: STDP needs a SPIKE"):
+        compile(g)
+    g.projections[0] = Projection("pe0", "pe1", plasticity=PES())
+    with pytest.raises(ValueError, match="pe0->pe1: PES needs a GRADED"):
         compile(g)
 
 

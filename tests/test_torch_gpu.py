@@ -12,9 +12,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.board import BoardSpec, compile_board
 from repro_torch.chip import ChipSim, compile
 from repro_torch.chip.mesh_noc import SparseIncidence
-from repro_torch.chip.workloads import hybrid_workload, synfire_graph
+from repro_torch.chip.workloads import (adaptive_control_workload,
+                                        hybrid_workload, stdp_pair_workload,
+                                        synfire_graph)
 from repro_torch.kernels import (compact_lanes, event_link_loads,
                                  flash_attention_kernel,
                                  fx_exp, fx_log, launch_counts, lif_step,
@@ -34,6 +37,10 @@ from repro_torch.kernels.mac_conv.ops import route as conv_route
 from repro_torch.kernels.mac_conv.ref import mac_conv2d_ref
 from repro_torch.kernels.mac_gemm.ref import mac_gemm_ref
 from repro_torch.kernels.syn_accum.ref import syn_accum_ref
+from repro_torch.learn import (PES, STDP, LearnSlot, init_learn_state,
+                               make_learn_step)
+from repro_torch.learn.adaptive import adaptive_control_graph
+from repro_torch.obs import default_probes
 
 pytestmark = pytest.mark.gpu
 I32 = np.iinfo(np.int32)
@@ -627,3 +634,96 @@ def test_card_hybrid_matches_cpu(cuda):
             torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
         else:
             assert torch.equal(g, w), k
+
+
+# ------------------------------------------------------ on-mesh learning
+
+def _learn_records_close(got: dict, want: dict, close=()) -> None:
+    """Card records against the CPU's: energies at rtol 1e-6, the float32
+    sums over the decoders (``close``) and every slot's dw and arrived
+    error at rtol 1e-5, everything else bitwise."""
+    assert set(got) == set(want)
+    for k, w in want.items():
+        g = got[k].cpu()
+        if k.startswith("e_"):
+            torch.testing.assert_close(g, w, rtol=1e-6, atol=0)
+        elif k in close or k.endswith(("/dw", "/err")):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+        else:
+            assert torch.equal(g, w), k
+
+
+def test_card_stdp_pair_matches_cpu(cuda):
+    """STDP on the card: every record equal to the CPU's; fx_exp launched
+    for the LIF alpha and once for the trace decays, not every tick."""
+    reset_launch_counts()
+    got = stdp_pair_workload(n_pre=16, n_post=4, n_ticks=128, device=cuda)
+    counts = launch_counts()
+    want = stdp_pair_workload(n_pre=16, n_post=4, n_ticks=128, device="cpu")
+    assert counts["fx_exp"] == 2 and counts["lif_step"] == 128
+    _learn_records_close(got["recs"], want["recs"])
+
+
+def test_card_adaptive_control_matches_cpu(cuda):
+    kw = dict(n_channels=3, n_neurons=50, n_ticks=256, period=256)
+    reset_launch_counts()
+    got = adaptive_control_workload(device=cuda, **kw)
+    counts = launch_counts()
+    want = adaptive_control_workload(device="cpu", **kw)
+    assert counts["fx_exp"] == 2 and counts["lif_step"] == 256
+    _learn_records_close(got["recs"], want["recs"],
+                         close=("u", "y", "track_err", "dec_norm"))
+
+
+def test_card_learn_group_matches_cpu(cuda):
+    """A 64-slot PES group and a 64-slot STDP group advanced 5 ticks on
+    the card and on the CPU: traces and STDP weights bitwise, decoders
+    bitwise (elementwise float32), dw at rtol 1e-5."""
+    rng = np.random.default_rng(0)
+    slots = ([LearnSlot(f"p{i}", "pes", PES(learning_rate=1e-4), "a", "b",
+                        16, 2, (i % 8,)) for i in range(64)]
+             + [LearnSlot(f"s{i}", "stdp", STDP(), "a", "b", 12, 4,
+                          (i % 8,)) for i in range(64)])
+
+    class Program:
+        learn_slots, n_pes = tuple(slots), 8
+    states = {d: init_learn_state(Program, d) for d in (cuda, "cpu")}
+    steps = {d: make_learn_step(Program, d) for d in (cuda, "cpu")}
+    for _ in range(5):
+        rec = {}
+        for g in states["cpu"].groups:
+            s, names = g[0], [s.name for s in g]
+            rec[states["cpu"].signal_key(names, "pre")] = torch.from_numpy(
+                (rng.random((len(g), s.n_pre)) < 0.3).astype(np.float32))
+            other = "err" if s.kind == "pes" else "post"
+            rec[states["cpu"].signal_key(names, other)] = torch.from_numpy(
+                rng.standard_normal((len(g), s.n_post)).astype(np.float32)
+                if s.kind == "pes"
+                else (rng.random((len(g), s.n_post)) < 0.3).astype(
+                    np.float32))
+        upd = {}
+        for d in (cuda, "cpu"):
+            states[d], upd[d] = steps[d](
+                states[d], {k: v.to(d) for k, v in rec.items()})
+        _learn_records_close(upd[cuda], upd["cpu"])
+    for name in states["cpu"]:
+        for k, v in states["cpu"][name].items():
+            assert torch.equal(states[cuda][name][k].cpu(), v), (name, k)
+
+
+def test_card_probes_match_cpu(cuda):
+    """A plastic 2x2 board with the default probes at stride 20: the
+    card's probe output equals the CPU's (float32 sums over the decoders
+    at rtol 1e-5), and keep_records=False returns it alone."""
+    kw = dict(n_channels=4, n_neurons=50, n_ticks=128, period=128)
+    prog = compile_board(adaptive_control_graph(device="cpu", **kw),
+                         BoardSpec.parse("2x2", chip="1x1"), refine=False)
+    specs = default_probes(prog, stride=20)
+    got = ChipSim(prog, device=cuda).run(128, probes=specs,
+                                         keep_records=False)
+    want = ChipSim(prog, device="cpu").run(128, probes=specs)
+    assert set(got) == {"probes"} and set(got["probes"]) == set(
+        want["probes"])
+    for name, w in want["probes"].items():
+        torch.testing.assert_close(got["probes"][name].cpu(), w,
+                                   rtol=1e-5, atol=1e-12)

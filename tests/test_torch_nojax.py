@@ -35,8 +35,10 @@ def test_port_imports_without_jax():
     assert out.stdout.strip() == "ok"
     assert len(_port_modules()) >= 16
     assert {"repro_torch.board", "repro_torch.board.route",
-            "repro_torch.routeopt", "repro_torch.core.packets"} <= set(
-        _port_modules())
+            "repro_torch.routeopt", "repro_torch.core.packets",
+            "repro_torch.learn", "repro_torch.learn.engine",
+            "repro_torch.learn.adaptive", "repro_torch.obs.probes",
+            "repro_torch.obs.trace"} <= set(_port_modules())
 
 
 def test_port_sources_do_not_name_the_reference():

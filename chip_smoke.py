@@ -90,6 +90,28 @@ farm, the DNN pipeline), and checks what comes out:
               stride of 64 and keep_records=False: every probe equal,
               bitwise, to the same fold of an unprobed run's records; µs
               and launches a tick with and without probes.
+   serve    — the serving tier through FleetEngine.serve at the
+              reference serving benchmark's widths (the three rows of
+              benchmarks/serve_fleet.py: adaptive and KWS fleets of up to
+              64 instances of 1 x 64 neurons, 96 sessions each, and the
+              adaptive fleet of 8 on a 2x1 board of 2x2 chips, Poisson
+              rate 8, rounds of 64 ticks): each schedule equal to
+              BENCH_pr7.json's (completed, rounds, widths, preemptions,
+              and ticks served and run on the adaptive row), joules a
+              request to its 6 decimals, lif_step once a batched tick and
+              mac_gemm once a round (the round's stacked encode); each row
+              again keeping its outputs, on the card and on the card
+              machine's CPU, every session compared (n_spk and r bitwise,
+              the other outputs at rtol 1e-5, energy at 1e-6); a fleet of
+              one equal to ChipSim.run bitwise; preemption (rtol 3e-6)
+              and suspend to disk and restore in a fresh engine (bitwise)
+              at the reference tests' sizes; every NoC and exec mode equal
+              to the dense fleet, bitwise; observability on: span chains,
+              health, the dev/* counters against the records' host sums, a
+              fleet trace, µs a tick beside the bare serve; lif_step and
+              the stacked encode against their plain versions at the
+              fleet's shapes; the batched tick's launches, device busy µs
+              and idle share at widths 16, 32 and 64.
 8. dnn      — tiled_dnn_workload on the card and on the CPU: 4 frames
               out, the same latency and records.
 9. kernels  — each kernel against its plain PyTorch version, bitwise, on
@@ -160,7 +182,7 @@ farm, the DNN pipeline), and checks what comes out:
     device kernels of the SDPA call they are compared with.
 
 Launch counters are zeroed just before each path's run (phases 3-8 and
-11-14, and each learning path and the probed run; the
+11-14, and each learning path, the probed run and each serving row; the
 graph's build is part of the path, except in phase 5, which reuses phase
 4's net) and read just after; a kernel of that path that never launched
 fails the run.  Every phase prints one JSON line; any failed check
@@ -172,11 +194,13 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gzip
 import io
 import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -229,9 +253,16 @@ from repro_torch.kernels.syn_accum.ref import (pack_spikes,  # noqa: E402
                                                popcount_words,
                                                spike_words, syn_accum_ref)
 from repro_torch.core.nef import build_ensemble, encode_drive  # noqa: E402
+from repro_torch.core.dvfs import QueueDVFS  # noqa: E402
 from repro_torch.learn.adaptive import adaptive_control_graph  # noqa: E402
 from repro_torch.learn.engine import group_slots  # noqa: E402
 from repro_torch.obs.probes import default_probes  # noqa: E402
+from repro_torch.obs.spans import load_spans, validate_spans  # noqa: E402
+from repro_torch.obs.trace import write_fleet_trace  # noqa: E402
+from repro_torch.serve.fleet import (SCENARIOS, FleetEngine,  # noqa: E402
+                                     PoissonTraffic, Session,
+                                     adaptive_scenario, stim_windows)
+from repro_torch.serve.fleet.engine import broadcast_state  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA datasheet): HBM bandwidth, the
 # float32 rate outside the tensor cores and the dense int8, bf16 and TF32
@@ -283,6 +314,33 @@ LEARN_STEADY_TICKS = 256        # ticks timed for µs a tick, plastic/frozen
 ADAPT_FLOAT = ("u", "y", "track_err", "dec_norm")
 # the probes phase: the 4096-PE ring with the default probe set
 PROBE_TICKS, PROBE_STRIDE = 300, 64
+# the serving tier at the reference serving benchmark's widths
+# (benchmarks/serve_fleet.py:30-37, 45-56, 104-125; rows of
+# BENCH_pr7.json): per row the name, scenario and its widths, top batch
+# level, sessions, traffic seed, board (grid, chip) and the schedule the
+# traffic's seed fixes
+SERVE_TC, SERVE_RATE, SERVE_TICKS = 64, 8.0, (128, 384)
+SERVE_BENCH = "BENCH_pr7.json"
+SERVE_ROWS = (
+    ("serve_fleet_adaptive_chip_w64", "adaptive",
+     dict(n_channels=1, n_neurons=64), 64, 96, 0, None,
+     dict(completed=96, rounds=18, preemptions=0, ticks_served=26111,
+          ticks_run=29248, width_hist={"16": 5, "32": 4, "64": 8})),
+    ("serve_fleet_kws_chip_w64", "kws",
+     dict(n_pairs=1, n_neurons=64, hidden=16), 64, 96, 1, None,
+     dict(completed=96, rounds=18, preemptions=0,
+          width_hist={"16": 5, "32": 4, "64": 8})),
+    ("serve_fleet_adaptive_board2x1_w8", "adaptive",
+     dict(n_channels=1, n_neurons=64), 8, 12, 2, ("2x1", "2x2"),
+     dict(completed=12, rounds=11, preemptions=0,
+          width_hist={"2": 2, "4": 3, "8": 5})),
+)
+# outputs held card against CPU bitwise; the others at rtol 1e-5
+SERVE_EXACT = ("n_spk", "r")
+# the preemption and suspend checks at the reference tests' sizes
+# (tests/test_serve_fleet.py): adaptive 1 x 32, rounds of 32 ticks
+SERVE_SMALL_TC, SERVE_SMALL_N = 32, 32
+SERVE_PROFILE_WIDTHS = (16, 32, 64)
 GEMM_SAMPLE = 4096              # the int8 GEMM sample: 4096^3
 FLOAT_RTOL, FLOAT_ATOL, ENERGY_RTOL = 1e-5, 1e-6, 1e-6
 L2_FLUSH_BYTES = 256 << 20      # five times the H100's 50 MB L2
@@ -1864,6 +1922,378 @@ def phase_probes(dev, sim) -> dict:
     return counts
 
 
+def fleet_dvfs(fleet: int) -> QueueDVFS:
+    """The reference benchmark's ladder (benchmarks/serve_fleet.py:30):
+    levels fleet/4, fleet/2, fleet, thresholds scaled with them."""
+    lo, mid = max(1, fleet // 4), max(1, fleet // 2)
+    return QueueDVFS(thresholds=(max(2, lo // 2), max(3, mid // 2)),
+                     batch_levels=(lo, mid, fleet))
+
+
+def serve_row(row, dev, keep_outputs: bool, obs=None) -> tuple:
+    """One headline row served through ``FleetEngine.serve`` on ``dev``:
+    (engine, result, wall seconds)."""
+    _, kind, kw, fleet, sessions, seed, board, _ = row
+    sc = SCENARIOS[kind](device=dev, **kw)
+    bd = None if board is None else BoardSpec.parse(board[0], chip=board[1])
+    eng = FleetEngine(sc, round_ticks=SERVE_TC, dvfs=fleet_dvfs(fleet),
+                      board=bd, keep_outputs=keep_outputs, obs=obs,
+                      device=dev)
+    tr = PoissonTraffic(rate=SERVE_RATE, n_sessions=sessions,
+                        tick_range=SERVE_TICKS, seed=seed)
+    t0 = time.perf_counter()
+    out = eng.serve(tr)
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+    return eng, out, time.perf_counter() - t0
+
+
+def serve_metrics(st: dict, wall_s: float) -> dict:
+    return dict(wall_s=wall_s, sessions_per_s=st["sessions_per_s"],
+                ticks_per_s=st["ticks_per_s"],
+                request_p50_s=st["request_latency_s"]["p50"],
+                request_p99_s=st["request_latency_s"]["p99"],
+                tick_p50_us=st["tick_latency_s"]["p50"] * 1e6,
+                tick_p99_us=st["tick_latency_s"]["p99"] * 1e6)
+
+
+def compare_sessions(got: list, want: list, what: str) -> dict:
+    """Per session, outputs against another run's: ``SERVE_EXACT`` keys
+    bitwise, the other float outputs at rtol 1e-5 (atol 1e-6), energy_j
+    at rtol 1e-6.  Returns the worst errors."""
+    check(sorted(s.sid for s in got) == sorted(s.sid for s in want),
+          f"{what}: different sessions")
+    by_sid = {s.sid: s for s in want}
+    worst = {"energy_rel": 0.0}
+    for s in got:
+        w = by_sid[s.sid]
+        check(s.ticks_done == w.ticks_done and s.ticks_run == w.ticks_run,
+              f"{what}: sid {s.sid} ticks differ")
+        for k, v in w.outputs.items():
+            g = s.outputs[k]
+            check(g.shape == v.shape and g.dtype == v.dtype,
+                  f"{what}: sid {s.sid} {k} shape/dtype")
+            if k in SERVE_EXACT:
+                check(np.array_equal(g, v), f"{what}: sid {s.sid} {k} "
+                      "differs")
+            else:
+                check(np.allclose(g, v, rtol=FLOAT_RTOL, atol=FLOAT_ATOL),
+                      f"{what}: sid {s.sid} {k} outside rtol {FLOAT_RTOL}")
+                worst[k] = max(worst.get(k, 0.0), float(np.abs(
+                    g.astype(np.float64) - v).max()) if g.size else 0.0)
+        rel = abs(s.energy_j - w.energy_j) / w.energy_j
+        check(rel <= ENERGY_RTOL, f"{what}: sid {s.sid} energy rel {rel}")
+        worst["energy_rel"] = max(worst["energy_rel"], rel)
+    return worst
+
+
+def solo_session(sc, dev, seed: int, total: int, tc: int):
+    """An uninterrupted single-session run (a width-1 fleet)."""
+    eng = FleetEngine(sc, round_ticks=tc, capacity=1, device=dev,
+                      dvfs=QueueDVFS(thresholds=(2,), batch_levels=(1, 1)))
+    sess = Session(sid=0, stream=sc.stream(seed), total_ticks=total)
+    return eng.serve(None, sessions=[sess])["sessions"][0]
+
+
+def serve_fleet_of_one(dev) -> dict:
+    """Adaptive 1 x 64, 3 rounds of 64 ticks through a width-1 fleet:
+    every output equal to ``ChipSim.run`` of the same program with the
+    whole stimulus preloaded, on the card, bitwise."""
+    sc = adaptive_scenario(n_neurons=64, device=dev)
+    T, seed = 3 * SERVE_TC, 41
+    reset_launch_counts()
+    sess = solo_session(sc, dev, seed, T, SERVE_TC)
+    counts = launch_counts()
+    stim = sc.stream(seed).segment(0, T)
+    recs = ChipSim(compile(sc.graph(T, stim)), device=dev).run(T)
+    for k in sc.output_keys:
+        check(np.array_equal(sess.outputs[k], recs[k].cpu().numpy()),
+              f"fleet of one: {k} != ChipSim.run")
+    # one batched tick at construction shows the record layout
+    check(counts["lif_step"] == 1 + T, f"fleet of one launches {counts}")
+    return dict(ticks=T, outputs=list(sc.output_keys),
+                vs_chipsim_run="bitwise", launches=counts)
+
+
+def serve_preempt_suspend(dev) -> dict:
+    """The reference tests' preemption and suspend configurations on the
+    card: sessions narrowed out of the fleet finish equal to their solo
+    runs (rtol 3e-6, atol 1e-7: the width changes the batch's float
+    sums), and a session suspended to disk and finished in a fresh engine
+    equals its solo run bitwise."""
+    tc = SERVE_SMALL_TC
+    sc = adaptive_scenario(n_neurons=SERVE_SMALL_N, device=dev)
+    totals = [2 * tc, 5 * tc, 5 * tc]
+    specs = PoissonTraffic(rate=10.0, n_sessions=3, seed=2,
+                           tick_range=(1, 1)).drain()
+    sessions = [Session(sid=sp.sid, stream=sc.stream(sp.seed),
+                        total_ticks=totals[sp.sid]) for sp in specs]
+    eng = FleetEngine(sc, round_ticks=tc, device=dev,
+                      dvfs=QueueDVFS(thresholds=(3,), batch_levels=(1, 4)))
+    out = eng.serve(None, sessions=sessions)
+    check(out["stats"]["completed"] == 3 and out["stats"]["preemptions"]
+          >= 1, f"preemption: {out['stats']}")
+    worst = 0.0
+    for sess in out["sessions"]:
+        ref = solo_session(sc, dev, specs[sess.sid].seed, sess.total_ticks,
+                           tc)
+        for k in sc.output_keys:
+            check(np.allclose(sess.outputs[k], ref.outputs[k], rtol=3e-6,
+                              atol=1e-7), f"preempted sid {sess.sid} {k}")
+            worst = max(worst, float(np.abs(
+                sess.outputs[k].astype(np.float64) - ref.outputs[k]).max()))
+    T, seed = 5 * tc, 99
+    ref = solo_session(sc, dev, seed, T, tc)
+    with tempfile.TemporaryDirectory() as d:
+        kw = dict(round_ticks=tc, capacity=1, ckpt_dir=d, device=dev,
+                  dvfs=QueueDVFS(thresholds=(2,), batch_levels=(1, 1)))
+        eng1 = FleetEngine(sc, max_rounds=2, **kw)
+        s1 = Session(sid=7, stream=sc.stream(seed), total_ticks=T)
+        eng1.serve(None, sessions=[s1])
+        check([s.sid for s in eng1.suspend()] == [7], "suspend")
+        part1 = {k: np.concatenate(v) for k, v in s1.outputs.items()}
+        eng2 = FleetEngine(sc, **kw)
+        s2 = eng2.restore_session(7, stream=sc.stream(seed), total_ticks=T)
+        done = eng2.serve(None, sessions=[s2])["sessions"][0]
+    for k in sc.output_keys:
+        check(np.array_equal(np.concatenate([part1[k], done.outputs[k]]),
+                             ref.outputs[k]), f"suspend/restore: {k}")
+    return dict(preemptions=out["stats"]["preemptions"],
+                preempted_vs_solo_max_abs_err=worst,
+                suspend_restore_vs_solo="bitwise")
+
+
+def serve_observed(dev, bare_tick_us: float) -> dict:
+    """The adaptive headline row with observability on: span chains
+    valid, health not critical, a fleet trace written and read back, µs
+    a tick beside the bare serve's; then again with every tick's records
+    kept on the side, and each dev/* counter equal to the host sums of
+    those records over the active slots of each round."""
+    row = SERVE_ROWS[0]
+    eng, out, wall = serve_row(row, dev, keep_outputs=False, obs=True)
+    o = out["obs"]
+    check(o["health"]["status"] != "critical", f"health {o['health']}")
+    check(validate_spans(o["spans"].events, require_complete=True) == [],
+          "span chains")
+    with tempfile.TemporaryDirectory() as d:
+        path = write_fleet_trace(Path(d) / "fleet.json.gz",
+                                 load_spans(o["spans"].write(
+                                     Path(d) / "spans.json.gz")))
+        trace = json.loads(gzip.decompress(path.read_bytes()))
+    check(trace["otherData"]["n_requests"] == row[4], "fleet trace")
+    obs_tick_us = out["stats"]["tick_latency_s"]["p50"] * 1e6
+
+    sc = SCENARIOS[row[1]](device=dev, **row[2])
+    eng = FleetEngine(sc, round_ticks=SERVE_TC, dvfs=fleet_dvfs(row[3]),
+                      keep_outputs=False, obs=True, device=dev)
+    kept, step = [], eng._step
+    keys = {s.key for s in eng._dev_specs}
+
+    def recording(state, t):
+        state, rec = step(state, t)
+        kept.append({k: rec[k] for k in keys})
+        return state, rec
+    eng._step = recording
+    out = eng.serve(PoissonTraffic(rate=SERVE_RATE, n_sessions=row[4],
+                                   tick_range=SERVE_TICKS, seed=row[5]))
+    snap = out["obs"]["metrics"]
+    rounds = out["obs"]["spans"].counters
+    check(len(kept) == len(rounds) * SERVE_TC, "recorded ticks")
+    want = {s.name: 0.0 for s in eng._dev_specs}
+    for r, c in enumerate(rounds):
+        ticks = kept[r * SERVE_TC:(r + 1) * SERVE_TC]
+        for s in eng._dev_specs:
+            v = torch.stack([x[s.key] for x in ticks])[:, :c["n_active"]]
+            v = v.double().cpu()
+            if s.op == "sum":
+                want[s.name] += float(v.sum())
+            else:
+                want[s.name] = max(want[s.name], float(v.max()))
+    for s in eng._dev_specs:
+        got = snap[f"dev/{s.name}" + ("" if s.op == "sum" else "_peak")]
+        check(got == want[s.name], f"dev/{s.name}: {got} != host "
+              f"{want[s.name]}")
+    return dict(health=o["health"]["status"], span_events=len(
+        o["spans"].events), trace_events=len(trace["traceEvents"]),
+        dev_counters_vs_records="equal", dev_counters=want,
+        tick_p50_us_obs=obs_tick_us, tick_p50_us_bare=bare_tick_us,
+        wall_s_obs=wall)
+
+
+def serve_modes(dev) -> dict:
+    """Every NoC and exec mode serves on the card: a 12-PE program (6
+    loops of 16 neurons; the KWS farm of 6 pairs, whose flits vary per
+    instance and tick) through the sparse NoC accounting (noc_link_loads
+    on the fleet's 2w rows, once a batched tick) and event mode
+    (event_link_loads, the same) gives the dense fleet's outputs and
+    energies bitwise."""
+    out = {}
+    for kind, kw in (("adaptive", dict(n_channels=6, n_neurons=16)),
+                     ("kws", dict(n_pairs=6, n_neurons=16, hidden=4))):
+        sc = SCENARIOS[kind](device=dev, **kw)
+        runs, launches = [], {}
+        for noc, ex, kernel in (("dense", "dense", None),
+                                ("sparse", "dense", "noc_link_loads"),
+                                ("sparse", "event", "event_link_loads")):
+            eng = FleetEngine(sc, round_ticks=SERVE_SMALL_TC, device=dev,
+                              noc_mode=noc, exec_mode=ex,
+                              dvfs=QueueDVFS(thresholds=(2,),
+                                             batch_levels=(2, 4)))
+            reset_launch_counts()
+            res = eng.serve(PoissonTraffic(rate=3.0, n_sessions=5, seed=6,
+                                           tick_range=(SERVE_SMALL_TC,
+                                                       3 * SERVE_SMALL_TC)))
+            counts = launch_counts()
+            ticks = sum(res["stats"]["width_hist"].values()) * SERVE_SMALL_TC
+            if kernel is not None:
+                check(counts[kernel] == ticks, f"serve {kind} {noc}/{ex}: "
+                      f"{kernel} {counts[kernel]} launches in {ticks} ticks")
+                launches[f"{noc}/{ex}"] = {kernel: counts[kernel],
+                                           "batched_ticks": ticks}
+            runs.append(res["sessions"])
+        for other in runs[1:]:
+            for a, b in zip(runs[0], other):
+                check(a.energy_j == b.energy_j, f"serve {kind} modes: "
+                      "energy differs")
+                for k in sc.output_keys:
+                    check(np.array_equal(a.outputs[k], b.outputs[k]),
+                          f"serve {kind} modes: {k} differs")
+        out[kind] = dict(pes=eng.program.n_pes, links=eng.sim.noc.n_links,
+                         vs_dense="bitwise", launches=launches)
+    return out
+
+
+def serve_kernels_at_shapes(dev) -> dict:
+    """lif_step at the fleet's batched shape and mac_gemm at one round's
+    stacked encode, each against its plain version, bitwise; the round's
+    whole drive against a CPU build of the ensemble's."""
+    sc = adaptive_scenario(n_neurons=64, device=dev)
+    streams = [sc.stream(i) for i in range(64)]
+    sig = np.stack([s.signal(64 * i, SERVE_TC)
+                    for i, s in enumerate(streams)])
+    x = torch.as_tensor(sig.reshape(-1, 1), device=dev)
+    xq, _ = quantize_per_axis(x, axis=1)
+    got = mac_gemm(xq, sc.ens.enc_q)
+    check(torch.equal(got.cpu(), mac_gemm_ref(xq.cpu(),
+                                              sc.ens.enc_q.cpu())),
+          "serve encode: mac_gemm != mac_gemm_ref")
+    cpu_sc = adaptive_scenario(n_neurons=64, device="cpu")
+    check(torch.equal(stim_windows(sc.ens, sig)["drive"].cpu(),
+                      stim_windows(cpu_sc.ens, sig)["drive"]),
+          "serve encode: the card's drive != the CPU's")
+    gen = torch.Generator().manual_seed(5)
+    v = torch.randint(-2**16, 2**16, (64, 1, 64), generator=gen,
+                      dtype=torch.int32)
+    ref = torch.randint(0, 3, (64, 1, 64), generator=gen, dtype=torch.int32)
+    i_syn = torch.randint(-2**15, 2**16, (64, 1, 64), generator=gen,
+                          dtype=torch.int32)
+    want = lif_step_ref(v, ref, i_syn, **sc.ens.lif)
+    got = lif_step(v.to(dev), ref.to(dev), i_syn.to(dev), **sc.ens.lif)
+    check(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)),
+          "serve lif_step (64, 1, 64) != lif_step_ref")
+    return dict(mac_gemm_shape=[list(xq.shape), list(sc.ens.enc_q.shape)],
+                lif_step_shape=[64, 1, 64], vs_plain="bitwise",
+                drive_vs_cpu="bitwise")
+
+
+def serve_tick_profile(dev) -> dict:
+    """The batched tick of the adaptive headline program at widths 16,
+    32 and 64 under torch.profiler: launches, device busy µs and idle
+    share a tick, and at width 64 the kernels that take the time."""
+    sc = adaptive_scenario(n_neurons=64, device=dev)
+    eng = FleetEngine(sc, round_ticks=SERVE_TC, device=dev,
+                      dvfs=fleet_dvfs(64))
+    init, step = eng.sim.make_batched_stepper()
+    out = {}
+    for w in SERVE_PROFILE_WIDTHS:
+        state = broadcast_state(init, w)
+        # each instance's local ticks, made before the profile: the
+        # engine's round computes them once as well
+        ticks = iter(torch.arange(PROFILE_TICKS + 1, dtype=torch.int32,
+                                  device=dev)[:, None]
+                     + torch.arange(w, dtype=torch.int32, device=dev))
+
+        def one_tick():
+            nonlocal state
+            state, _ = step(state, next(ticks))
+        kernels, wall_us = device_kernels(one_tick, PROFILE_TICKS)
+        busy = sum(us for _, us in kernels.values())
+        top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
+        out[str(w)] = dict(
+            launches_per_tick=sum(c for c, _ in kernels.values())
+            / PROFILE_TICKS,
+            device_busy_us_per_tick=busy / PROFILE_TICKS,
+            profiled_wall_us_per_tick=wall_us / PROFILE_TICKS,
+            device_idle_share=1.0 - busy / wall_us,
+            top=[{"kernel": k[:90], "launches_per_tick": c / PROFILE_TICKS,
+                  "us_per_tick": us / PROFILE_TICKS}
+                 for k, (c, us) in top] if w == 64 else None)
+    return out
+
+
+def phase_serve(dev) -> dict:
+    """The serving tier through ``FleetEngine.serve``: the fleet of one,
+    the reference serving benchmark's three rows (schedules equal to its
+    table, joules a request to BENCH_pr7.json's 6 decimals, each row
+    again keeping its outputs on the card and on the card machine's CPU,
+    every session compared), preemption and suspend, observability on,
+    the kernels at the fleet's shapes, and the batched tick's profile."""
+    t_phase = time.perf_counter()
+    paths, report = {}, {"fleet_of_one": serve_fleet_of_one(dev)}
+    bench = {r["name"]: r["values"] for r in json.loads(
+        (ROOT / SERVE_BENCH).read_text())["rows"]}
+    rows = {}
+    for row in SERVE_ROWS:
+        name, want = row[0], row[7]
+        reset_launch_counts()
+        eng, out, wall = serve_row(row, dev, keep_outputs=False)
+        counts = launch_counts()
+        st = out["stats"]
+        got = {k: st[k] for k in want}
+        check(got == want, f"{name}: schedule {got} != {want}")
+        jpr = round(st["joules_per_request"], 6)
+        check(jpr == round(bench[name]["joules_per_request"], 6),
+              f"{name}: {st['joules_per_request']} J a request, "
+              f"{SERVE_BENCH} {bench[name]['joules_per_request']}")
+        # lif_step once a batched tick at every width (and once at the
+        # engine's construction), mac_gemm once a round (and once for
+        # the program's default stimulus)
+        batched = sum(st["width_hist"].values())
+        check_launched(counts, ("fx_exp", "lif_step", "mac_gemm"), name)
+        check(counts["lif_step"] == 1 + batched * SERVE_TC
+              and counts["mac_gemm"] == 1 + batched,
+              f"{name}: launches {counts} for {batched} rounds")
+        paths[name] = counts
+        _, card, _ = serve_row(row, dev, keep_outputs=True)
+        t0 = time.perf_counter()
+        _, cpu, _ = serve_row(row, "cpu", keep_outputs=True)
+        cpu_s = time.perf_counter() - t0
+        worst = compare_sessions(card["sessions"], cpu["sessions"],
+                                 f"{name} card vs CPU")
+        rows[name] = dict(
+            schedule=got, joules_per_request=st["joules_per_request"],
+            reference_joules_per_request=bench[name]["joules_per_request"],
+            pes=eng.program.n_pes, launches=counts,
+            noc_mode="sparse" if eng.sim.use_sparse_noc() else "dense",
+            exec_mode="event" if eng.sim.use_event_mode() else "dense",
+            **serve_metrics(st, wall),
+            card_vs_cpu=dict(sessions=len(cpu["sessions"]), cpu_s=cpu_s,
+                             exact=list(SERVE_EXACT), **worst))
+    report["rows"] = rows
+    report["preemption_suspend"] = serve_preempt_suspend(dev)
+    report["observed"] = serve_observed(
+        dev, rows[SERVE_ROWS[0][0]]["tick_p50_us"])
+    report["modes"] = serve_modes(dev)
+    report["kernels_at_serve_shapes"] = serve_kernels_at_shapes(dev)
+    report["batched_tick_profile"] = serve_tick_profile(dev)
+    launches = [p["launches_per_tick"]
+                for p in report["batched_tick_profile"].values()]
+    report["launches_per_tick_equal_across_widths"] = \
+        max(launches) - min(launches) < 0.5
+    emit("serve", phase_s=time.perf_counter() - t_phase, **report)
+    return paths
+
+
 def phase_dnn(dev) -> dict:
     reset_launch_counts()
     got = tiled_dnn_workload(device=dev)
@@ -2207,6 +2637,7 @@ def main() -> int:
     paths["learn_stdp_pair"] = phase_learn_stdp(dev)
     paths["learn_board_48chip"] = phase_learn_board(dev)
     paths["probes_ring_4096pe"] = phase_probes(dev, sim)
+    paths.update(phase_serve(dev))
     paths["dnn_pipeline"] = phase_dnn(dev)
     paths["mac_efficiency"] = phase_mac_efficiency(dev)
     paths["dnn_layers"] = phase_dnn_layers(dev)

@@ -24,6 +24,10 @@ record; a frozen program runs exactly the frozen tick.
 (T, ...) record tensors on the device: no host synchronisation and no
 data-dependent branch inside the loop.  ``run(probes=...)`` folds
 windowed telemetry (``obs.probes``) over the same records.
+``make_batched_stepper`` advances a fleet of independent instances of
+one program at once (the serving tier, ``serve.fleet``), each at its own
+local tick held in a device tensor; the body after the semantics' tick
+is the same code over a leading instance axis.
 
 ``chip_power_table`` gives the per-PE Table III split, chip totals, NoC
 power and the peak-link-load bottleneck check.
@@ -122,14 +126,47 @@ class ChipSim:
         is the engine's full per-tick body: the semantics' tick, on-mesh
         learning, then the NoC accounting.  ``noise`` is passed to the
         semantics (see ``core.snn.make_synfire_tick``)."""
-        prog, noc, dev = self.program, self.noc, self.device
+        prog = self.program
         event = self.use_event_mode(exec_mode)
         kw = dict(dvfs=self.dvfs, em=self.em, seed=seed, noise=noise,
-                  device=dev)
+                  device=self.device)
         # semantics without a compressed tick run their dense tick under
         # event-mode NoC accounting (the same records either way)
         tick = (prog.make_event_tick(**kw) if event else None) \
             or prog.make_tick(**kw)
+        return self._engine_step(tick, event, noc_mode)
+
+    def make_batched_stepper(self, seed: int = 1,
+                             noc_mode: str | None = None, noise=None,
+                             exec_mode: str | None = None):
+        """``(init_state, step)`` for a fleet of independent instances of
+        this program: ``step(state_b, t_b) -> (state_b, rec_b)`` advances
+        w instances at once, ``t_b`` a (w,) int32 tensor of each
+        instance's own local tick on the sim's device, every state and
+        record tensor with a leading (w,) axis.  ``init_state`` is one
+        instance's (the caller broadcasts it).  The per-tick body after
+        the semantics' tick, learning and the NoC accounting, is
+        ``make_stepper``'s, over the leading axis; the semantics must
+        have a batched tick (``make_batched_tick``), which the served
+        workloads of ``repro_torch.serve.fleet`` have."""
+        sem = self.program.graph.semantics
+        make = getattr(sem, "make_batched_tick", None)
+        if make is None:
+            raise ValueError(
+                f"{type(sem).__name__} (graph "
+                f"{self.program.graph.name!r}) has no batched tick "
+                "(make_batched_tick); the fleet serves the served "
+                "semantics of repro_torch.serve.fleet.scenarios")
+        tick = make(self.program, dvfs=self.dvfs, em=self.em, seed=seed,
+                    noise=noise, device=self.device)
+        return self._engine_step(tick, self.use_event_mode(exec_mode),
+                                 noc_mode)
+
+    def _engine_step(self, tick, event: bool, noc_mode: str | None):
+        """``tick`` (one instance's, or a fleet's) followed by the
+        engine's learning and NoC accounting, written once over any
+        leading instance axes: (init_state, step)."""
+        prog, noc, dev = self.program, self.noc, self.device
         init = prog.init_state(dev)
         # on-mesh learning: a plastic program's state carries per-slot
         # weights and traces, advanced right after the semantics' tick;
@@ -177,13 +214,14 @@ class ChipSim:
         static_costs = noc.packet_costs(torch.as_tensor(prog.payload_bits,
                                                         device=dev))
 
-        def chip_tick(state, t: int):
+        def chip_tick(state, t):
+            # t: a host int, or a fleet's (w,) tick tensor
             state, rec = tick(state, t)
             if learn is not None:
                 lstate, lrec = learn(state["learn"], rec)
                 state = {**state, "learn": lstate}
                 rec.update(lrec)
-            packets = rec["packets"].to(torch.float32)        # (P,)
+            packets = rec["packets"].to(torch.float32)   # (..., P)
             flits, bits = (noc.packet_costs(rec["payload_bits"])
                            if "payload_bits" in rec else static_costs)
             if sparse and event:

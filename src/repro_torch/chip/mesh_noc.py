@@ -210,8 +210,10 @@ class NocAccounting:
     def noc_loads(self, packets, plan, flits):
         """One tick's (link_loads, flit_loads) through ``device_plan``'s
         plan, both rows in one kernel launch; ``flits`` (P,) float32 from
-        ``packet_costs``."""
-        both = noc_link_loads(packets.to(torch.float32), flits, *plan,
+        ``packet_costs``.  A fleet's (w, P) packets (and flits (P,) or
+        (w, P)) give (w, n_links) loads, in one launch as well."""
+        both = noc_link_loads(packets.to(torch.float32).contiguous(),
+                              flits.contiguous(), *plan,
                               n_links=self.n_links)
         return both[0], both[1]
 
@@ -227,7 +229,8 @@ class NocAccounting:
         (sentinel P on unused lanes) that must cover every source with
         nonzero packets; None walks every source and skips the quiet
         ones, which is always exact.  ``flits`` (P,) float32 from
-        ``packet_costs``."""
+        ``packet_costs``.  A fleet's (w, P) packets give (w, n_links)
+        loads, its 2w rows in one launch."""
         pk = packets.to(torch.float32)
         w = torch.stack([pk, pk * flits])
         both = event_link_loads(idx, w, rows_padded, n_links=self.n_links)

@@ -28,3 +28,23 @@ class DVFSController:
         """int tensor -> int32 PL index (0-based: 0=PL1, 1=PL2, 2=PL3)."""
         return ((n_spikes >= self.l_th1).to(torch.int32)
                 + (n_spikes >= self.l_th2).to(torch.int32))
+
+
+@dataclass(frozen=True)
+class QueueDVFS:
+    """The serving tier's analogue: request-queue depth selects the
+    execution level (the fleet's batch width), as spike-FIFO occupancy
+    selects the PL.  ``thresholds`` are queue depths, as l_th1/l_th2;
+    ``batch_levels`` the width at each level."""
+    thresholds: tuple = (4, 16)
+    batch_levels: tuple = (8, 32, 128)
+
+    def select_level(self, queue_depth: int) -> int:
+        lvl = 0
+        for t in self.thresholds:
+            if queue_depth >= t:
+                lvl += 1
+        return lvl
+
+    def batch_size(self, queue_depth: int) -> int:
+        return self.batch_levels[self.select_level(queue_depth)]

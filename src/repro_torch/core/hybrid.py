@@ -57,3 +57,9 @@ def event_mac_energy_j(n_events, k, n, *, tops_per_w=None):
     tops_per_w = tops_per_w or paper.MAC_TOPS_PER_W[(0.50, 200e6)]
     ops = 2.0 * float(n_events) * k * n
     return ops / (tops_per_w * 1e12)
+
+
+def frame_mac_energy_j(t, k, n, **kw):
+    """Energy of a frame-based (every row dispatched) MAC layer of ``t``
+    rows: the event-triggered pricing with every row an event."""
+    return event_mac_energy_j(t, k, n, **kw)

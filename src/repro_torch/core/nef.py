@@ -108,8 +108,8 @@ def ensemble_from_numpy(ens, device=None) -> Ensemble:
 
 
 def encode_drive(ens: Ensemble, x_seq, *, use_mac=True) -> torch.Tensor:
-    """(T, D) inputs -> (T, N) int32 s16.15 per-tick membrane drive, on
-    the ensemble's device.
+    """(T, D) inputs (numpy, or a tensor) -> (T, N) int32 s16.15 per-tick
+    membrane drive, on the ensemble's device.
 
     Encoding runs through the int8 MAC array (Fig. 19 left); the result
     is the discretization of dv/dt = (J - v)/tau_rc: v' = a v + (1-a) J.
@@ -118,7 +118,8 @@ def encode_drive(ens: Ensemble, x_seq, *, use_mac=True) -> torch.Tensor:
     the rounded drive is the reference's bit for bit.
     """
     dev = ens.device
-    x = torch.as_tensor(np.asarray(x_seq, np.float32), device=dev)
+    x = (x_seq.to(dev, torch.float32) if isinstance(x_seq, torch.Tensor)
+         else torch.as_tensor(np.asarray(x_seq, np.float32), device=dev))
     if use_mac:
         xq, x_scale = quantize_per_axis(x, axis=1)
         acc = mac_gemm(xq, ens.enc_q)                    # (T, N) int32

@@ -108,17 +108,16 @@ def event_link_loads(idx, weights, rows_padded, *, n_links: int):
 
     idx (cap,) int32 compacted active-source ids, sentinel P on unused
     lanes, or None for every source (the kernel skips quiet ones);
-    weights (P,) or (B, P) float32 per-source counts (a leading batch
-    axis, packets and flits, goes in one launch): integers with every
+    weights (..., P) float32 per-source counts (leading axes, packets
+    and flits of a fleet's instances, go in one launch): integers with every
     link's sum below 2**24, for which the kernels are exact in any order
     (the shared-memory route counts in int32); rows_padded (P, L) int32
-    link ids padded with ``n_links``.  Returns (n_links,) or (B,
-    n_links) float32."""
+    link ids padded with ``n_links``.  Returns (..., n_links) float32."""
     listed = () if idx is None else (idx,)
     expect_dtype("event_link_loads", torch.int32, rows_padded=rows_padded,
                  **{"idx": t for t in listed})
     expect_dtype("event_link_loads", torch.float32, weights=weights)
-    if (any(t.dim() != 1 for t in listed) or weights.dim() not in (1, 2)
+    if (any(t.dim() != 1 for t in listed) or weights.dim() < 1
             or rows_padded.dim() != 2
             or rows_padded.shape[0] != weights.shape[-1]):
         raise ValueError(

@@ -44,7 +44,12 @@ def noc_link_loads(packets, flits, ids, link_ptr=None, *, n_links: int):
     link-major table with sentinel P, when ``link_ptr`` is None, else
     ``ids`` = src_sorted (nnz,) int32 with ``link_ptr`` (n_links + 1,)
     int32.  The kernel's route follows the plan's shape.  Returns
-    (2, n_links) float32: link loads, flit loads."""
+    (2, n_links) float32: link loads, flit loads.
+
+    A fleet's tick passes (w, P) packets, and flits (P,) or (w, P): the
+    rows ``packets`` and ``packets * flits`` go through the kernel as 2w
+    rows of counts, one launch for every ``MAX_ROWS``, and the result is
+    (2, w, n_links)."""
     expect_dtype("noc_link_loads", torch.float32, packets=packets,
                  flits=flits)
     expect_dtype("noc_link_loads", torch.int32, ids=ids)
@@ -55,8 +60,11 @@ def noc_link_loads(packets, flits, ids, link_ptr=None, *, n_links: int):
         expect_dtype("noc_link_loads", torch.int32, link_ptr=link_ptr)
         plan_ok = ids.dim() == 1 and tuple(link_ptr.shape) == (n_links + 1,)
         tensors += (link_ptr,)
-    if not plan_ok or packets.dim() != 1 or flits.shape != packets.shape \
-            or max(ids.numel(), packets.numel(), n_links + 1) >= 2**31:
+    batched = packets.dim() == 2 and flits.shape in (packets.shape,
+                                                    packets.shape[-1:])
+    if not plan_ok or not (batched or packets.dim() == 1
+                           and flits.shape == packets.shape) \
+            or max(ids.numel(), packets.shape[-1], n_links + 1) >= 2**31:
         raise ValueError(
             f"noc_link_loads: bad shapes packets {tuple(packets.shape)}, "
             f"flits {tuple(flits.shape)}, ids {tuple(ids.shape)}, link_ptr "
@@ -64,9 +72,18 @@ def noc_link_loads(packets, flits, ids, link_ptr=None, *, n_links: int):
             f"n_links={n_links}")
     if on_cpu("noc_link_loads", *tensors):
         return noc_link_loads_ref(packets, flits, ids, link_ptr, n_links)
-    out = torch.empty((2, n_links), dtype=torch.float32,
+    if packets.dim() == 1:
+        out = torch.empty((2, n_links), dtype=torch.float32,
+                          device=packets.device)
+        return _launch(noc_link_loads, packets[None], flits, ids, link_ptr,
+                       out)
+    rows = torch.cat([packets, packets * flits])
+    out = torch.empty((rows.shape[0], n_links), dtype=torch.float32,
                       device=packets.device)
-    return _launch(noc_link_loads, packets[None], flits, ids, link_ptr, out)
+    for i in range(0, rows.shape[0], MAX_ROWS):
+        _launch(noc_link_loads, rows[i:i + MAX_ROWS], None, ids, link_ptr,
+                out[i:i + MAX_ROWS])
+    return out.reshape(2, packets.shape[0], n_links)
 
 
 def link_loads_csc(weights, src_sorted, link_ptr, *, n_links: int):

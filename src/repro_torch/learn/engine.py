@@ -73,7 +73,11 @@ def _group_key(names, signal: str) -> str:
 class LearnState(Mapping):
     """Per-slot weights and traces: ``state[slot]`` is a dict of views
     (``w`` and ``tr`` for PES, ``w``, ``pre_tr``, ``post_tr`` for STDP)
-    into one stacked (G, ...) tensor per group and key, ``stacks``."""
+    into one stacked (G, ...) tensor per group and key, ``stacks``.
+
+    The stacks may carry leading instance axes before the group axis,
+    (w, G, ...) for a fleet of w instances of one program (``lead``);
+    views and ``stacked`` then keep those axes in front."""
 
     def __init__(self, groups, stacks, _index=None):
         self.groups = groups
@@ -82,9 +86,16 @@ class LearnState(Mapping):
             {s.name: (gi, i) for gi, g in enumerate(groups)
              for i, s in enumerate(g)}, {}, set())
 
+    @property
+    def lead(self) -> int:
+        """Number of instance axes before the group axis: every weight
+        stack is (..., G, n_pre, n_post)."""
+        return self.stacks[0]["w"].dim() - 3 if self.stacks else 0
+
     def __getitem__(self, name):
         gi, i = self._index[0][name]
-        return {k: v[i] for k, v in self.stacks[gi].items()}
+        lead = self.lead
+        return {k: v.select(lead, i) for k, v in self.stacks[gi].items()}
 
     def __iter__(self):
         return iter(self._index[0])
@@ -108,7 +119,7 @@ class LearnState(Mapping):
                                  f"not consecutive slots of one group")
             runs[names] = (gi, i0)
         gi, i0 = runs[names]
-        return self.stacks[gi][key][i0:i0 + len(names)]
+        return self.stacks[gi][key].narrow(self.lead, i0, len(names))
 
     def signal_key(self, names, signal: str) -> str:
         """Record key under which a tick reports ``signal`` (``pre``,
@@ -222,7 +233,10 @@ def make_learn_step(program, device=None):
                      mean_scale(g[0].n_pre * g[0].n_post)))
 
     def step(lstate: LearnState, rec: dict):
-        e = torch.zeros(P, dtype=torch.float32, device=device)
+        # a fleet's state carries leading instance axes: every op below
+        # works on them as they come, one op a group whatever the width
+        lead = lstate.stacks[0]["w"].shape[:lstate.lead]
+        e = torch.zeros(lead + (P,), dtype=torch.float32, device=device)
         updates = {}
         stacks = []
         for g, st, (names, ids, rep, inv, mean_n) in zip(
@@ -239,9 +253,9 @@ def make_learn_step(program, device=None):
                 stacks.append({"w": w, "tr": tr})
                 # event-driven: a zero-error tick dispatches no updates
                 active = (err != 0).any(-1).to(torch.float32)
-                macs = active * float(s0.n_pre * s0.n_post)     # (G,)
+                macs = active * float(s0.n_pre * s0.n_post)  # (..., G)
                 n_exp = float(s0.n_pre)
-                dw = (w - w_old).abs().sum((1, 2)) * mean_n
+                dw = (w - w_old).abs().sum((-2, -1)) * mean_n
             else:
                 post = _signal(rec, names, "post")
                 w, ptr, qtr = stdp_step_fx(w_old, st["pre_tr"],
@@ -251,12 +265,13 @@ def make_learn_step(program, device=None):
                 macs = (pre.to(torch.float32).sum(-1) * s0.n_post
                         + post.to(torch.float32).sum(-1) * s0.n_pre)
                 n_exp = float(s0.n_pre + s0.n_post)
-                dw = ((w - w_old).abs().to(torch.float32).sum((1, 2))
+                dw = ((w - w_old).abs().to(torch.float32).sum((-2, -1))
                       * mean_n / FX_ONE)
             updates[_group_key(names, "dw")] = dw
             e_slot = (mac_dynamic_energy_j(macs) + exp_op_energy_j(n_exp)) \
                 * inv
-            e.index_add_(0, ids, e_slot if rep is None else e_slot[rep])
+            e.index_add_(-1, ids,
+                         e_slot if rep is None else e_slot[..., rep])
         updates["e_learn"] = e
         return lstate.replace(stacks), updates
 

@@ -274,6 +274,96 @@ def make_probe_step(probes: tuple, rec_shapes: dict, n_ticks: int,
     return obs, step, finalize
 
 
+def make_batched_probe_step(probes: tuple, rec_shapes: dict, n_ticks: int,
+                            batch: int, device=None):
+    """``make_probe_step`` over a leading fleet axis of ``batch``
+    independent instances, each with its own local tick counter.
+
+    ``rec_shapes`` maps rec keys to one instance's record shapes
+    (tuples); the accumulators go on ``device`` (the CUDA device
+    unless the caller asks for the CPU).  Returns ``(init, step,
+    finalize)``:
+
+    * ``init``: per probe ``acc`` (batch, *shape), ``cnt`` (batch,) ticks
+      folded into the open window, ``buf`` (batch, n_samples, *shape),
+      and for ``ema`` ``acc_seen`` (batch,), each float32: the
+      reference's layout, so a fleet checkpoint reads across;
+    * ``step(obs, rec, t)``: ``rec`` leaves (batch, ...), ``t`` (batch,)
+      int tensor of each instance's local tick; returns the new obs.
+      Every window decision is a mask on ``t`` and the counts, and each
+      instance writes its sample at its own index, so there is no host
+      branch and no host synchronisation;
+    * ``finalize(obs) -> {name: (batch, n_samples, ...)}``.
+
+    A window opens at an instance's first folded tick (``cnt == 0``), as
+    in the reference's fold, so an instance that joins mid-window folds
+    only the ticks it ran, and ``ema`` seeds with the first tick it saw
+    (``acc_seen``).  Per instance the arithmetic is the unbatched fold's.
+    """
+    from repro_torch import resolve_device
+    device = resolve_device(device)
+    for p in probes:
+        if p.key not in rec_shapes:
+            raise KeyError(
+                f"probe {p.name!r} reads rec key {p.key!r} which this "
+                f"program's tick does not report; available keys: "
+                f"{sorted(rec_shapes)}")
+    rows = torch.arange(batch, device=device)
+    compiled, init = [], {}
+    for p in probes:
+        shape = tuple(rec_shapes[p.key])
+        stride = n_ticks if p.stride is None else min(p.stride, n_ticks)
+        n_samples = n_probe_samples(n_ticks, p.stride)
+
+        def zeros(*s):
+            return torch.zeros((batch,) + s, dtype=torch.float32,
+                               device=device)
+
+        init[p.name] = {"acc": zeros(*shape), "cnt": zeros(),
+                        "buf": zeros(max(n_samples, 1), *shape)}
+        if p.op == "ema":
+            init[p.name]["acc_seen"] = zeros()
+        compiled.append((p, stride, n_samples, (batch,) + (1,) * len(shape)))
+
+    def step(obs, rec, t):
+        new = dict(obs)
+        for p, stride, n_samples, col in compiled:
+            st = obs[p.name]
+            v = rec[p.key].to(torch.float32)
+            cnt = st["cnt"] + 1.0
+            if p.op == "ema":
+                seen = st["acc_seen"].reshape(col) != 0.0
+                acc = torch.where(seen, st["acc"] * (1.0 - p.alpha)
+                                  + p.alpha * v, v)
+            elif p.op == "last":
+                acc = v
+            else:
+                first = st["cnt"].reshape(col) == 0.0
+                acc = torch.where(first, v, torch.maximum(st["acc"], v)
+                                  if p.op == "peak" else st["acc"] + v)
+            emit = acc / cnt.reshape(col) if p.op == "mean" else acc
+            # window end: the stride boundary or the run's final tick
+            is_emit = ((t + 1) % stride == 0) | (t == n_ticks - 1)
+            slot = torch.clamp(t // stride, max=n_samples - 1).long()
+            buf = st["buf"].clone()
+            buf[rows, slot] = torch.where(is_emit.reshape(col), emit,
+                                          st["buf"][rows, slot])
+            if p.op == "ema":
+                new[p.name] = {"acc": acc, "cnt": cnt, "buf": buf,
+                               "acc_seen": torch.ones_like(cnt)}
+            else:
+                new[p.name] = {
+                    "acc": torch.where(is_emit.reshape(col),
+                                       torch.zeros_like(acc), acc),
+                    "cnt": torch.where(is_emit, 0.0, cnt), "buf": buf}
+        return new
+
+    def finalize(obs) -> dict:
+        return {p.name: obs[p.name]["buf"] for p, *_ in compiled}
+
+    return init, step, finalize
+
+
 # ---------------------------------------------------------------------------
 # The link-profile probe set
 # ---------------------------------------------------------------------------

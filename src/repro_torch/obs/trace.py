@@ -13,11 +13,17 @@ the Trace Event JSON format (https://ui.perfetto.dev loads it):
 * per-slot learn-update counters (mean |dw| a tick) when the program is
   plastic.
 
+``fleet_trace_events(payload)`` renders a served fleet's span log
+(``obs.spans``): fleet counter tracks, one thread per fleet slot, one
+per request with its queued and resident phases.
+
 Also a command line, which runs a small board workload and writes its
-trace:
+trace, or renders a span log:
 
     python -m repro_torch.obs.trace --board 2x2 --chip 4x2 \\
         --workload hybrid --ticks 64 --out artifacts/board.json
+    python -m repro_torch.obs.trace --fleet spans.json.gz \\
+        --out artifacts/fleet.json
 """
 from __future__ import annotations
 
@@ -140,11 +146,124 @@ def trace_events(program, recs: dict, t_sys_s: float = 1e-3,
                           "tick_ms": t_sys_s * 1e3}}
 
 
-def write_trace(path, program, recs: dict, t_sys_s: float = 1e-3,
-                pes=None, compress: bool = False) -> Path:
-    """Export a run to ``path`` as Perfetto-loadable trace-event JSON,
-    gzipped when ``compress`` is set or the path ends in ``.gz``."""
-    payload = trace_events(program, recs, t_sys_s=t_sys_s, pes=pes)
+def _counter_at(events: list, pid: int, name: str, samples,
+                unit: str = "") -> None:
+    """Delta-encoded counter track over irregular (ts_us, value) samples
+    — the span-log counters are per-round (variable wall-clock spacing),
+    unlike the tick-indexed series ``_counter`` handles."""
+    label = f"{name} [{unit}]" if unit else name
+    prev = None
+    for ts, v in samples:
+        v = float(v)
+        if prev is not None and v == prev:
+            continue
+        events.append({"ph": "C", "pid": pid, "tid": 0, "name": label,
+                       "ts": float(ts), "args": {name: v}})
+        prev = v
+
+
+def fleet_trace_events(payload: dict) -> dict:
+    """Render a served-fleet span log (``SpanLog.payload()`` /
+    ``load_spans``) as trace events.
+
+    Three processes: *fleet* (queue-depth / width / active / batched
+    tick-time / round-energy counter tracks + SLO-violation instants),
+    *slots* (one thread per fleet slot, an "X" slice per resident round
+    named by the session occupying it), and *requests* (one thread per
+    session: its queued and resident phases as slices, preempt/complete
+    as instant markers) — the request-lifecycle view of the serve.
+    """
+    events: list = []
+    counters = payload.get("counters", [])
+    spans = payload.get("events", [])
+
+    FLEET_PID, SLOT_PID, REQ_PID = 0, 1, 2
+    events.append({"ph": "M", "pid": FLEET_PID, "name": "process_name",
+                   "args": {"name": "fleet"}})
+    events.append({"ph": "M", "pid": SLOT_PID, "name": "process_name",
+                   "args": {"name": "slots"}})
+    events.append({"ph": "M", "pid": REQ_PID, "name": "process_name",
+                   "args": {"name": "requests"}})
+
+    # -- fleet counter tracks (per-round samples, wall-clock spaced) -------
+    tracks = (("queue_depth", ""), ("width", ""), ("n_active", ""),
+              ("tick_us", "us"), ("energy_j", "J"), ("completed", ""))
+    for key, unit in tracks:
+        samples = [(c["t_s"] * 1e6, c[key]) for c in counters if key in c]
+        if samples:
+            _counter_at(events, FLEET_PID, key, samples, unit=unit)
+
+    # -- per-slot round slices + per-request lifecycle ---------------------
+    slots_seen: set = set()
+    queued_at: dict = {}           # sid -> enqueue t_s
+    resident_at: dict = {}         # sid -> admit/resume t_s
+    req_tids: dict = {}            # sid -> stable tid on the request proc
+
+    def req_tid(sid):
+        if sid not in req_tids:
+            req_tids[sid] = len(req_tids)
+            events.append({"ph": "M", "pid": REQ_PID,
+                           "tid": req_tids[sid], "name": "thread_name",
+                           "args": {"name": f"sid {sid}"}})
+        return req_tids[sid]
+
+    for e in spans:
+        kind, sid = e["kind"], e["sid"]
+        t_us = e["t_s"] * 1e6
+        args = e.get("args", {})
+        if kind == "slo":
+            events.append({"ph": "i", "pid": FLEET_PID, "tid": 0,
+                           "name": f"SLO {args.get('rule', '?')}",
+                           "ts": t_us, "s": "p", "cat": "slo",
+                           "args": args})
+            continue
+        if sid < 0:
+            continue
+        if kind == "enqueue":
+            queued_at[sid] = e["t_s"]
+            req_tid(sid)
+        elif kind in ("admit", "resume"):
+            t0 = queued_at.pop(sid, None)
+            if t0 is not None and e["t_s"] > t0:
+                events.append({"ph": "X", "pid": REQ_PID,
+                               "tid": req_tid(sid), "cat": "queued",
+                               "name": "queued", "ts": t0 * 1e6,
+                               "dur": (e["t_s"] - t0) * 1e6})
+            resident_at[sid] = e["t_s"]
+        elif kind == "round":
+            slot = int(args.get("slot", 0))
+            if slot not in slots_seen:
+                slots_seen.add(slot)
+                events.append({"ph": "M", "pid": SLOT_PID, "tid": slot,
+                               "name": "thread_name",
+                               "args": {"name": f"slot {slot}"}})
+            start = args.get("start_s", e["t_s"])
+            dur = max(args.get("dur_s", 0.0), 1e-7)
+            events.append({"ph": "X", "pid": SLOT_PID, "tid": slot,
+                           "cat": "round", "name": f"sid {sid}",
+                           "ts": start * 1e6, "dur": dur * 1e6,
+                           "args": {"width": args.get("width"),
+                                    "ticks": args.get("ticks")}})
+        elif kind in ("preempt", "suspend", "complete"):
+            t0 = resident_at.pop(sid, None)
+            if t0 is not None and e["t_s"] > t0:
+                events.append({"ph": "X", "pid": REQ_PID,
+                               "tid": req_tid(sid), "cat": "resident",
+                               "name": "resident", "ts": t0 * 1e6,
+                               "dur": (e["t_s"] - t0) * 1e6})
+            events.append({"ph": "i", "pid": REQ_PID, "tid": req_tid(sid),
+                           "name": kind, "ts": t_us, "s": "t",
+                           "cat": "lifecycle", "args": args})
+
+    meta = dict(payload.get("meta", {}))
+    meta["n_requests"] = len(req_tids)
+    return {"traceEvents": events, "displayTimeUnit": "ms",
+            "otherData": meta}
+
+
+def _write_payload(path, payload: dict, compress: bool = False) -> Path:
+    """Write a trace-event payload, gzipped when ``compress`` is set or
+    the path already ends in ``.gz`` (Perfetto loads both)."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     blob = json.dumps(payload)
@@ -159,8 +278,24 @@ def write_trace(path, program, recs: dict, t_sys_s: float = 1e-3,
     return path
 
 
+def write_trace(path, program, recs: dict, t_sys_s: float = 1e-3,
+                pes=None, compress: bool = False) -> Path:
+    """Export a run to ``path`` as Perfetto-loadable trace-event JSON,
+    gzipped when ``compress`` is set or the path ends in ``.gz``."""
+    payload = trace_events(program, recs, t_sys_s=t_sys_s, pes=pes)
+    return _write_payload(path, payload, compress=compress)
+
+
+def write_fleet_trace(path, span_payload: dict,
+                      compress: bool = False) -> Path:
+    """Export a served-fleet span log as Perfetto trace-event JSON."""
+    return _write_payload(path, fleet_trace_events(span_payload),
+                          compress=compress)
+
+
 def main(argv=None) -> int:
-    """Run a small board workload and export its Perfetto trace."""
+    """Run a small board workload and export its Perfetto trace, or,
+    with ``--fleet SPANLOG``, render a recorded serving span log."""
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__)
@@ -173,10 +308,20 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device)")
+    ap.add_argument("--fleet", default=None, metavar="SPANLOG",
+                    help="render a serving span log (SpanLog.write "
+                         "output, .json or .json.gz) instead of running "
+                         "a board workload")
     ap.add_argument("--gzip", action="store_true",
                     help="gzip the output trace (.gz appended if absent)")
     ap.add_argument("--out", default="artifacts/board.perfetto-trace.json")
     args = ap.parse_args(argv)
+
+    if args.fleet is not None:
+        from repro_torch.obs.spans import load_spans
+        write_fleet_trace(args.out, load_spans(args.fleet),
+                          compress=args.gzip)
+        return 0
 
     from repro_torch import resolve_device
     from repro_torch.board import BoardSpec, compile_board

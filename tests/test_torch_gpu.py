@@ -184,6 +184,58 @@ def test_noc_link_loads_kernel(cuda, route, n_src, n_links, nnz):
     assert float(want[1].sum()) > float(want[0].sum())
 
 
+@pytest.mark.parametrize("route", ["padded", "csc"])
+@pytest.mark.parametrize("w", [1, 3, 64])
+def test_noc_link_loads_kernel_fleet_rows(cuda, route, w):
+    """A fleet's (w, P) packets, with the run's (P,) flits and with
+    per-instance (w, P) flits: the 2w rows in one launch, equal to the
+    plain version."""
+    n_src, n_links, nnz = NOC_CASES[0]
+    rng = np.random.default_rng(w)
+    link_ids = rng.integers(0, n_links, nnz).astype(np.int32)
+    src = rng.integers(0, n_src, nnz)
+    sinc = SparseIncidence.from_rows(
+        [np.unique(link_ids[src == p]) for p in range(n_src)], n_links,
+        np.zeros(n_src, np.int32))
+    src_sorted, link_ptr = sinc.csc
+    plan = ((torch.from_numpy(sinc.link_major), None) if route == "padded"
+            else (torch.from_numpy(src_sorted),
+                  torch.from_numpy(link_ptr.astype(np.int32))))
+    pk = torch.from_numpy(rng.integers(0, 201, (w, n_src))
+                          .astype(np.float32))
+    for fl in (torch.from_numpy(rng.integers(1, 5, n_src)
+                                .astype(np.float32)),
+               torch.from_numpy(rng.integers(1, 5, (w, n_src))
+                                .astype(np.float32))):
+        want = noc_link_loads_ref(pk, fl, *plan, n_links)
+        before = noc_link_loads.launches
+        got = noc_link_loads(pk.to(cuda), fl.to(cuda),
+                             *(None if t is None else t.to(cuda)
+                               for t in plan), n_links=n_links)
+        torch.cuda.synchronize()
+        assert noc_link_loads.launches == before + 1
+        assert got.shape == (2, w, n_links)
+        assert torch.equal(got.cpu(), want)
+
+
+def test_event_link_loads_kernel_fleet_rows(cuda):
+    """Event-mode loads of a fleet: (2, w, P) packet and flit rows in one
+    launch, equal to the plain version."""
+    rng = np.random.default_rng(6)
+    n_src, n_links, L, w = 4096, 3968, 16, 8
+    rows = rng.integers(0, n_links, (n_src, L)).astype(np.int32)
+    rows[rng.random((n_src, L)) < 0.3] = n_links
+    wts = torch.from_numpy(rng.integers(0, 5, (2, w, n_src))
+                           .astype(np.float32))
+    rows = torch.from_numpy(rows)
+    before = event_link_loads.launches
+    got = event_link_loads(None, wts.to(cuda), rows.to(cuda),
+                           n_links=n_links)
+    assert event_link_loads.launches == before + 1
+    assert torch.equal(got.cpu(), event_link_loads_ref(None, wts, rows,
+                                                       n_links))
+
+
 # syn_accum inputs: (P, spike words); the kernel gives a block up to 16 PEs,
 # 4 of 1001 and 16 of 4099, so neither P fills its last block
 def _words(rng, P, case):

@@ -38,7 +38,15 @@ def test_port_imports_without_jax():
             "repro_torch.routeopt", "repro_torch.core.packets",
             "repro_torch.learn", "repro_torch.learn.engine",
             "repro_torch.learn.adaptive", "repro_torch.obs.probes",
-            "repro_torch.obs.trace"} <= set(_port_modules())
+            "repro_torch.obs.trace", "repro_torch.obs.spans",
+            "repro_torch.obs.metrics", "repro_torch.obs.health",
+            "repro_torch.ckpt", "repro_torch.ckpt.checkpoint",
+            "repro_torch.serve", "repro_torch.serve.queue",
+            "repro_torch.serve.fleet", "repro_torch.serve.fleet.engine",
+            "repro_torch.serve.fleet.scenarios",
+            "repro_torch.serve.fleet.sessions",
+            "repro_torch.serve.fleet.traffic", "repro_torch.launch.fleet",
+            "repro_torch.core.hybrid"} <= set(_port_modules())
 
 
 def test_port_sources_do_not_name_the_reference():

@@ -170,11 +170,49 @@ farm, the DNN pipeline), and checks what comes out:
               (32 heads of 128, bfloat16) through flash_attention_kernel
               against its plain version (atol 4e-3, rtol 2^-7: one bf16
               rounding), and float32 at S = 1024 (atol 2e-5, rtol 1e-4).
+15. route_opt — the profile-guided route optimiser
+              (``routeopt.optimize_routes``) on the reference board
+              benchmark's --route-opt rows (hybrid farm boards of 4x12
+              and 2x2 chips of 4x2 QPEs, n_ticks 64, up to 4 iterations;
+              the 2x2 row again in event mode on the sparse NoC): each
+              row's baseline and optimised peak and mean chip-to-chip
+              flits, peak on-chip flits, iterations, convergence and
+              improvement equal to BENCH_pr9.json's; the optimised program
+              against the fixed-route one: equal check_delivery
+              signatures, every record but the NoC's bitwise over a run of
+              each on the sparse NoC (noc_link_loads on each routed plan),
+              whose per-link peak equals the optimiser's profile; the
+              optimise, compile and measure seconds, µs a tick of both.
+16. lm_serve — GLM-4-9B at its published widths and depth (40 layers,
+              d_model 4096, 32 x 128 heads, KV 2, d_ff 13696, vocab
+              151552; 9.40 B parameters drawn on the card from a seed,
+              bf16) through ``ServeEngine.run``: stream (a) the reference
+              launcher's defaults (12 requests, prompts of 16, 16 new
+              tokens, max_seq 64), its schedule equal to the reference
+              launcher's; stream (b) 4 prompts of 4096 tokens; the flash
+              kernel 40 times a prefill batch; every request its tokens,
+              in the vocabulary; incremental decode against the full
+              forward: with float32 activations relative max error
+              < 1e-4; in bf16, as served, the decode's distance from the
+              float32 full forward within 1.5 times the bf16 full
+              forward's own and layer 0's cache within 2^-8 of the full
+              forward's k and v, a gate that two deliberate faults (a
+              query head meeting the wrong KV head, the cache written
+              one slot late) must fail in the same run; the reference
+              test's relation (< 0.02 at its smoke widths) reported
+              beside it; a decode step's
+              launches, device busy time and idle share; a float32 twin
+              of 2 layers at full width, the card (TF32 off) against the
+              card machine's CPU; prefill ms a batch, decode ms a step,
+              tokens/s a stream.
     The kernel rows of these paths (mac_conv2d at VGG-16 conv3, at
     batch 32 of it, at ResNet-50's 3x3 and MobileNetV2's 1x1 layers,
-    fx_log at 2^20 values, flash_attention_kernel at the prefill shape
-    and at float32 S = 1024) are timed as in phase 9; the two integer
-    kernels are held bitwise, flash at its tolerance; each second shape
+    fx_log at 2^20 values, flash_attention_kernel at the LM prefill's
+    layer-0 input, at the attention phase's batch 1 and at float32
+    S = 1024) are timed as in phase 9; the two integer
+    kernels are held bitwise, flash at its tolerance (on the LM input,
+    element by element: 2^-8 (sum_k p_k |v_k| + |got|) + 2^-7 |want|, the
+    kernel's bf16 p and the two outputs' roundings); each second shape
     is a kernel_check line of its own, nested in its kernel's entry of
     the kernels line.  mac_conv2d's rows also time the kernel that the
     shape's route does not take, and a ``conv_routes`` line times both
@@ -182,7 +220,8 @@ farm, the DNN pipeline), and checks what comes out:
     device kernels of the SDPA call they are compared with.
 
 Launch counters are zeroed just before each path's run (phases 3-8 and
-11-14, and each learning path, the probed run and each serving row; the
+11-16, and each learning path, the probed run, each serving row and
+each route_opt row; lm_serve's two streams are one path; the
 graph's build is part of the path, except in phase 5, which reuses phase
 4's net) and read just after; a kernel of that path that never launched
 fails the run.  Every phase prints one JSON line; any failed check
@@ -263,6 +302,11 @@ from repro_torch.serve.fleet import (SCENARIOS, FleetEngine,  # noqa: E402
                                      PoissonTraffic, Session,
                                      adaptive_scenario, stim_windows)
 from repro_torch.serve.fleet.engine import broadcast_state  # noqa: E402
+from repro_torch import configs as lm_configs  # noqa: E402
+from repro_torch.models import layers as lm_layers  # noqa: E402
+from repro_torch.models import transformer as lm  # noqa: E402
+from repro_torch.routeopt import check_delivery, optimize_routes  # noqa: E402
+from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA datasheet): HBM bandwidth, the
 # float32 rate outside the tensor cores and the dense int8, bf16 and TF32
@@ -341,6 +385,65 @@ SERVE_EXACT = ("n_spk", "r")
 # (tests/test_serve_fleet.py): adaptive 1 x 32, rounds of 32 ticks
 SERVE_SMALL_TC, SERVE_SMALL_N = 32, 32
 SERVE_PROFILE_WIDTHS = (16, 32, 64)
+# the profile-guided route optimiser on the reference board benchmark's
+# --route-opt rows (benchmarks/board_scale.py:42-46, 105-140): the farm
+# board of 4x12 chips of 4x2 QPEs and of 2x2 chips, n_ticks 64, up to 4
+# iterations; each row's trajectory as BENCH_pr9.json has it (the
+# reference on the CPU gives the same values at this tree): (peak
+# chip-to-chip flits, mean chip-to-chip flits, peak on-chip flits) of the
+# baseline and of the optimised program, iterations, converged,
+# improvement.  The 2x2 row runs twice, the second time in event mode on
+# the sparse NoC (event_link_loads)
+ROUTE_BENCH = "BENCH_pr9.json"
+ROUTE_TICKS, ROUTE_ITERS = 64, 4
+ROUTE_ROWS = (("board_hybrid_4x12chips_1536pe_opt", "4x12", {}),
+              ("board_hybrid_2x2chips_128pe_opt", "2x2", {}),
+              ("board_hybrid_2x2chips_128pe_opt", "2x2",
+               {"exec_mode": "event", "noc_mode": "sparse"}))
+# the values of a row held to the reference's, and how many decimals
+# the row keeps of each
+ROUTE_KEYS = {"peak_xlink_flits": 0, "base_peak_xlink_flits": 0,
+              "mean_xlink_flits": 4, "base_mean_xlink_flits": 4,
+              "peak_onchip_flits": 0, "base_peak_onchip_flits": 0,
+              "iters": 0, "converged": 0, "improvement": 4}
+# record keys that depend on routing (the NoC's); every other record
+# must be bitwise equal under any legal routing
+ROUTE_NOC_KEYS = ("link_load", "link_flits", "e_noc", "e_noc_xchip",
+                  "load_xchip", "flits_xchip", "touched_links")
+# LM serving: GLM-4-9B at its published widths and depth, random weights
+# drawn on the card from a seed, bf16.  Stream (a) is the reference
+# launcher's defaults (src/repro/launch/serve.py); its schedule is what
+# `python -m repro.launch.serve --smoke` prints on the CPU (the schedule
+# depends on the queue alone).  Stream (b): 4 prompts of 4096 tokens, the
+# attention phase's prefill shape at batch 4
+LM_ARCH, LM_SEED = "glm4-9b", 0
+LM_STREAMS = (
+    ("a", dict(requests=12, prompt_len=16, max_new=16, max_seq=64),
+     dict(rounds=2, batch_hist=[8, 4], tokens=180)),
+    ("b", dict(requests=4, prompt_len=4096, max_new=16, max_seq=4096 + 16),
+     dict(rounds=1, batch_hist=[4], tokens=60)),
+)
+# decode against the full forward (tests/test_models_decode.py's
+# relation): batch, prompt, decode steps, the relative max error that
+# test allows at smoke widths, and the float32 activations' limit
+LM_DECODE_CHECK, LM_DECODE_REL, LM_DECODE_F32_REL = (2, 16, 8), 0.02, 1e-4
+# the served bf16 decode: its logits' relative max distance from the
+# float32 full forward (same weights, the reference's dense model
+# attention) at most LM_DECODE_BF16_FACTOR times the bf16 full forward's
+# own distance from it (measured on the same inputs; on the CPU, on the
+# reference's weights at 8 layers of d_model 1024 and 4 of 4096, the
+# ratio is 0.94 and 1.05 in the port and 1.00 and 0.98 in the reference,
+# and a query head meeting the wrong KV head or the cache written one
+# slot late give 2.4-63: tests/test_torch_lm.py), and layer 0's cache
+# within one bf16 step (2^-8 of its largest value) of the full forward's
+# k and v.  Both faults are run too, and must fail the gate
+LM_DECODE_BF16_FACTOR, LM_CACHE0_REL = 1.5, 2.0 ** -8
+LM_FAULTS = ("gqa_head_map", "cache_slot")
+# the float32 twin: 2 layers at full width, card (TF32 off; float32 flash
+# is the 3xTF32 kernel) against the card machine's CPU, prefill logits at
+# this relative max error
+LM_TWIN_LAYERS, LM_TWIN_SHAPE, LM_TWIN_REL = 2, (2, 16), 1e-4
+LM_PROFILE_STEPS = 5
 GEMM_SAMPLE = 4096              # the int8 GEMM sample: 4096^3
 FLOAT_RTOL, FLOAT_ATOL, ENERGY_RTOL = 1e-5, 1e-6, 1e-6
 L2_FLUSH_BYTES = 256 << 20      # five times the H100's 50 MB L2
@@ -561,7 +664,9 @@ def kernel_row(rows: list, flush, name, source, replaces, call, plain, got,
                ops_per_s=CUDA_CORE_OPS_PER_S, tol=None, prof_iters=20,
                cold_call=None, **extra) -> None:
     """Hold ``name``'s kernel against its plain version (bitwise, or at
-    ``tol`` = (atol, rtol)) on ``got``/``want``, time it, its plain
+    ``tol`` = (atol, rtol): |got - want| <= atol + rtol |want| element by
+    element, atol a number or a tensor of want's shape) on
+    ``got``/``want``, time it, its plain
     version and ``library`` (one PyTorch call computing the same
     function), and append and print its kernel_check row.  ``cold_call``,
     where given, takes ``call``'s place in the cold timing (``prof_iters``
@@ -571,10 +676,13 @@ def kernel_row(rows: list, flush, name, source, replaces, call, plain, got,
     if tol is None:
         check(torch.equal(got, want), f"{name}: kernel != plain version")
     else:
-        check(torch.allclose(got.float(), want.float(), atol=tol[0],
-                             rtol=tol[1]),
+        atol, rtol = tol
+        check(bool(((got.float() - want.float()).abs()
+                     <= atol + rtol * want.float().abs()).all()),
               f"{name}: kernel != plain version at atol, rtol {tol}: "
               f"max abs err {err}")
+        if torch.is_tensor(atol):
+            tol = ("per element", rtol)
     b_ms, b_by = bound_ms(nbytes, nops, ops_per_s)
     b_bytes, b_ops = bound_parts(nbytes, nops, ops_per_s)
     cold_fn = cold_call or call
@@ -2294,6 +2402,401 @@ def phase_serve(dev) -> dict:
     return paths
 
 
+def route_values(res) -> dict:
+    """A ``RouteOptResult`` as the reference benchmark's ``_opt`` row."""
+    base, opt = res.baseline, res.profile
+    return {"peak_xlink_flits": opt.peak_xlink,
+            "base_peak_xlink_flits": base.peak_xlink,
+            "mean_xlink_flits": opt.mean_xlink,
+            "base_mean_xlink_flits": base.mean_xlink,
+            "peak_onchip_flits": opt.peak_onchip,
+            "base_peak_onchip_flits": base.peak_onchip,
+            "iters": res.iterations, "converged": int(res.converged),
+            "improvement": res.improvement}
+
+
+def route_records_vs_baseline(res, base_prog, dev) -> dict:
+    """The optimised program against the fixed-route compile: equal
+    delivery signatures (``check_delivery``), and every record but the
+    NoC's bitwise over a run of each on the sparse NoC (noc_link_loads on
+    each routed board plan), whose per-link peak flits must equal the
+    optimiser's measured profile."""
+    t0 = time.perf_counter()
+    sig = check_delivery(res.program)
+    check(sig == check_delivery(base_prog),
+          "route_opt: delivery signatures differ")
+    sig_s = time.perf_counter() - t0
+    ra = ChipSim(res.program, noc_mode="sparse", device=dev).run(ROUTE_TICKS)
+    rb = ChipSim(base_prog, noc_mode="sparse", device=dev).run(ROUTE_TICKS)
+    neuron = sorted(k for k in ra if not k.startswith(ROUTE_NOC_KEYS))
+    check(set(ra) == set(rb), "route_opt: record keys differ")
+    for k in neuron:
+        check(torch.equal(ra[k], rb[k]), f"route_opt: record {k} differs")
+    check(np.array_equal(ra["link_flits"].amax(0).cpu().numpy(),
+                         res.profile.peak),
+          "route_opt: sparse NoC peak != the optimiser's profile")
+    return dict(signatures_equal=len(sig), check_delivery_s=sig_s,
+                neuron_records_bitwise=neuron,
+                sparse_peak_equals_profile=True)
+
+
+def phase_route_opt(dev) -> dict:
+    """The profile-guided route optimiser (``routeopt.optimize_routes``)
+    on the reference board benchmark's --route-opt rows: each row's
+    baseline and optimised peaks and means, iterations and convergence
+    equal to BENCH_pr9.json's; the optimised program against the
+    fixed-route one (``route_records_vs_baseline``); per iteration the
+    compile and measure seconds, and µs a tick of both programs."""
+    t_phase = time.perf_counter()
+    bench = {r["name"]: r["values"] for r in json.loads(
+        (ROOT / ROUTE_BENCH).read_text())["rows"]}
+    paths, rows = {}, []
+    for name, grid, sim_kw in ROUTE_ROWS:
+        board = BoardSpec.parse(grid, chip=BOARD_CHIP)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = optimize_routes(hybrid_farm_board_graph(board, device=dev),
+                              board, n_ticks=ROUTE_TICKS,
+                              max_iters=ROUTE_ITERS, sim_kw=sim_kw,
+                              device=dev)
+        torch.cuda.synchronize()
+        optimize_s = time.perf_counter() - t0
+        counts = launch_counts()
+        label = f"route_opt_{grid}" + ("_event" if sim_kw else "")
+        paths[label] = counts
+        check_launched(counts, ("lif_step", "fx_exp", "mac_gemm") + (
+            ("event_link_loads",) if sim_kw else ()), label)
+        got = route_values(res)
+        want = bench[name]
+        for k, nd in ROUTE_KEYS.items():
+            check(round(float(got[k]), nd) == round(float(want[k]), nd),
+                  f"{label}: {k} {got[k]} != {ROUTE_BENCH} {want[k]}")
+        base_prog = compile_board(hybrid_farm_board_graph(board, device=dev),
+                                  board)
+        checks = route_records_vs_baseline(res, base_prog, dev)
+        tick_us = {which: steady_us(ChipSim(prog, device=dev, **sim_kw),
+                                    ROUTE_TICKS)
+                   for which, prog in (("baseline", base_prog),
+                                       ("optimised", res.program))}
+        rows.append(dict(
+            row=name, sim_kw=sim_kw, chips=board.n_chips, pes=board.n_pes,
+            ports=res.program.board.ports_per_edge, values=got,
+            reference=f"{ROUTE_BENCH} {name}: equal", optimize_s=optimize_s,
+            reference_optimize_s=want.get("optimize_s"),
+            per_iteration=[{k: r[k] for k in ("iter", "compile_s",
+                                              "measure_s", "cut_flits")}
+                           for r in res.trajectory],
+            trajectory=res.trajectory, launches=counts,
+            route=dict(tree_orient=len(res.route.tree_orient),
+                       chip_orient=len(res.route.chip_orient),
+                       ports=len(res.route.ports)),
+            tick_us=tick_us, **checks))
+        del res, base_prog
+    emit("route_opt", phase_s=time.perf_counter() - t_phase, rows=rows)
+    return paths
+
+
+def lm_requests(cfg, n: int, prompt_len: int, max_new: int, seed: int):
+    """The launcher's stream: prompts from numpy's generator."""
+    rng = np.random.default_rng(seed)
+    return [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                               prompt_len, dtype=np.int32),
+                    max_new_tokens=max_new) for i in range(n)]
+
+
+def lm_stream(cfg, model, spec: dict, want: dict, seed: int, what: str):
+    """Serve one stream through ``ServeEngine.run`` and check it: the
+    schedule, ``num_layers`` flash launches each prefill batch, every
+    request ``max_new`` tokens in [0, vocab)."""
+    eng = ServeEngine(cfg, model, max_seq=spec["max_seq"])
+    reqs = lm_requests(cfg, spec["requests"], spec["prompt_len"],
+                       spec["max_new"], seed)
+    for r in reqs:
+        eng.submit(r)
+    per_batch = []
+    run_batch = eng._run_batch
+
+    def counted(batch):
+        n0 = flash_attention_kernel.launches
+        run_batch(batch)
+        per_batch.append(flash_attention_kernel.launches - n0)
+    eng._run_batch = counted
+    t0 = time.perf_counter()
+    stats = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {k: stats[k] for k in want}
+    check(got == want, f"lm_serve {what}: schedule {got} != {want}")
+    check(per_batch == [cfg.num_layers] * stats["rounds"],
+          f"lm_serve {what}: flash launches a prefill batch {per_batch}")
+    for r in reqs:
+        check(len(r.out_tokens) == spec["max_new"]
+              and all(0 <= t < cfg.vocab_size for t in r.out_tokens),
+              f"lm_serve {what}: request {r.rid} tokens {r.out_tokens}")
+    generated = sum(len(r.out_tokens) for r in reqs)
+    dec = np.asarray(eng.timings["decode_s"]) * 1e3
+    return reqs, dict(
+        spec=spec, schedule=got, flash_launches_per_prefill=per_batch,
+        wall_s=wall, prefill_ms=[s * 1e3 for s in eng.timings["prefill_s"]],
+        decode_ms_p50=float(np.percentile(dec, 50)),
+        decode_ms_mean=float(dec.mean()), decode_steps=len(dec),
+        tokens_generated=generated, tokens_per_s=generated / wall,
+        decode_tokens_per_s=stats["tokens"] / (dec.sum() / 1e3))
+
+
+def lm_decode_profile(cfg, model, dev, batch: int, prompt: int,
+                      max_seq: int) -> dict:
+    """One decode step at stream (a)'s widest batch under the profiler:
+    launches, device busy µs and the idle share of the step's wall time
+    (which the profiler itself slows), beside its CUDA-event time and the
+    bound of reading every weight and the cache once."""
+    toks = torch.zeros((batch, prompt), dtype=torch.long, device=dev)
+    with torch.no_grad():
+        _, caches = lm.prefill(cfg, model, {"tokens": toks}, max_seq)
+        one = {"tokens": toks[:, :1]}
+        step = lambda: lm.decode_step(cfg, model, caches, prompt, one)
+        kernels, wall_us = device_kernels(step, LM_PROFILE_STEPS)
+        step_ms = cuda_ms(step, LM_PROFILE_STEPS)
+    launches = sum(n for n, _ in kernels.values()) / LM_PROFILE_STEPS
+    busy_us = sum(us for _, us in kernels.values()) / LM_PROFILE_STEPS
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    cache = sum(c[k].numel() * c[k].element_size() for c in caches
+                for k in c)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:5]
+    return dict(batch=batch, position=prompt, launches_per_step=launches,
+                busy_us=busy_us, wall_us=wall_us / LM_PROFILE_STEPS,
+                idle_share=1.0 - busy_us / (wall_us / LM_PROFILE_STEPS),
+                step_ms=step_ms, bound_ms=bound_ms(weights + cache)[0],
+                top_kernels=[dict(name=k, launches=n / LM_PROFILE_STEPS,
+                                  us=us / LM_PROFILE_STEPS)
+                             for k, (n, us) in top])
+
+
+def rel_max(got, want) -> float:
+    """Relative max error: max |got - want| over max |want|."""
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max()) / (float(want.abs().max()) + 1e-6)
+
+
+def lm_full_dense(cfg, model, toks, dtype):
+    """The full-sequence forward with the reference's model attention at
+    these lengths (``attention_dense``: p rounded to v's dtype before
+    P V) in every layer: its logits and each layer's k and v."""
+    L = lm_layers
+    qpos = torch.arange(toks.shape[1], device=toks.device)
+    x = lm.embed_input(cfg, model, {"tokens": toks}, qpos, dtype)
+    kv = []
+    for bp in model["blocks"]:
+        h = L.apply_norm(cfg, bp["norm1"], x)
+        q, k, v = L.attn_qkv(cfg, bp["attn"], h, qpos)
+        kv.append((k, v))
+        x = x + L.attn_out(cfg, bp["attn"],
+                           L.attention_dense(q, k, v, qpos, qpos))
+        x = x + L.mlp_apply(cfg, bp["mlp"],
+                            L.apply_norm(cfg, bp["norm2"], x))
+    x = L.apply_norm(cfg, model["final_norm"], x)
+    return lm.logits_fn(cfg, model, x), kv
+
+
+def lm_decode(cfg, model, toks, P: int, dtype):
+    """``prefill`` of the first P tokens, then ``decode_step`` over the
+    rest: the logits at positions P-1.. and the caches."""
+    S = toks.shape[1]
+    lg, caches = lm.prefill(cfg, model, {"tokens": toks[:, :P]}, S,
+                            dtype=dtype)
+    outs = [lg[:, 0]]
+    for t in range(P, S):
+        lg, caches = lm.decode_step(cfg, model, caches, t,
+                                    {"tokens": toks[:, t:t + 1]}, dtype=dtype)
+        outs.append(lg[:, 0])
+    return torch.stack(outs, 1), caches
+
+
+@contextlib.contextmanager
+def lm_fault(kind):
+    """A deliberate decode fault, for the gate to catch: ``gqa_head_map``
+    (query head h meets KV head h mod KH, not h // G) or ``cache_slot``
+    (each step's k and v written one slot late)."""
+    L = lm_layers
+    name = {"gqa_head_map": "attention_dense", "cache_slot": "attn_apply",
+            None: None}[kind]
+    if name is None:
+        yield
+        return
+    orig = getattr(L, name)
+
+    def gqa(q, k, v, qpos, kpos, **kw):
+        B, S, KH, G, D = q.shape
+        return orig(q.reshape(B, S, G, KH, D).transpose(2, 3), k, v, qpos,
+                    kpos, **kw)
+
+    def slot(cfg, p, x, qpos, *, cache=None, kv_len=None):
+        return orig(cfg, p, x, qpos, cache=cache,
+                    kv_len=None if kv_len is None else kv_len + 1)
+    setattr(L, name, gqa if kind == "gqa_head_map" else slot)
+    try:
+        yield
+    finally:
+        setattr(L, name, orig)
+
+
+def lm_decode_vs_full(cfg, model, dev) -> dict:
+    """Incremental decode against the full forward (the relation of
+    tests/test_models_decode.py).  float32 activations: against the
+    served full forward (the float32 flash kernel), below
+    LM_DECODE_F32_REL.  bf16, as served: against the float32 full forward,
+    within LM_DECODE_BF16_FACTOR of the bf16 full forward's own distance
+    from it, and layer 0's cache within LM_CACHE0_REL of the full
+    forward's k and v; each of LM_FAULTS must fail that gate.  The
+    reference's relation (decode against the bf16 full forward, both with
+    its dense attention) is reported beside 0.02, and against the served
+    bf16 forward (flash)."""
+    B, P, n = LM_DECODE_CHECK
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (B, P + n))).to(dev)
+    with torch.no_grad():
+        dec, _ = lm_decode(cfg, model, toks, P, torch.float32)
+        f32 = dict(rel=rel_max(dec, model(toks, dtype=torch.float32)[
+            :, P - 1:]), limit=LM_DECODE_F32_REL)
+        check(f32["rel"] < LM_DECODE_F32_REL,
+              f"lm_serve: float32 decode vs full forward {f32}")
+        want, kv = lm_full_dense(cfg, model, toks, torch.bfloat16)
+        truth = lm_full_dense(cfg, model, toks, torch.float32)[0][:, P - 1:]
+        want = want[:, P - 1:]
+        served = model(toks)[:, P - 1:]
+        noise = rel_max(want, truth)
+        readings = {}
+        for fault in (None,) + LM_FAULTS:
+            with lm_fault(fault):
+                dec, caches = lm_decode(cfg, model, toks, P, torch.bfloat16)
+            vs_f32 = rel_max(dec, truth)
+            readings[fault or "sound"] = dict(
+                vs_float32=vs_f32, ratio=vs_f32 / max(noise, 1e-30),
+                cache0=max(rel_max(caches[0][c], kv[0][i])
+                           for i, c in enumerate("kv")),
+                reference_relation=rel_max(dec, want),
+                served_relation=rel_max(dec, served))
+    passes = lambda r: (r["ratio"] < LM_DECODE_BF16_FACTOR
+                        and r["cache0"] <= LM_CACHE0_REL)
+    bf16 = dict(full_forward_vs_float32=noise, factor=LM_DECODE_BF16_FACTOR,
+                cache0_limit=LM_CACHE0_REL, readings=readings,
+                within_reference_relation=readings["sound"][
+                    "reference_relation"] < LM_DECODE_REL)
+    check(passes(readings["sound"]),
+          f"lm_serve: bf16 decode vs the float32 forward {bf16}")
+    for fault in LM_FAULTS:
+        check(not passes(readings[fault]),
+              f"lm_serve: the bf16 decode gate misses {fault}: {bf16}")
+    return {"float32": f32, "bfloat16": bf16}
+
+
+def lm_twin(cfg, dev) -> dict:
+    """The float32 twin: ``LM_TWIN_LAYERS`` layers at full width, weights
+    drawn on the CPU and copied to the card; prefill logits of the card
+    (TF32 off, the 3xTF32 flash kernel) against the CPU's (plain
+    versions)."""
+    import copy
+    twin = dataclasses.replace(cfg, num_layers=LM_TWIN_LAYERS)
+    t0 = time.perf_counter()
+    cpu_model = lm.init_params(twin, dtype=torch.float32, device="cpu",
+                               seed=LM_SEED)
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    init_s = time.perf_counter() - t0
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, LM_TWIN_SHAPE))
+    S = LM_TWIN_SHAPE[1]
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 must be off")
+    with torch.no_grad():
+        n0 = flash_attention_kernel.launches
+        got, _ = lm.prefill(twin, card_model, {"tokens": toks.to(dev)}, S,
+                            dtype=torch.float32)
+        torch.cuda.synchronize()
+        check(flash_attention_kernel.launches - n0 == LM_TWIN_LAYERS,
+              "lm_serve twin: flash launches")
+        t0 = time.perf_counter()
+        want, _ = lm.prefill(twin, cpu_model, {"tokens": toks}, S,
+                             dtype=torch.float32)
+        cpu_s = time.perf_counter() - t0
+    got = got.cpu()
+    check(got.dtype == want.dtype == torch.float32
+          and bool(torch.isfinite(got).all()), "lm_serve twin: output")
+    rel = rel_max(got, want)
+    check(rel < LM_TWIN_REL, f"lm_serve twin: card vs CPU {rel}")
+    return dict(layers=LM_TWIN_LAYERS, shape=list(LM_TWIN_SHAPE),
+                dtype="float32", init_and_copy_s=init_s, cpu_prefill_s=cpu_s,
+                rel_err=rel, tolerance=LM_TWIN_REL)
+
+
+def lm_path_attention(cfg, model, dev, reqs) -> tuple:
+    """Layer 0's flash-kernel inputs in stream (b)'s prefill: its
+    prompts' q, and k and v expanded to every query head, (B, S, H, D)
+    bf16, for the kernel row at the path's shape."""
+    B, S = len(reqs), len(reqs[0].prompt)
+    toks = torch.from_numpy(np.stack([r.prompt for r in reqs])).long().to(dev)
+    blk = model["blocks"][0]
+    G = cfg.num_heads // cfg.num_kv_heads
+    with torch.no_grad():
+        qpos = torch.arange(S, device=dev)
+        x = lm.embed_input(cfg, model, {"tokens": toks}, qpos)
+        h = lm_layers.apply_norm(cfg, blk["norm1"], x)
+        q, k, v = lm_layers.attn_qkv(cfg, blk["attn"], h, qpos)
+        return (q.reshape(B, S, cfg.num_heads, cfg.head_dim).contiguous(),
+                k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2))
+
+
+def phase_lm_serve(dev) -> tuple[dict, tuple]:
+    """GLM-4-9B at its published widths and depth on the card: weights
+    drawn on the card leaf by leaf, the two streams served through
+    ``ServeEngine.run`` (the reference launcher's defaults, and 4 prompts
+    of 4096 tokens), decode against the full forward, the decode step's
+    profile, and the float32 twin against the CPU.  Returns the stream
+    run's launch counts and layer 0's flash inputs of stream (b)."""
+    t_phase = time.perf_counter()
+    cfg = lm_configs.get_arch(LM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = lm.init_params(cfg, dtype=torch.bfloat16, device=dev,
+                           seed=LM_SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == cfg.param_count(),
+          f"lm_serve: {n_params} parameters, config {cfg.param_count()}")
+    streams, reqs = {}, {}
+    reset_launch_counts()
+    for i, (what, spec, want) in enumerate(LM_STREAMS):
+        reqs[what], streams[what] = lm_stream(cfg, model, spec, want,
+                                              LM_SEED + i, what)
+    counts = launch_counts()
+    check(counts["flash_attention_kernel"] == cfg.num_layers * sum(
+        s["schedule"]["rounds"] for s in streams.values()),
+        f"lm_serve launches {counts}")
+    check(all(n == 0 for k, n in counts.items()
+              if k != "flash_attention_kernel"),
+          f"lm_serve: other kernels launched {counts}")
+    max_mem = torch.cuda.max_memory_allocated()
+    (_, spec_a, _) = LM_STREAMS[0]
+    profile_a = lm_decode_profile(cfg, model, dev,
+                                  max(streams["a"]["schedule"]["batch_hist"]),
+                                  spec_a["prompt_len"], spec_a["max_seq"])
+    decode = lm_decode_vs_full(cfg, model, dev)
+    attn_in = lm_path_attention(cfg, model, dev, reqs["b"])
+    del model, reqs
+    torch.cuda.empty_cache()
+    twin = lm_twin(cfg, dev)
+    torch.cuda.empty_cache()
+    emit("lm_serve", arch=LM_ARCH, layers=cfg.num_layers,
+         d_model=cfg.d_model, heads=[cfg.num_heads, cfg.head_dim],
+         kv_heads=cfg.num_kv_heads, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
+         params=n_params, dtype="bfloat16", init_s=init_s,
+         streams=streams, launches=counts, max_memory_allocated=max_mem,
+         decode_profile=profile_a, decode_vs_full=decode,
+         float32_twin=twin,
+         card=torch.cuda.get_device_name(0),
+         phase_s=time.perf_counter() - t_phase)
+    return counts, attn_in
+
+
 def phase_dnn(dev) -> dict:
     reset_launch_counts()
     got = tiled_dnn_workload(device=dev)
@@ -2462,12 +2965,13 @@ def phase_attention(dev) -> tuple[dict, dict]:
     return counts, {dt: (ins[dt], outs[dt], wants[dt]) for dt in ins}
 
 
-def phase_accel_kernels(dev, log: tuple, attn: dict) -> list:
+def phase_accel_kernels(dev, log: tuple, attn: dict, lm_attn: tuple) -> list:
     """The kernel rows of phases 12-14 at their paths' shapes: mac_conv2d
     at VGG-16 conv3 (and batch 32 of it), fx_log at phase 13's 2^20
-    values, flash_attention_kernel at phase 14's bf16 prefill (and its
-    float32 S = 1024); ``log`` and ``attn`` are those phases' inputs,
-    outputs and plain outputs."""
+    values, flash_attention_kernel at phase 16's LM prefill (layer 0 of
+    stream (b): (4, 4096, 32, 128) bf16; and phase 14's batch 1 and its
+    float32 S = 1024); ``log`` and ``attn`` are phases 13 and 14's
+    inputs, outputs and plain outputs, ``lm_attn`` phase 16's q, k, v."""
     flush = l2_flusher(dev)
     rows = []
 
@@ -2570,8 +3074,8 @@ def phase_accel_kernels(dev, log: tuple, attn: dict) -> list:
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             is_causal=True).transpose(1, 2)
 
-    def attn_row(rows, dt, ops_per_s, iters, **extra):
-        (q, k, v), got, want = attn[dt]
+    def attn_row(rows, entry, ops_per_s, iters, tol=None, **extra):
+        (q, k, v), got, want = entry
         B, S, H, D = q.shape
         lib_kernels = device_kernels(lambda: sdpa(q, k, v), 3)[0]
         kernel_row(
@@ -2582,8 +3086,8 @@ def phase_accel_kernels(dev, log: tuple, attn: dict) -> list:
             lambda: attention_plain(q, k, v), got, want,
             4 * q.numel() * q.element_size(), 2 * S * S * D * H * B, iters,
             3, library=lambda: sdpa(q, k, v), ops_per_s=ops_per_s,
-            tol=ATTN_TOL[dt], prof_iters=5, shape=list(q.shape),
-            dtype=str(dt).removeprefix("torch."), causal=True,
+            tol=tol or ATTN_TOL[q.dtype], prof_iters=5, shape=list(q.shape),
+            dtype=str(q.dtype).removeprefix("torch."), causal=True,
             library_call="scaled_dot_product_attention(is_causal=True)",
             library_kernels=sorted(lib_kernels, key=lambda n:
                                    -lib_kernels[n][1])[:3],
@@ -2593,12 +3097,39 @@ def phase_accel_kernels(dev, log: tuple, attn: dict) -> list:
     # kernel's three TF32 products
     (q32, _, _), _, _ = attn[torch.float32]
     B, S, H, D = q32.shape
-    at_f32 = attn_row([], torch.float32, CUDA_CORE_OPS_PER_S, 10,
+    at_f32 = attn_row([], attn[torch.float32], CUDA_CORE_OPS_PER_S, 10,
                       bound_ms_3xtf32=bound_ms(
                           4 * q32.numel() * 4, 3 * 2 * S * S * D * H * B,
                           TF32_TENSOR_OPS_PER_S)[0])
-    attn_row(rows, torch.bfloat16, BF16_TENSOR_OPS_PER_S, 5,
-             main_path="attention (GLM-4-9B prefill)", other_shapes=[at_f32])
+    at_b1 = attn_row([], attn[torch.bfloat16], BF16_TENSOR_OPS_PER_S, 5,
+                     shape_tag="attention phase (batch 1)")
+    # the LM path's own input: layer 0 of stream (b)'s prefill.  The
+    # kernel rounds p to bf16 before P V (as the reference's model
+    # attention; l sums the float32 p) where the plain version keeps it
+    # in float32, and each output is rounded to bf16 once.  With bf16's
+    # unit roundoff 2^-8: |got - want| <= 2^-8 sum_k p_k |v_k| (the plain
+    # version applied to |v|, in float32) + 2^-8 |got| + 2^-8 |want|; the
+    # last term is taken as rtol 2^-7, whose other half covers float32's
+    # order and ex2.approx (2^-22)
+    lq, lk, lv = lm_attn
+    lm_got = flash_attention_kernel(lq, lk, lv)
+    lm_want = attention_plain(lq, lk, lv)
+    lm_atol = 2.0 ** -8 * (attention_plain(lq.float(), lk.float(),
+                                           lv.abs().float())
+                           + lm_got.float().abs())
+    lm_tol = (lm_atol, 2.0 ** -7)
+    attn_row(rows, ((lq, lk, lv), lm_got, lm_want), BF16_TENSOR_OPS_PER_S,
+             5, tol=lm_tol,
+             main_path="lm_serve prefill (GLM-4-9B layer 0, stream b)",
+             tolerance_atol="2^-8 (sum_k p_k |v_k| + |got|)",
+             limit_share=float(((lm_got.float() - lm_want.float()).abs() / (
+                 lm_atol + lm_tol[1] * lm_want.float().abs())).max()),
+             # beside it, the share of atol 4e-3 with rtol 2^-6
+             limit_share_4e3_2m6=float(((lm_got.float() - lm_want.float())
+                                        .abs() / (4e-3 + 2.0 ** -6
+                                                  * lm_want.float().abs())
+                                        ).max()),
+             other_shapes=[at_b1, at_f32])
     return rows
 
 
@@ -2638,6 +3169,8 @@ def main() -> int:
     paths["learn_board_48chip"] = phase_learn_board(dev)
     paths["probes_ring_4096pe"] = phase_probes(dev, sim)
     paths.update(phase_serve(dev))
+    paths.update(phase_route_opt(dev))
+    paths["lm_serve"], lm_attn = phase_lm_serve(dev)
     paths["dnn_pipeline"] = phase_dnn(dev)
     paths["mac_efficiency"] = phase_mac_efficiency(dev)
     paths["dnn_layers"] = phase_dnn_layers(dev)
@@ -2645,13 +3178,13 @@ def main() -> int:
     paths["attention"], attn = phase_attention(dev)
     rows = phase_kernels(dev, sim, prog, main, main_event, farm_rows,
                          farm_links, farm_main, farm_noc, encode_ops, sass)
-    rows += phase_accel_kernels(dev, log, attn)
-    del log, attn
+    rows += phase_accel_kernels(dev, log, attn, lm_attn)
+    del log, attn, lm_attn
     # each kernel's launches on the path it was checked at
     home = {"event_link_loads": "hybrid_farm_4096pe", "mac_gemm": "hybrid",
             "compact_lanes": "event_ring_4096pe",
             "mac_conv2d": "dnn_layers", "fx_log": "elementary",
-            "flash_attention_kernel": "attention"}
+            "flash_attention_kernel": "lm_serve"}
     for row in rows:
         name = row["name"]
         row["launches"] = paths[home.get(name, "board_ring_4096pe")][name]

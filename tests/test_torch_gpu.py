@@ -779,3 +779,79 @@ def test_card_probes_match_cpu(cuda):
     for name, w in want["probes"].items():
         torch.testing.assert_close(got["probes"][name].cpu(), w,
                                    rtol=1e-5, atol=1e-12)
+
+
+def test_lm_prefill_launches_flash_once_a_layer(cuda):
+    """A smoke-width GLM-4-9B prefill on the card: the flash kernel once a
+    layer, logits and caches within the CPU's (the plain version) at one
+    bf16 step of their magnitude (2^-7 relative: two steps)."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    cfg = configs.get_arch("glm4-9b").smoke()
+    cpu = T.init_params(cfg, dtype=torch.bfloat16, device="cpu", seed=1)
+    card = T.init_params(cfg, dtype=torch.bfloat16, device="cpu", seed=1)
+    card = card.to(cuda)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 40)))
+    with torch.inference_mode():
+        want, wc = T.prefill(cfg, cpu, {"tokens": toks}, 48)
+        before = flash_attention_kernel.launches
+        got, gc = T.prefill(cfg, card, {"tokens": toks.to(cuda)}, 48)
+        torch.cuda.synchronize()
+    assert flash_attention_kernel.launches == before + cfg.num_layers
+    for g, w in [(got, want)] + [(a[k], b[k]) for a, b in zip(gc, wc)
+                                 for k in ("k", "v")]:
+        g, w = g.float().cpu(), w.float()
+        assert (g - w).abs().max() <= 2.0 ** -7 * w.abs().max()
+
+
+def test_lm_bf16_decode_on_the_card_matches_the_cpu(cuda):
+    """A smoke-width GLM-4-9B served in bf16: prefill of 16 tokens (the
+    flash kernel) and 8 decode steps (dense attention over the cache
+    written in place) on the card against the CPU's on the same weights:
+    every step's logits and every layer's final cache within 2^-7 of
+    their largest magnitude (two bf16 steps)."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    cfg = configs.get_arch("glm4-9b").smoke()
+    cpu = T.init_params(cfg, dtype=torch.bfloat16, device="cpu", seed=1)
+    card = T.init_params(cfg, dtype=torch.bfloat16, device="cpu", seed=1)
+    card = card.to(cuda)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 24)))
+    runs = {}
+    for dev, m in (("cpu", cpu), ("cuda", card)):
+        tt = toks.to(dev)
+        with torch.inference_mode():
+            lg, caches = T.prefill(cfg, m, {"tokens": tt[:, :16]}, 24)
+            outs = [lg]
+            for t in range(16, 24):
+                lg, caches = T.decode_step(cfg, m, caches, t,
+                                           {"tokens": tt[:, t:t + 1]})
+                outs.append(lg)
+        runs[dev] = outs, caches
+    (want, wc), (got, gc) = runs["cpu"], runs["cuda"]
+    assert len(got) == 9 and got[-1].dtype == torch.bfloat16
+    for g, w in list(zip(got, want)) + [(a[k], b[k]) for a, b in zip(gc, wc)
+                                        for k in ("k", "v")]:
+        g, w = g.float().cpu(), w.float()
+        assert (g - w).abs().max() <= 2.0 ** -7 * w.abs().max()
+
+
+def test_optimize_routes_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.board import BoardSpec
+    from repro_torch.chip.workloads import hybrid_farm_board_graph
+    from repro_torch.routeopt import optimize_routes
+    board = BoardSpec.parse("2x2", chip="4x2")
+    runs = {}
+    for dev in ("cpu", cuda):
+        res = optimize_routes(hybrid_farm_board_graph(board, device=dev),
+                              board, n_ticks=24, max_iters=3, device=dev)
+        runs[str(dev)] = res
+    a, b = runs["cpu"], runs[str(cuda)]
+    assert (a.iterations, a.converged) == (b.iterations, b.converged)
+    drop = ("compile_s", "measure_s")
+    assert [{k: v for k, v in r.items() if k not in drop}
+            for r in a.trajectory] == \
+        [{k: v for k, v in r.items() if k not in drop} for r in b.trajectory]
+    assert a.route == b.route

@@ -46,7 +46,14 @@ def test_port_imports_without_jax():
             "repro_torch.serve.fleet.scenarios",
             "repro_torch.serve.fleet.sessions",
             "repro_torch.serve.fleet.traffic", "repro_torch.launch.fleet",
-            "repro_torch.core.hybrid"} <= set(_port_modules())
+            "repro_torch.core.hybrid", "repro_torch.obs.report",
+            "repro_torch.obs.manifest", "repro_torch.routeopt.profile",
+            "repro_torch.routeopt.invariants",
+            "repro_torch.routeopt.optimize", "repro_torch.configs.base",
+            "repro_torch.configs.glm4_9b", "repro_torch.configs.qwen15_4b",
+            "repro_torch.models.layers", "repro_torch.models.transformer",
+            "repro_torch.serve.engine", "repro_torch.launch.serve",
+            "repro_torch.models"} <= set(_port_modules())
 
 
 def test_port_sources_do_not_name_the_reference():

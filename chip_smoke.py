@@ -205,11 +205,42 @@ farm, the DNN pipeline), and checks what comes out:
               of 2 layers at full width, the card (TF32 off) against the
               card machine's CPU; prefill ms a batch, decode ms a step,
               tokens/s a stream.
+17. lm_moe  — OLMoE-1B-7B at its published widths and depth (16 layers,
+              d_model 2048, 16 x 128 heads, 64 experts top-8 of d_ff
+              1024, vocab 50304; 6.92 B parameters drawn on the card,
+              bf16) through the same two streams: the reference
+              launcher's schedule, 16 flash launches a prefill batch and
+              no other hand kernel; layer 0's MoE input of stream (b) on
+              the card and on the card machine's CPU: the routing of all
+              16384 tokens (top-k experts, ranks, kept mask, buffer rows)
+              equal, a call on its first 256 tokens within 2^-6 of the
+              CPU's output; the share of assignments dropped there (C
+              2560) and in a decode step at batch 8 (C 2); the decode gate
+              of lm_serve with the MoE's dense oracle (as the reference's
+              decode test runs MoE), failed by the gate values left
+              un-renormalised and by the late cache slot; a decode step's
+              profile; the float32 twin of 2 layers, card against CPU,
+              with every layer's routing equal.
+18. lm_zoo  — Phi-3.5-MoE (4 of 32 layers), Gemma-3-27B (8 of 62: one
+              5 local + 1 global group and 2 remainder local layers),
+              Nemotron-4-15B (4 of 32), Chameleon-34B (4 of 48) and
+              MusicGen-large (all 48, on frames, 4 codebook heads) at
+              their published widths, drawn on the card one after another:
+              one prefill of 4 x 4096 (flash once a layer; Gemma-3's local
+              layers with the window of 1024), 4 decode steps, the decode
+              gate failed by the late cache slot; Gemma-3 also the gate
+              over a prefill of 1000 and 48 steps across the ring's wrap
+              at 1024, failed by the ring slot one late, and its layer 0
+              ring after the 4096 prefill (positions 3072..4095 at slots
+              pos mod 1024) equal to the full forward's k and v.
     The kernel rows of these paths (mac_conv2d at VGG-16 conv3, at
     batch 32 of it, at ResNet-50's 3x3 and MobileNetV2's 1x1 layers,
     fx_log at 2^20 values, flash_attention_kernel at the LM prefill's
     layer-0 input, at the attention phase's batch 1 and at float32
-    S = 1024) are timed as in phase 9; the two integer
+    S = 1024, and lm_zoo's layer 0 inputs: Gemma-3's local layer with
+    the window of 1024 (row 8w; its bound counts the band's scores, its
+    library call is SDPA with the band as a boolean mask) and MusicGen's
+    D = 64 (row 8m)) are timed as in phase 9; the two integer
     kernels are held bitwise, flash at its tolerance (on the LM input,
     element by element: 2^-8 (sum_k p_k |v_k| + |got|) + 2^-7 |want|, the
     kernel's bf16 p and the two outputs' roundings); each second shape
@@ -220,12 +251,15 @@ farm, the DNN pipeline), and checks what comes out:
     device kernels of the SDPA call they are compared with.
 
 Launch counters are zeroed just before each path's run (phases 3-8 and
-11-16, and each learning path, the probed run, each serving row and
-each route_opt row; lm_serve's two streams are one path; the
+11-18, and each learning path, the probed run, each serving row and
+each route_opt row; lm_serve's and lm_moe's two streams are one path
+each, lm_zoo's five prefill-and-decode runs are summed into one; the
 graph's build is part of the path, except in phase 5, which reuses phase
 4's net) and read just after; a kernel of that path that never launched
-fails the run.  Every phase prints one JSON line; any failed check
-raises.  The last lines are the card's nvidia-smi name and power limit,
+fails the run.  Every phase prints one JSON line (the serving, routing
+and LM phases with their ``phase_s``; a ``script`` line gives the whole
+run's seconds); any failed check raises.  The last lines are the card's nvidia-smi name and
+power limit,
 the kernels line and ``{"ok": true, "device": {...}}``.  Exits non-zero
 without a result when no CUDA device is present.
 """
@@ -304,6 +338,7 @@ from repro_torch.serve.fleet import (SCENARIOS, FleetEngine,  # noqa: E402
 from repro_torch.serve.fleet.engine import broadcast_state  # noqa: E402
 from repro_torch import configs as lm_configs  # noqa: E402
 from repro_torch.models import layers as lm_layers  # noqa: E402
+from repro_torch.models import moe as lm_moe  # noqa: E402
 from repro_torch.models import transformer as lm  # noqa: E402
 from repro_torch.routeopt import check_delivery, optimize_routes  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
@@ -444,6 +479,32 @@ LM_FAULTS = ("gqa_head_map", "cache_slot")
 # this relative max error
 LM_TWIN_LAYERS, LM_TWIN_SHAPE, LM_TWIN_REL = 2, (2, 16), 1e-4
 LM_PROFILE_STEPS = 5
+# lm_moe: OLMoE-1B-7B (arXiv:2409.02060) at its published widths and
+# depth, served as lm_serve's GLM-4-9B; its decode gate runs the MoE's
+# dense oracle (as tests/test_models_decode.py runs MoE), and the faults
+# are the gate values left un-renormalised and the late cache slot.
+# Layer 0's MoE input of stream b, card against CPU: the routing of all
+# 16384 tokens equal; the outputs of a call on its first MOE_CPU_TOKENS
+# tokens (C from that T) within MOE_OUT_REL of their largest magnitude:
+# the expert MLP's bf16 roundings sit at the same points on both, only
+# the products' summation order differs, so one bf16 step (2^-8) of the
+# intermediates, through two products, and the output's own rounding
+MOE_ARCH, MOE_FAULTS = "olmoe-1b-7b", ("gate_norm", "cache_slot")
+MOE_CPU_TOKENS, MOE_OUT_REL = 256, 2.0 ** -6
+# lm_zoo: each other attention arch at its published widths, depth cut to
+# fit one card beside the rest of the run (layers kept of the published
+# count): Phi-3.5-MoE 4 of 32 (41.9 B parameters do not fit whole),
+# Gemma-3-27B 8 of 62 (one 5 local + 1 global group and 2 remainder
+# local layers, the full model's tail), Nemotron-4-15B 4 of 32,
+# Chameleon-34B 4 of 48, MusicGen-large all 48.  One prefill batch of
+# ZOO_PREFILL (flash in every layer), ZOO_DECODE_STEPS greedy steps, the
+# decode gate with the late cache slot; Gemma-3 also the gate over the
+# ring's wrap at 1024 (GEMMA_RING_CHECK: batch, prompt, steps) with the
+# ring slot one late, and its ring after the 4096-token prefill
+ZOO = (("phi3.5-moe-42b-a6.6b", 4), ("gemma3-27b", 8),
+       ("nemotron-4-15b", 4), ("chameleon-34b", 4), ("musicgen-large", 48))
+ZOO_PREFILL, ZOO_DECODE_STEPS = (4, 4096), 4
+ZOO_FAULTS, GEMMA_RING_CHECK = ("cache_slot",), (1, 1000, 48)
 GEMM_SAMPLE = 4096              # the int8 GEMM sample: 4096^3
 FLOAT_RTOL, FLOAT_ATOL, ENERGY_RTOL = 1e-5, 1e-6, 1e-6
 L2_FLUSH_BYTES = 256 << 20      # five times the H100's 50 MB L2
@@ -488,8 +549,8 @@ PASS_SYMBOLS = {"mac_gemm": r"\bimma_pack_kernel\b",
 # mangled name: instantiations) whose every instantiation must hold the
 # instruction named
 TENSOR_CORE_OPS = ("HGMMA", "IGMMA", "HMMA", "IMMA")
-TENSOR_CORE_KERNELS = {"flash_attn_wgmma_kernel": (4, "HGMMA"),
-                       "flash_attn_tf32_kernel": (2, "HGMMA.TF32"),
+TENSOR_CORE_KERNELS = {"flash_attn_wgmma_kernel": (8, "HGMMA"),
+                       "flash_attn_tf32_kernel": (4, "HGMMA.TF32"),
                        "mac_gemm_kernel": (4, "IGMMA"),
                        "mac_conv_igmma_kernel": (12, "IGMMA")}
 # kernels whose SASS instructions per element phase 2 counts
@@ -2526,13 +2587,13 @@ def lm_stream(cfg, model, spec: dict, want: dict, seed: int, what: str):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     got = {k: stats[k] for k in want}
-    check(got == want, f"lm_serve {what}: schedule {got} != {want}")
+    check(got == want, f"{cfg.name} {what}: schedule {got} != {want}")
     check(per_batch == [cfg.num_layers] * stats["rounds"],
-          f"lm_serve {what}: flash launches a prefill batch {per_batch}")
+          f"{cfg.name} {what}: flash launches a prefill batch {per_batch}")
     for r in reqs:
         check(len(r.out_tokens) == spec["max_new"]
               and all(0 <= t < cfg.vocab_size for t in r.out_tokens),
-              f"lm_serve {what}: request {r.rid} tokens {r.out_tokens}")
+              f"{cfg.name} {what}: request {r.rid} tokens {r.out_tokens}")
     generated = sum(len(r.out_tokens) for r in reqs)
     dec = np.asarray(eng.timings["decode_s"]) * 1e3
     return reqs, dict(
@@ -2578,36 +2639,60 @@ def rel_max(got, want) -> float:
     return float((got - want).abs().max()) / (float(want.abs().max()) + 1e-6)
 
 
-def lm_full_dense(cfg, model, toks, dtype):
+def lm_batch(cfg, dev, shape, seed):
+    """A served input of (B, S) positions from numpy's generator: tokens,
+    or, for the encodec frontend, standard normal frames (B, S, d) in
+    bf16."""
+    rng = np.random.default_rng(seed)
+    if cfg.frontend == "encodec":
+        return {"frames": torch.from_numpy(rng.standard_normal(
+            tuple(shape) + (cfg.d_model,))).to(torch.bfloat16).to(dev)}
+    return {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, tuple(shape))).to(dev)}
+
+
+def lm_cut(batch, lo, hi):
+    return {k: v[:, lo:hi] for k, v in batch.items()}
+
+
+def lm_full_dense(cfg, model, batch, dtype, moe_dense=True):
     """The full-sequence forward with the reference's model attention at
-    these lengths (``attention_dense``: p rounded to v's dtype before
-    P V) in every layer: its logits and each layer's k and v."""
+    these lengths (``attention_dense``, banded in local layers: p rounded
+    to v's dtype before P V) in every layer, and the MoE's dense oracle:
+    its logits and each layer's k and v."""
     L = lm_layers
-    qpos = torch.arange(toks.shape[1], device=toks.device)
-    x = lm.embed_input(cfg, model, {"tokens": toks}, qpos, dtype)
+    S = lm.seq_len(batch)
+    qpos = torch.arange(S, device=model["embed"]["table"].device)
+    x = lm.embed_input(cfg, model, batch, qpos, dtype)
     kv = []
-    for bp in model["blocks"]:
+    for kind, bp in zip(lm.layer_kinds(cfg), model["blocks"]):
         h = L.apply_norm(cfg, bp["norm1"], x)
-        q, k, v = L.attn_qkv(cfg, bp["attn"], h, qpos)
+        q, k, v = L.attn_qkv(cfg, bp["attn"], h, qpos, kind)
         kv.append((k, v))
-        x = x + L.attn_out(cfg, bp["attn"],
-                           L.attention_dense(q, k, v, qpos, qpos))
-        x = x + L.mlp_apply(cfg, bp["mlp"],
-                            L.apply_norm(cfg, bp["norm2"], x))
+        window = cfg.window_size if kind == "local" else 0
+        x = x + L.attn_out(cfg, bp["attn"], L.attention_dense(
+            q, k, v, qpos, qpos, window=window))
+        h = L.apply_norm(cfg, bp["norm2"], x)
+        if cfg.moe:
+            moe = lm_moe.moe_apply_dense if moe_dense else lm_moe.moe_apply
+            x = x + moe(cfg, bp["mlp"], h, aux=False)[0]
+        else:
+            x = x + L.mlp_apply(cfg, bp["mlp"], h)
     x = L.apply_norm(cfg, model["final_norm"], x)
     return lm.logits_fn(cfg, model, x), kv
 
 
-def lm_decode(cfg, model, toks, P: int, dtype):
-    """``prefill`` of the first P tokens, then ``decode_step`` over the
-    rest: the logits at positions P-1.. and the caches."""
-    S = toks.shape[1]
-    lg, caches = lm.prefill(cfg, model, {"tokens": toks[:, :P]}, S,
-                            dtype=dtype)
+def lm_decode(cfg, model, batch, P: int, dtype, moe_dense=False):
+    """``prefill`` of the first P positions, then ``decode_step`` over
+    the rest: the logits at positions P-1.. and the caches."""
+    S = lm.seq_len(batch)
+    lg, caches = lm.prefill(cfg, model, lm_cut(batch, 0, P), S, dtype=dtype,
+                            moe_dense=moe_dense)
     outs = [lg[:, 0]]
     for t in range(P, S):
         lg, caches = lm.decode_step(cfg, model, caches, t,
-                                    {"tokens": toks[:, t:t + 1]}, dtype=dtype)
+                                    lm_cut(batch, t, t + 1), dtype=dtype,
+                                    moe_dense=moe_dense)
         outs.append(lg[:, 0])
     return torch.stack(outs, 1), caches
 
@@ -2615,86 +2700,162 @@ def lm_decode(cfg, model, toks, P: int, dtype):
 @contextlib.contextmanager
 def lm_fault(kind):
     """A deliberate decode fault, for the gate to catch: ``gqa_head_map``
-    (query head h meets KV head h mod KH, not h // G) or ``cache_slot``
-    (each step's k and v written one slot late)."""
+    (query head h meets KV head h mod KH, not h // G), ``cache_slot``
+    (each step's k and v written one slot late), ``ring_slot`` (a local
+    layer's ring written one slot past ``pos mod window``, its positions
+    kept) or ``gate_norm`` (the MoE's top-k gate values left
+    un-renormalised)."""
     L = lm_layers
-    name = {"gqa_head_map": "attention_dense", "cache_slot": "attn_apply",
-            None: None}[kind]
+    module, name = {"gqa_head_map": (L, "attention_dense"),
+                    "cache_slot": (L, "attn_apply"),
+                    "ring_slot": (L, "ring_slot"),
+                    "gate_norm": (lm_moe, "_gates"),
+                    None: (None, None)}[kind]
     if name is None:
         yield
         return
-    orig = getattr(L, name)
+    orig = getattr(module, name)
 
     def gqa(q, k, v, qpos, kpos, **kw):
         B, S, KH, G, D = q.shape
         return orig(q.reshape(B, S, G, KH, D).transpose(2, 3), k, v, qpos,
                     kpos, **kw)
 
-    def slot(cfg, p, x, qpos, *, cache=None, kv_len=None):
+    def slot(cfg, p, x, qpos, *, cache=None, kv_len=None, **kw):
         return orig(cfg, p, x, qpos, cache=cache,
-                    kv_len=None if kv_len is None else kv_len + 1)
-    setattr(L, name, gqa if kind == "gqa_head_map" else slot)
+                    kv_len=None if kv_len is None else kv_len + 1, **kw)
+
+    def ring(kv_len, window):
+        return (kv_len + 1) % window
+
+    def gates(cfg, probs):
+        return lm_moe._top_k(probs, cfg.experts_per_token)
+    setattr(module, name, {"gqa_head_map": gqa, "cache_slot": slot,
+                           "ring_slot": ring, "gate_norm": gates}[kind])
     try:
         yield
     finally:
-        setattr(L, name, orig)
+        setattr(module, name, orig)
 
 
-def lm_decode_vs_full(cfg, model, dev) -> dict:
+def cache_vs_kv(cfg, cache, k, v, S: int) -> float:
+    """Layer 0's cache after positions 0..S-1 against the full forward's
+    k and v (B, S, KH, D): each slot against the position it holds (a
+    ring's slot s the position ``ring_positions`` gives, else slot p
+    position p), relative max error."""
+    Sc = cache["k"].shape[1]
+    kind = lm.layer_kinds(cfg)[0]
+    if kind == "local" and Sc == cfg.window_size and S > Sc:
+        pos = lm_layers.ring_positions(S - 1, Sc, k.device)
+    else:
+        pos = torch.arange(min(S, Sc), device=k.device)
+    slots = torch.arange(len(pos), device=k.device)
+    return max(rel_max(cache[c][:, slots], t[:, pos])
+               for c, t in (("k", k), ("v", v)))
+
+
+def lm_decode_vs_full(cfg, model, dev, *, faults=LM_FAULTS,
+                      sizes=LM_DECODE_CHECK, moe_dense=False,
+                      seed=2) -> dict:
     """Incremental decode against the full forward (the relation of
-    tests/test_models_decode.py).  float32 activations: against the
+    tests/test_models_decode.py; ``moe_dense``: the MoE's dense oracle in
+    both, as that test runs MoE).  float32 activations: against the
     served full forward (the float32 flash kernel), below
     LM_DECODE_F32_REL.  bf16, as served: against the float32 full forward,
     within LM_DECODE_BF16_FACTOR of the bf16 full forward's own distance
-    from it, and layer 0's cache within LM_CACHE0_REL of the full
-    forward's k and v; each of LM_FAULTS must fail that gate.  The
+    from it (for an MoE config the larger of the dense-attention and the
+    served bf16 full forward's: the routing's near ties), and layer 0's
+    cache within LM_CACHE0_REL of the full forward's k and v; each of
+    ``faults`` must fail that gate.  The
     reference's relation (decode against the bf16 full forward, both with
     its dense attention) is reported beside 0.02, and against the served
-    bf16 forward (flash)."""
-    B, P, n = LM_DECODE_CHECK
-    toks = torch.from_numpy(np.random.default_rng(2).integers(
-        0, cfg.vocab_size, (B, P + n))).to(dev)
+    bf16 forward (flash).  ``sizes``: batch, prompt, decode steps."""
+    B, P, n = sizes
+    batch = lm_batch(cfg, dev, (B, P + n), seed)
     with torch.no_grad():
-        dec, _ = lm_decode(cfg, model, toks, P, torch.float32)
-        f32 = dict(rel=rel_max(dec, model(toks, dtype=torch.float32)[
-            :, P - 1:]), limit=LM_DECODE_F32_REL)
+        dec, _ = lm_decode(cfg, model, batch, P, torch.float32, moe_dense)
+        f32 = dict(rel=rel_max(dec, model(batch, dtype=torch.float32,
+                                          moe_dense=moe_dense)[:, P - 1:]),
+                   limit=LM_DECODE_F32_REL)
         check(f32["rel"] < LM_DECODE_F32_REL,
-              f"lm_serve: float32 decode vs full forward {f32}")
-        want, kv = lm_full_dense(cfg, model, toks, torch.bfloat16)
-        truth = lm_full_dense(cfg, model, toks, torch.float32)[0][:, P - 1:]
+                 f"{cfg.name}: float32 decode vs full forward {f32}")
+        want, kv = lm_full_dense(cfg, model, batch, torch.bfloat16,
+                                 moe_dense)
+        truth = lm_full_dense(cfg, model, batch, torch.float32,
+                              moe_dense)[0][:, P - 1:]
         want = want[:, P - 1:]
-        served = model(toks)[:, P - 1:]
+        served = model(batch, moe_dense=moe_dense)[:, P - 1:]
         noise = rel_max(want, truth)
+        served_noise = rel_max(served, truth)
+        if cfg.moe:
+            # top-k routing is discontinuous: a bf16 rounding can move a
+            # near tie off the float32 routing in one bf16 forward and not
+            # in another, so the floor is the larger of the two bf16 full
+            # forwards' distances (the served one through flash)
+            noise = max(noise, served_noise)
         readings = {}
-        for fault in (None,) + LM_FAULTS:
+        for fault in (None,) + tuple(faults):
             with lm_fault(fault):
-                dec, caches = lm_decode(cfg, model, toks, P, torch.bfloat16)
+                dec, caches = lm_decode(cfg, model, batch, P, torch.bfloat16,
+                                        moe_dense)
             vs_f32 = rel_max(dec, truth)
             readings[fault or "sound"] = dict(
                 vs_float32=vs_f32, ratio=vs_f32 / max(noise, 1e-30),
-                cache0=max(rel_max(caches[0][c], kv[0][i])
-                           for i, c in enumerate("kv")),
+                cache0=cache_vs_kv(cfg, caches[0], *kv[0], P + n),
                 reference_relation=rel_max(dec, want),
                 served_relation=rel_max(dec, served))
     passes = lambda r: (r["ratio"] < LM_DECODE_BF16_FACTOR
                         and r["cache0"] <= LM_CACHE0_REL)
-    bf16 = dict(full_forward_vs_float32=noise, factor=LM_DECODE_BF16_FACTOR,
+    bf16 = dict(sizes=list(sizes), moe_dense=moe_dense,
+                full_forward_vs_float32=noise,
+                served_forward_vs_float32=served_noise,
+                factor=LM_DECODE_BF16_FACTOR,
                 cache0_limit=LM_CACHE0_REL, readings=readings,
                 within_reference_relation=readings["sound"][
                     "reference_relation"] < LM_DECODE_REL)
     check(passes(readings["sound"]),
-          f"lm_serve: bf16 decode vs the float32 forward {bf16}")
-    for fault in LM_FAULTS:
+             f"{cfg.name}: bf16 decode vs the float32 forward {bf16}")
+    for fault in faults:
         check(not passes(readings[fault]),
-              f"lm_serve: the bf16 decode gate misses {fault}: {bf16}")
+                 f"{cfg.name}: the bf16 decode gate misses {fault}: {bf16}")
     return {"float32": f32, "bfloat16": bf16}
+
+
+@contextlib.contextmanager
+def moe_dispatches():
+    """Record every ``moe.dispatch`` result (the MoE layers' routing, in
+    call order) while the block runs."""
+    orig, seen = lm_moe.dispatch, []
+
+    def recording(*args, **kw):
+        seen.append(orig(*args, **kw))
+        return seen[-1]
+    lm_moe.dispatch = recording
+    try:
+        yield seen
+    finally:
+        lm_moe.dispatch = orig
+
+
+MOE_INTEGERS = ("gate_idx", "rank", "keep", "dst")
+
+
+def same_dispatch(got: list, want: list, what: str) -> None:
+    """Two runs' MoE routings, layer by layer: the same capacity and the
+    same top-k experts, ranks, kept mask and buffer rows."""
+    check(len(got) == len(want), f"{what}: {len(got)} != {len(want)} MoE calls")
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(g["C"] == w["C"], f"{what}: layer {i} capacity")
+        for key in MOE_INTEGERS:
+            check(torch.equal(g[key].cpu(), w[key].cpu()),
+                  f"{what}: layer {i} {key} differs")
 
 
 def lm_twin(cfg, dev) -> dict:
     """The float32 twin: ``LM_TWIN_LAYERS`` layers at full width, weights
     drawn on the CPU and copied to the card; prefill logits of the card
     (TF32 off, the 3xTF32 flash kernel) against the CPU's (plain
-    versions)."""
+    versions), and an MoE's routing in every layer, card == CPU."""
     import copy
     twin = dataclasses.replace(cfg, num_layers=LM_TWIN_LAYERS)
     t0 = time.perf_counter()
@@ -2708,40 +2869,52 @@ def lm_twin(cfg, dev) -> dict:
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 must be off")
     with torch.no_grad():
         n0 = flash_attention_kernel.launches
-        got, _ = lm.prefill(twin, card_model, {"tokens": toks.to(dev)}, S,
-                            dtype=torch.float32)
+        with moe_dispatches() as card_routes:
+            got, _ = lm.prefill(twin, card_model, {"tokens": toks.to(dev)},
+                                S, dtype=torch.float32)
         torch.cuda.synchronize()
         check(flash_attention_kernel.launches - n0 == LM_TWIN_LAYERS,
-              "lm_serve twin: flash launches")
+              f"{cfg.name} twin: flash launches")
         t0 = time.perf_counter()
-        want, _ = lm.prefill(twin, cpu_model, {"tokens": toks}, S,
-                             dtype=torch.float32)
+        with moe_dispatches() as cpu_routes:
+            want, _ = lm.prefill(twin, cpu_model, {"tokens": toks}, S,
+                                 dtype=torch.float32)
         cpu_s = time.perf_counter() - t0
     got = got.cpu()
     check(got.dtype == want.dtype == torch.float32
-          and bool(torch.isfinite(got).all()), "lm_serve twin: output")
+          and bool(torch.isfinite(got).all()), f"{cfg.name} twin: output")
     rel = rel_max(got, want)
-    check(rel < LM_TWIN_REL, f"lm_serve twin: card vs CPU {rel}")
-    return dict(layers=LM_TWIN_LAYERS, shape=list(LM_TWIN_SHAPE),
-                dtype="float32", init_and_copy_s=init_s, cpu_prefill_s=cpu_s,
-                rel_err=rel, tolerance=LM_TWIN_REL)
+    check(rel < LM_TWIN_REL, f"{cfg.name} twin: card vs CPU {rel}")
+    same_dispatch(card_routes, cpu_routes, f"{cfg.name} twin")
+    out = dict(layers=LM_TWIN_LAYERS, shape=list(LM_TWIN_SHAPE),
+               dtype="float32", init_and_copy_s=init_s, cpu_prefill_s=cpu_s,
+               rel_err=rel, tolerance=LM_TWIN_REL)
+    if cfg.moe:
+        out["moe_layers_routed_equal"] = len(card_routes)
+    return out
 
 
-def lm_path_attention(cfg, model, dev, reqs) -> tuple:
-    """Layer 0's flash-kernel inputs in stream (b)'s prefill: its
-    prompts' q, and k and v expanded to every query head, (B, S, H, D)
-    bf16, for the kernel row at the path's shape."""
-    B, S = len(reqs), len(reqs[0].prompt)
-    toks = torch.from_numpy(np.stack([r.prompt for r in reqs])).long().to(dev)
-    blk = model["blocks"][0]
+def prompts(reqs, dev) -> dict:
+    """A stream's same-length prompts as one token batch on ``dev``."""
+    return {"tokens": torch.from_numpy(np.stack([r.prompt for r in reqs]))
+            .long().to(dev)}
+
+
+def layer0_attention(cfg, model, batch) -> tuple:
+    """Layer 0's flash-kernel inputs for ``batch``: q, and k and v
+    expanded to every query head, (B, S, H, D)."""
+    L = lm_layers
     G = cfg.num_heads // cfg.num_kv_heads
     with torch.no_grad():
-        qpos = torch.arange(S, device=dev)
-        x = lm.embed_input(cfg, model, {"tokens": toks}, qpos)
-        h = lm_layers.apply_norm(cfg, blk["norm1"], x)
-        q, k, v = lm_layers.attn_qkv(cfg, blk["attn"], h, qpos)
-        return (q.reshape(B, S, cfg.num_heads, cfg.head_dim).contiguous(),
-                k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2))
+        S = lm.seq_len(batch)
+        qpos = torch.arange(S, device=model["embed"]["table"].device)
+        x = lm.embed_input(cfg, model, batch, qpos)
+        h = L.apply_norm(cfg, model["blocks"][0]["norm1"], x)
+        q, k, v = L.attn_qkv(cfg, model["blocks"][0]["attn"], h, qpos,
+                             lm.layer_kinds(cfg)[0])
+    B = q.shape[0]
+    return (q.reshape(B, S, cfg.num_heads, cfg.head_dim).contiguous(),
+            k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2))
 
 
 def phase_lm_serve(dev) -> tuple[dict, tuple]:
@@ -2780,7 +2953,7 @@ def phase_lm_serve(dev) -> tuple[dict, tuple]:
                                   max(streams["a"]["schedule"]["batch_hist"]),
                                   spec_a["prompt_len"], spec_a["max_seq"])
     decode = lm_decode_vs_full(cfg, model, dev)
-    attn_in = lm_path_attention(cfg, model, dev, reqs["b"])
+    attn_in = layer0_attention(cfg, model, prompts(reqs["b"], dev))
     del model, reqs
     torch.cuda.empty_cache()
     twin = lm_twin(cfg, dev)
@@ -2795,6 +2968,232 @@ def phase_lm_serve(dev) -> tuple[dict, tuple]:
          card=torch.cuda.get_device_name(0),
          phase_s=time.perf_counter() - t_phase)
     return counts, attn_in
+
+
+def moe_input(cfg, model, dev, reqs) -> torch.Tensor:
+    """Layer 0's MoE input (norm2 of the residual after attention) in
+    ``reqs``' prefill: (B, S, d) bf16."""
+    L = lm_layers
+    batch = prompts(reqs, dev)
+    blk = model["blocks"][0]
+    with torch.no_grad():
+        qpos = torch.arange(batch["tokens"].shape[1], device=dev)
+        x = lm.embed_input(cfg, model, batch, qpos)
+        a, _ = L.attn_apply(cfg, blk["attn"], L.apply_norm(
+            cfg, blk["norm1"], x), qpos, kind=lm.layer_kinds(cfg)[0])
+        return L.apply_norm(cfg, blk["norm2"], x + a)
+
+
+def moe_vs_cpu(cfg, model, dev, h) -> dict:
+    """Layer 0's MoE on ``h`` on the card and on the card machine's CPU:
+    the routing of every token equal; the outputs of a call on the first
+    MOE_CPU_TOKENS tokens (their own capacity) within MOE_OUT_REL; the
+    share of (token, k) assignments dropped."""
+    p = model["blocks"][0]["mlp"]
+    p_cpu = {k: v.detach().cpu() for k, v in p.items()}
+    with torch.no_grad():
+        xt = h.reshape(-1, cfg.d_model)
+        t0 = time.perf_counter()
+        card = lm_moe.dispatch(cfg, p, xt)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = lm_moe.dispatch(cfg, p_cpu, xt.cpu())
+        cpu_s = time.perf_counter() - t0
+        same_dispatch([card], [cpu], f"{cfg.name} layer 0 prefill routing")
+        x = h[:1, :MOE_CPU_TOKENS]
+        with moe_dispatches() as got_r:
+            got = lm_moe.moe_apply(cfg, p, x, aux=False)[0]
+        with moe_dispatches() as want_r:
+            want = lm_moe.moe_apply(cfg, p_cpu, x.cpu(), aux=False)[0]
+    same_dispatch(got_r, want_r, f"{cfg.name} layer 0 routing, "
+                  f"{MOE_CPU_TOKENS} tokens")
+    rel = rel_max(got.cpu(), want)
+    check(got.dtype == torch.bfloat16 and rel <= MOE_OUT_REL,
+          f"{cfg.name}: MoE card vs CPU {rel}")
+    return dict(tokens=xt.shape[0], capacity=card["C"],
+                dropped_share=1.0 - float(card["keep"].float().mean()),
+                routing_equal=True, card_dispatch_s=card_s,
+                cpu_dispatch_s=cpu_s, output_tokens=MOE_CPU_TOKENS,
+                output_capacity=got_r[0]["C"], output_rel_err=rel,
+                output_limit=MOE_OUT_REL)
+
+
+def moe_decode_drops(cfg, model, dev, batch: int, prompt: int,
+                     max_seq: int) -> dict:
+    """One decode step at ``batch`` after a prefill of ``prompt``: each
+    MoE layer's capacity and share of assignments dropped."""
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (batch, prompt + 1))).to(dev)
+    with torch.no_grad():
+        _, caches = lm.prefill(cfg, model, {"tokens": toks[:, :prompt]},
+                               max_seq)
+        with moe_dispatches() as routes:
+            lm.decode_step(cfg, model, caches, prompt,
+                           {"tokens": toks[:, prompt:]})
+    shares = [1.0 - float(r["keep"].float().mean()) for r in routes]
+    return dict(batch=batch, capacity=routes[0]["C"],
+                dropped_share_by_layer=shares,
+                dropped_share_mean=float(np.mean(shares)))
+
+
+def phase_lm_moe(dev) -> dict:
+    """OLMoE-1B-7B at its published widths and depth on the card (6.92 B
+    parameters drawn on the card, bf16): lm_serve's two streams through
+    ``ServeEngine.run``, one flash launch a layer a prefill batch and no
+    other hand kernel; layer 0's routing against the CPU's, the drop
+    shares; decode against the full forward (the MoE's dense oracle)
+    with two faults; the decode step's profile; the float32 twin.
+    Returns the streams' launch counts."""
+    t_phase = time.perf_counter()
+    cfg = lm_configs.get_arch(MOE_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = lm.init_params(cfg, dtype=torch.bfloat16, device=dev,
+                           seed=LM_SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == cfg.param_count(),
+          f"lm_moe: {n_params} parameters, config {cfg.param_count()}")
+    streams, reqs = {}, {}
+    reset_launch_counts()
+    for i, (what, spec, want) in enumerate(LM_STREAMS):
+        reqs[what], streams[what] = lm_stream(cfg, model, spec, want,
+                                              LM_SEED + i, what)
+    counts = launch_counts()
+    check(counts["flash_attention_kernel"] == cfg.num_layers * sum(
+        s["schedule"]["rounds"] for s in streams.values()),
+        f"lm_moe launches {counts}")
+    check(all(n == 0 for k, n in counts.items()
+              if k != "flash_attention_kernel"),
+          f"lm_moe: other kernels launched {counts}")
+    max_mem = torch.cuda.max_memory_allocated()
+    routing = moe_vs_cpu(cfg, model, dev,
+                         moe_input(cfg, model, dev, reqs["b"]))
+    (_, spec_a, _) = LM_STREAMS[0]
+    width = max(streams["a"]["schedule"]["batch_hist"])
+    drops = moe_decode_drops(cfg, model, dev, width, spec_a["prompt_len"],
+                             spec_a["max_seq"])
+    profile_a = lm_decode_profile(cfg, model, dev, width,
+                                  spec_a["prompt_len"], spec_a["max_seq"])
+    decode = lm_decode_vs_full(cfg, model, dev, faults=MOE_FAULTS,
+                               moe_dense=True)
+    del model, reqs
+    torch.cuda.empty_cache()
+    twin = lm_twin(cfg, dev)
+    torch.cuda.empty_cache()
+    emit("lm_moe", arch=MOE_ARCH, layers=cfg.num_layers,
+         d_model=cfg.d_model, heads=[cfg.num_heads, cfg.head_dim],
+         kv_heads=cfg.num_kv_heads, experts=[cfg.num_experts,
+                                            cfg.experts_per_token],
+         d_ff=cfg.d_ff, vocab=cfg.vocab_size, params=n_params,
+         active_params=cfg.active_param_count(), dtype="bfloat16",
+         init_s=init_s, streams=streams, launches=counts,
+         max_memory_allocated=max_mem, prefill_routing_vs_cpu=routing,
+         decode_drops=drops, decode_profile=profile_a,
+         decode_vs_full=decode, float32_twin=twin,
+         card=torch.cuda.get_device_name(0),
+         phase_s=time.perf_counter() - t_phase)
+    return counts
+
+
+def zoo_arch(arch: str, layers: int, dev, seed: int) -> tuple:
+    """One arch of lm_zoo: (its report, its launch counts, layer 0's
+    flash inputs of its prefill batch)."""
+    cfg = dataclasses.replace(lm_configs.get_arch(arch), num_layers=layers)
+    t0 = time.perf_counter()
+    model = lm.init_params(cfg, dtype=torch.bfloat16, device=dev, seed=seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    B, S = ZOO_PREFILL
+    batch = lm_batch(cfg, dev, (B, S), seed)
+    frames = lm_batch(cfg, dev, (B, ZOO_DECODE_STEPS), seed + 1)
+    heads = (cfg.num_codebooks,) if cfg.num_codebooks > 1 else ()
+    reset_launch_counts()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        logits, caches = lm.prefill(cfg, model, batch, S + ZOO_DECODE_STEPS)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        check(tuple(logits.shape) == (B, 1) + heads + (cfg.vocab_size,)
+              and bool(torch.isfinite(logits.float()).all()),
+              f"lm_zoo {arch}: prefill logits {tuple(logits.shape)}")
+        ring = None
+        if arch == "gemma3-27b":
+            # layer 0's ring after the prefill: positions S-1024 .. S-1 at
+            # slots pos mod 1024, the full forward's own k and v
+            _, k, v = lm_layers.attn_qkv(
+                cfg, model["blocks"][0]["attn"], lm_layers.apply_norm(
+                    cfg, model["blocks"][0]["norm1"], lm.embed_input(
+                        cfg, model, batch, torch.arange(S, device=dev))),
+                torch.arange(S, device=dev), "local")
+            w = cfg.window_size
+            pos = torch.arange(S - w, S, device=dev)
+            check(caches[0]["k"].shape[1] == w
+                  and torch.equal(caches[0]["k"][:, pos % w], k[:, pos])
+                  and torch.equal(caches[0]["v"][:, pos % w], v[:, pos]),
+                  f"lm_zoo {arch}: layer 0's ring after {S} positions")
+            ring = dict(window=w, positions=[S - w, S - 1], equal=True)
+            del k, v
+        step_ms = []
+        nxt = logits
+        for t in range(ZOO_DECODE_STEPS):
+            one = (lm_cut(frames, t, t + 1) if "frames" in frames else
+                   {"tokens": nxt[:, -1].argmax(-1)[:, None]})
+            t0 = time.perf_counter()
+            nxt, caches = lm.decode_step(cfg, model, caches, S + t, one)
+            nxt.float().sum().item()                 # read back, as served
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        check(bool(torch.isfinite(nxt.float()).all()),
+              f"lm_zoo {arch}: decode logits")
+    counts = launch_counts()
+    check(counts["flash_attention_kernel"] == layers
+          and all(n == 0 for k, n in counts.items()
+                  if k != "flash_attention_kernel"),
+          f"lm_zoo {arch}: launches {counts}")
+    del caches
+    attn_in = layer0_attention(cfg, model, batch)
+    gates = {"decode_vs_full": lm_decode_vs_full(
+        cfg, model, dev, faults=ZOO_FAULTS, moe_dense=cfg.moe)}
+    if arch == "gemma3-27b":
+        gates["ring_wrap"] = lm_decode_vs_full(
+            cfg, model, dev, faults=("ring_slot",), sizes=GEMMA_RING_CHECK)
+    params = sum(p.numel() for p in model.parameters())
+    del model
+    torch.cuda.empty_cache()
+    report = dict(layers=[layers, lm_configs.get_arch(arch).num_layers],
+                  d_model=cfg.d_model, heads=[cfg.num_heads, cfg.head_dim],
+                  kv_heads=cfg.num_kv_heads, d_ff=cfg.d_ff,
+                  vocab=cfg.vocab_size, params=params, init_s=init_s,
+                  prefill=list(ZOO_PREFILL), prefill_ms=prefill_ms,
+                  decode_ms=step_ms, logits=list(nxt.shape), ring=ring,
+                  launches=counts, **gates)
+    return report, counts, attn_in
+
+
+def phase_lm_zoo(dev) -> tuple[dict, dict]:
+    """The other attention archs at published widths (ZOO's depths), one
+    after another, each freed before the next is drawn.  Returns the
+    summed launch counts of their prefill and decode runs, and layer 0's
+    flash inputs of Gemma-3's (local, window 1024) and MusicGen's (D 64)
+    prefill batches."""
+    t_phase = time.perf_counter()
+    archs, total, attn = {}, {}, {}
+    for i, (arch, layers) in enumerate(ZOO):
+        archs[arch], counts, attn_in = zoo_arch(arch, layers, dev,
+                                                LM_SEED + i)
+        total = {k: total.get(k, 0) + n for k, n in counts.items()}
+        if arch == "gemma3-27b":
+            attn["window"] = (attn_in, lm_configs.get_arch(arch).window_size)
+        elif arch == "musicgen-large":
+            attn["musicgen"] = (attn_in, 0)
+        else:
+            del attn_in
+    emit("lm_zoo", archs=archs, launches=total,
+         card=torch.cuda.get_device_name(0),
+         phase_s=time.perf_counter() - t_phase)
+    return total, attn
 
 
 def phase_dnn(dev) -> dict:
@@ -2923,12 +3322,21 @@ def attention_inputs(dev, s, dtype, seed):
                         dtype=torch.float32).to(dtype) for _ in range(3)]
 
 
-def attention_plain(q, k, v, causal=True):
+def attention_plain(q, k, v, causal=True, window=0):
     """The plain version on the op's (B, S, H, D) layout."""
     B, S, H, D = q.shape
     fold = lambda t: t.transpose(1, 2).reshape(B * H, S, D)
-    return flash_attention_ref(fold(q), fold(k), fold(v), causal=causal
+    return flash_attention_ref(fold(q), fold(k), fold(v), causal=causal,
+                               window=window
                                ).reshape(B, H, S, D).transpose(1, 2)
+
+
+def band_pairs(S: int, window: int) -> int:
+    """(query, key) pairs a causal prefill of S scores, within ``window``
+    keys of each query (0: no window)."""
+    if not window or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
 
 
 def phase_attention(dev) -> tuple[dict, dict]:
@@ -2965,13 +3373,16 @@ def phase_attention(dev) -> tuple[dict, dict]:
     return counts, {dt: (ins[dt], outs[dt], wants[dt]) for dt in ins}
 
 
-def phase_accel_kernels(dev, log: tuple, attn: dict, lm_attn: tuple) -> list:
+def phase_accel_kernels(dev, log: tuple, attn: dict, lm_attn: tuple,
+                        zoo_attn: dict) -> list:
     """The kernel rows of phases 12-14 at their paths' shapes: mac_conv2d
     at VGG-16 conv3 (and batch 32 of it), fx_log at phase 13's 2^20
     values, flash_attention_kernel at phase 16's LM prefill (layer 0 of
     stream (b): (4, 4096, 32, 128) bf16; and phase 14's batch 1 and its
-    float32 S = 1024); ``log`` and ``attn`` are phases 13 and 14's
-    inputs, outputs and plain outputs, ``lm_attn`` phase 16's q, k, v."""
+    float32 S = 1024, and lm_zoo's layer 0 inputs: Gemma-3's local layer,
+    window 1024, and MusicGen's D = 64); ``log`` and ``attn`` are phases
+    13 and 14's inputs, outputs and plain outputs, ``lm_attn`` phase 16's
+    q, k, v, ``zoo_attn`` lm_zoo's ((q, k, v), window)."""
     flush = l2_flusher(dev)
     rows = []
 
@@ -3068,27 +3479,42 @@ def phase_accel_kernels(dev, log: tuple, attn: dict, lm_attn: tuple) -> list:
                main_path="elementary (fx_log op)")
 
     # flash attention at the GLM-4-9B prefill (bf16), then float32 S=1024;
-    # library: scaled_dot_product_attention on the (B, H, S, D) views
-    def sdpa(q, k, v):
+    # library: scaled_dot_product_attention on the (B, H, S, D) views,
+    # causal, or with the window's band as a boolean attn_mask
+    def sdpa(q, k, v, mask=None):
         return torch.nn.functional.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=True).transpose(1, 2)
+            attn_mask=mask, is_causal=mask is None).transpose(1, 2)
 
-    def attn_row(rows, entry, ops_per_s, iters, tol=None, **extra):
+    def attn_row(rows, entry, ops_per_s, iters, tol=None, window=0,
+                 **extra):
+        """The flash row on ``entry``'s inputs; the bound counts the
+        scores the band keeps (two products of 2 D operations a
+        score)."""
         (q, k, v), got, want = entry
         B, S, H, D = q.shape
-        lib_kernels = device_kernels(lambda: sdpa(q, k, v), 3)[0]
+        mask = None
+        if window:
+            i = torch.arange(S, device=q.device)
+            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None]
+                                                 - window)
+        lib = lambda: sdpa(q, k, v, mask)
+        lib_kernels = device_kernels(lib, 3)[0]
         kernel_row(
             rows, flush, "flash_attention_kernel",
             "src/repro_torch/csrc/flash_attn.cu",
             "src/repro/kernels/flash_attn/flash_attn.py:32",
-            lambda: flash_attention_kernel(q, k, v),
-            lambda: attention_plain(q, k, v), got, want,
-            4 * q.numel() * q.element_size(), 2 * S * S * D * H * B, iters,
-            3, library=lambda: sdpa(q, k, v), ops_per_s=ops_per_s,
+            lambda: flash_attention_kernel(q, k, v, window=window),
+            lambda: attention_plain(q, k, v, window=window), got, want,
+            4 * q.numel() * q.element_size(),
+            4 * band_pairs(S, window) * D * H * B, iters,
+            3, library=lib, ops_per_s=ops_per_s,
             tol=tol or ATTN_TOL[q.dtype], prof_iters=5, shape=list(q.shape),
             dtype=str(q.dtype).removeprefix("torch."), causal=True,
-            library_call="scaled_dot_product_attention(is_causal=True)",
+            window=window,
+            library_call=("scaled_dot_product_attention(attn_mask=band)"
+                          if window else
+                          "scaled_dot_product_attention(is_causal=True)"),
             library_kernels=sorted(lib_kernels, key=lambda n:
                                    -lib_kernels[n][1])[:3],
             **extra)
@@ -3111,25 +3537,37 @@ def phase_accel_kernels(dev, log: tuple, attn: dict, lm_attn: tuple) -> list:
     # version applied to |v|, in float32) + 2^-8 |got| + 2^-8 |want|; the
     # last term is taken as rtol 2^-7, whose other half covers float32's
     # order and ex2.approx (2^-22)
-    lq, lk, lv = lm_attn
-    lm_got = flash_attention_kernel(lq, lk, lv)
-    lm_want = attention_plain(lq, lk, lv)
-    lm_atol = 2.0 ** -8 * (attention_plain(lq.float(), lk.float(),
-                                           lv.abs().float())
-                           + lm_got.float().abs())
-    lm_tol = (lm_atol, 2.0 ** -7)
-    attn_row(rows, ((lq, lk, lv), lm_got, lm_want), BF16_TENSOR_OPS_PER_S,
-             5, tol=lm_tol,
-             main_path="lm_serve prefill (GLM-4-9B layer 0, stream b)",
-             tolerance_atol="2^-8 (sum_k p_k |v_k| + |got|)",
-             limit_share=float(((lm_got.float() - lm_want.float()).abs() / (
-                 lm_atol + lm_tol[1] * lm_want.float().abs())).max()),
-             # beside it, the share of atol 4e-3 with rtol 2^-6
-             limit_share_4e3_2m6=float(((lm_got.float() - lm_want.float())
-                                        .abs() / (4e-3 + 2.0 ** -6
-                                                  * lm_want.float().abs())
-                                        ).max()),
-             other_shapes=[at_b1, at_f32])
+    def model_row(rows, qkv, window, **extra):
+        """A row at a model's own layer-0 input, held at the per-element
+        bound above."""
+        lq, lk, lv = qkv
+        lm_got = flash_attention_kernel(lq, lk, lv, window=window)
+        lm_want = attention_plain(lq, lk, lv, window=window)
+        lm_atol = 2.0 ** -8 * (attention_plain(lq.float(), lk.float(),
+                                               lv.abs().float(),
+                                               window=window)
+                               + lm_got.float().abs())
+        lm_tol = (lm_atol, 2.0 ** -7)
+        share = lambda atol, rtol: float(((lm_got.float() - lm_want.float())
+                                          .abs() / (atol + rtol * lm_want
+                                                    .float().abs())).max())
+        return attn_row(
+            rows, (qkv, lm_got, lm_want), BF16_TENSOR_OPS_PER_S, 5,
+            tol=lm_tol, window=window,
+            tolerance_atol="2^-8 (sum_k p_k |v_k| + |got|)",
+            limit_share=share(lm_atol, lm_tol[1]),
+            # beside it, the share of atol 4e-3 with rtol 2^-6
+            limit_share_4e3_2m6=share(4e-3, 2.0 ** -6), **extra)
+    zoo_rows = []
+    for key, what in (("window", "lm_zoo prefill (Gemma-3-27B layer 0, "
+                                 "local, window 1024): row 8w"),
+                      ("musicgen", "lm_zoo prefill (MusicGen-large layer 0, "
+                                   "frames, D 64): row 8m")):
+        qkv, window = zoo_attn[key]
+        zoo_rows.append(model_row([], qkv, window, shape_tag=what))
+    model_row(rows, lm_attn, 0,
+              main_path="lm_serve prefill (GLM-4-9B layer 0, stream b)",
+              other_shapes=[at_b1, at_f32] + zoo_rows)
     return rows
 
 
@@ -3145,6 +3583,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    t_script = time.perf_counter()
     dev = torch.device("cuda")
     # the plain versions' float32 products in full float32, not TF32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3171,6 +3610,8 @@ def main() -> int:
     paths.update(phase_serve(dev))
     paths.update(phase_route_opt(dev))
     paths["lm_serve"], lm_attn = phase_lm_serve(dev)
+    paths["lm_moe"] = phase_lm_moe(dev)
+    paths["lm_zoo"], zoo_attn = phase_lm_zoo(dev)
     paths["dnn_pipeline"] = phase_dnn(dev)
     paths["mac_efficiency"] = phase_mac_efficiency(dev)
     paths["dnn_layers"] = phase_dnn_layers(dev)
@@ -3178,8 +3619,8 @@ def main() -> int:
     paths["attention"], attn = phase_attention(dev)
     rows = phase_kernels(dev, sim, prog, main, main_event, farm_rows,
                          farm_links, farm_main, farm_noc, encode_ops, sass)
-    rows += phase_accel_kernels(dev, log, attn, lm_attn)
-    del log, attn, lm_attn
+    rows += phase_accel_kernels(dev, log, attn, lm_attn, zoo_attn)
+    del log, attn, lm_attn, zoo_attn
     # each kernel's launches on the path it was checked at
     home = {"event_link_loads": "hybrid_farm_4096pe", "mac_gemm": "hybrid",
             "compact_lanes": "event_ring_4096pe",
@@ -3192,6 +3633,7 @@ def main() -> int:
     del sim, ev_sim, prog
     torch.cuda.empty_cache()
     phase_parity(dev)
+    emit("script", seconds=time.perf_counter() - t_script)
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """Config registry: the paper's constants (``paper``) and the LM
-architectures the port runs.  Importing this package registers the two
-dense transformers ported so far (``glm4-9b``, ``qwen1.5-4b``);
-``get_arch`` of another assigned architecture raises a ``KeyError``
-naming what it still needs."""
+architectures the port runs.  Importing this package registers every
+attention-based architecture (the dense transformers, the two MoE
+models, Gemma-3's local windows, Chameleon and MusicGen); ``get_arch`` of
+a recurrent one (RG-LRU, RWKV-6) raises a ``KeyError`` naming what it
+still needs."""
 from repro_torch.configs.base import (
     NOT_PORTED,
     SHAPES,
@@ -14,8 +15,15 @@ from repro_torch.configs.base import (
     register,
     shape_applicable,
 )
+# Importing registers each architecture.
+from repro_torch.configs.phi35_moe import PHI35_MOE
+from repro_torch.configs.olmoe import OLMOE
+from repro_torch.configs.gemma3_27b import GEMMA3_27B
 from repro_torch.configs.glm4_9b import GLM4_9B
+from repro_torch.configs.nemotron4_15b import NEMOTRON4_15B
 from repro_torch.configs.qwen15_4b import QWEN15_4B
+from repro_torch.configs.chameleon_34b import CHAMELEON_34B
+from repro_torch.configs.musicgen_large import MUSICGEN_LARGE
 
 from repro_torch.configs import paper
 
@@ -35,5 +43,6 @@ ASSIGNED = [
 __all__ = [
     "ArchConfig", "ShapeSpec", "SHAPES", "all_archs", "cells", "get_arch",
     "register", "shape_applicable", "paper", "ASSIGNED", "NOT_PORTED",
-    "GLM4_9B", "QWEN15_4B",
+    "PHI35_MOE", "OLMOE", "GEMMA3_27B", "GLM4_9B", "NEMOTRON4_15B",
+    "QWEN15_4B", "CHAMELEON_34B", "MUSICGEN_LARGE",
 ]

@@ -258,17 +258,11 @@ def shape_applicable(arch: ArchConfig, shape: ShapeSpec) -> bool:
 _REGISTRY: dict = {}
 
 # assigned architectures not registered in the port, and what they need
-# (ROADMAP queue A, item 5: the LM stack's second half)
+# (ROADMAP queue A, item 5: the recurrent families)
 NOT_PORTED = {
-    "phi3.5-moe-42b-a6.6b": "mixture-of-experts layers (models/moe.py)",
-    "olmoe-1b-7b": "mixture-of-experts layers (models/moe.py)",
-    "gemma3-27b": "local-window attention with ring caches",
-    "nemotron-4-15b": "its config (a later slice of the LM stack)",
-    "chameleon-34b": "the vq_image modality frontend",
     "rwkv6-1.6b": "the RWKV-6 time and channel mixing (models/rwkv6.py)",
-    "musicgen-large": "the encodec frontend and multi-codebook heads",
     "recurrentgemma-2b": "RG-LRU blocks (models/rglru.py) and local "
-                         "attention",
+                         "attention at head_dim 256",
 }
 
 

@@ -14,7 +14,13 @@
 // causal mask, output acc / max(l, 1e-30) in the input type.  Under the
 // causal mask the kv tiles wholly above the diagonal are skipped (there
 // p is 0, m is unchanged and the correction is 1, so skipping is exact)
-// and the heaviest query tiles are scheduled first.  Rows and columns past
+// and the heaviest query tiles are scheduled first.  A sliding window
+// (``window`` > 0, the band of the reference's model attention,
+// layers.py::_mask: key j meets query i when i - window < j <= i) also
+// starts each block's kv loop at the first tile that meets its first
+// row's band, tile max(0, q0 - window + 1) / TK, and masks the keys at or
+// past ``window`` behind the row; m then starts at -1e30 rather than
+// -inf, so that a row's tiles before its band leave it unchanged.  Rows and columns past
 // S are zero-filled and masked, so any S works.  q, k, v and the output
 // are read and written in the op's (B, S, H, D) layout, without a
 // transpose.
@@ -200,13 +206,13 @@ __device__ __forceinline__ float quad_sum(float x) {
 // (t % 32) / 4 + 8 h, column 8 j + 2 (t % 4) + i;
 // wgmma's register A operand for k step ks is the same rows and columns
 // 16 ks .. 16 ks + 15, so p packs straight from the score accumulator.
-template <int NCH, bool VEC>
+template <int NCH, bool VEC, bool WIN>
 __global__ void __launch_bounds__(TC_THREADS, 2)
     flash_attn_wgmma_kernel(const bf16* __restrict__ q,
                             const bf16* __restrict__ k,
                             const bf16* __restrict__ v, bf16* __restrict__ o,
                             int S, int H, int D, float scale_log2,
-                            int causal) {
+                            int causal, int window) {
   using L = TcSmem<NCH>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sq =
@@ -219,17 +225,24 @@ __global__ void __launch_bounds__(TC_THREADS, 2)
   const int b = blockIdx.y / H, h = blockIdx.y % H;
   const int64_t rs = static_cast<int64_t>(H) * D;
   const int64_t base = (static_cast<int64_t>(b) * S * H + h) * D;
-  const int n_kv = causal ? min((S + TK - 1) / TK, (q0 + TQ - 1) / TK + 1)
-                          : (S + TK - 1) / TK;
+  // kv tiles j0 .. j0 + n_kv - 1: from the first tile that meets the
+  // window's band (0 without a window) to the last below the diagonal
+  const int j0 = WIN ? max(0, q0 - window + 1) / TK : 0;
+  const int n_kv = (causal ? min((S + TK - 1) / TK, (q0 + TQ - 1) / TK + 1)
+                           : (S + TK - 1) / TK) - j0;
   const int row0 = q0 + 16 * (tid / 32) + (tid % 32) / 4;
   const int col0 = 2 * (tid % 4);
 
   stage_tc<TQ, NCH, VEC>(sq, q + base, rs, q0, S, D, tid);
-  stage_tc<TK, NCH, VEC>(sk(0), k + base, rs, 0, S, D, tid);
-  stage_tc<TK, NCH, VEC>(sv(0), v + base, rs, 0, S, D, tid);
+  stage_tc<TK, NCH, VEC>(sk(0), k + base, rs, j0 * TK, S, D, tid);
+  stage_tc<TK, NCH, VEC>(sv(0), v + base, rs, j0 * TK, S, D, tid);
   sm90::cp_async_commit();
 
-  float acc[NCH][32], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  // under a window a row may meet a tile wholly outside its band before
+  // its first key: m starts finite there, so that such a tile leaves
+  // m, l and acc as they are (p = exp2(-inf) = 0, correction 1)
+  const float m0 = WIN ? -1e30f : kNegInf;
+  float acc[NCH][32], m[2] = {m0, m0}, l[2] = {0.f, 0.f};
   uint32_t qf[4 * NCH][4];           // Q's register operand, k step ks
 #pragma unroll
   for (int c = 0; c < NCH; ++c) {
@@ -266,20 +279,26 @@ __global__ void __launch_bounds__(TC_THREADS, 2)
     }
     sm90::wgmma_commit();
   };
-  // online softmax of tile j's raw scores sc, m in log2 units of the
-  // scaled scores.  Masked scores (edge tiles only) become -inf, so their
-  // p is exp2(-inf) = 0, as the reference's -1e30 gives; no row's max is
-  // -inf after tile 0, whose column 0 every row keeps.  Maxima and sums
-  // are trees, p = exp2(s scale log2(e) - m) one FFMA and one MUFU.EX2.
+  // online softmax of tile j0 + j's raw scores sc, m in log2 units of
+  // the scaled scores.  Masked scores (edge tiles only: past S, above the
+  // diagonal, at or past ``window`` behind the row) become -inf, so their
+  // p is exp2(-inf) = 0, as the reference's -1e30 gives; without a window
+  // no row's max is -inf after tile 0, whose column 0 every row keeps.
+  // Maxima and sums are trees, p = exp2(s scale log2(e) - m) one FFMA and
+  // one MUFU.EX2.
   auto softmax = [&](float (&sc)[32], int j, uint32_t (&p)[16],
                      float (&corr)[2]) {
-    const int k0 = j * TK;
-    if (k0 + TK > S || (causal && k0 + TK - 1 > q0)) {
+    const int k0 = (j0 + j) * TK;
+    if (k0 + TK > S || (causal && k0 + TK - 1 > q0) ||
+        (WIN && k0 <= q0 + TQ - 1 - window)) {
 #pragma unroll
       for (int e = 0; e < 32; ++e) {
         const int row = row0 + 8 * ((e / 2) % 2);
         const int col = k0 + 8 * (e / 4) + col0 + e % 2;
-        if (col >= S || (causal && col > row)) sc[e] = kNegInf;
+        if (col >= S || (causal && col > row) ||
+            (WIN && col <= row - window)) {
+          sc[e] = kNegInf;
+        }
       }
     }
 #pragma unroll
@@ -321,8 +340,10 @@ __global__ void __launch_bounds__(TC_THREADS, 2)
   auto load_tile = [&](int j) {
     if (j < n_kv) {
       const int st = j % KV_STAGES;
-      stage_tc<TK, NCH, VEC>(sk(st), k + base, rs, j * TK, S, D, tid);
-      stage_tc<TK, NCH, VEC>(sv(st), v + base, rs, j * TK, S, D, tid);
+      stage_tc<TK, NCH, VEC>(sk(st), k + base, rs, (j0 + j) * TK, S, D,
+                             tid);
+      stage_tc<TK, NCH, VEC>(sv(st), v + base, rs, (j0 + j) * TK, S, D,
+                             tid);
     }
     sm90::cp_async_commit();
   };
@@ -670,13 +691,13 @@ __device__ __forceinline__ void tf32_rs_k8(float (&d)[N / 2],
 // 8 j + t % 4 and 8 j + t % 4 + 4 of it: so column 2 q (q = t % 4) is
 // passed as A column q and column 2 q + 1 as A column q + 4, and V^T's k
 // positions are permuted to match (VTile).
-template <int NCH>
+template <int NCH, bool WIN>
 __global__ void __launch_bounds__(F_THREADS, 1)
     flash_attn_tf32_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ o,
                            int S, int H, int D, float scale_log2, int causal,
-                           int vec) {
+                           int window, int vec) {
   using L = F32Smem<NCH>;
   constexpr int DN = 32 * NCH;       // O's columns: D zero-filled to DN
   extern __shared__ uint8_t smem_raw[];
@@ -692,10 +713,14 @@ __global__ void __launch_bounds__(F_THREADS, 1)
   const int b = blockIdx.y / H, h = blockIdx.y % H;
   const int64_t rs = static_cast<int64_t>(H) * D;
   const int64_t base = (static_cast<int64_t>(b) * S * H + h) * D;
-  // both consumers walk every kv tile of the block: tiles wholly above
-  // the first consumer's rows are masked there (p = 0, correction 1)
-  const int n_kv = causal ? min((S + FK - 1) / FK, (q0 + FBQ - 1) / FK + 1)
-                          : (S + FK - 1) / FK;
+  // both consumers walk every kv tile of the block, j0 .. j0 + n_kv - 1
+  // (j0: the first tile that meets the band of the block's first row
+  // under a window, else 0): tiles wholly above the first consumer's
+  // rows, or wholly behind the second's band, are masked there (p = 0,
+  // correction 1)
+  const int j0 = WIN ? max(0, q0 - window + 1) / FK : 0;
+  const int n_kv = (causal ? min((S + FK - 1) / FK, (q0 + FBQ - 1) / FK + 1)
+                           : (S + FK - 1) / FK) - j0;
   const int wg = threadIdx.x / 128;
 
   if (wg == F_CONSUMERS) {           // producer
@@ -715,12 +740,12 @@ __global__ void __launch_bounds__(F_THREADS, 1)
     // registers beforehand
     RowTile<FK, NCH, 2 * FK, 128> kt;      // hi rows 0-31, lo rows 32-63
     VTile<NCH, 128> vt;
-    kt.load(k + base, rs, 0, S, D, pt, vec);
-    vt.load(v + base, rs, 0, S, D, pt, vec);
+    kt.load(k + base, rs, j0 * FK, S, D, pt, vec);
+    vt.load(v + base, rs, j0 * FK, S, D, pt, vec);
     kt.store(kt_s, kt_s + FK * 128, pt);
     sm90::fence_proxy_async();
     bar_arrive<F_THREADS>(kBarKFull);
-    if (n_kv > 1) kt.load(k + base, rs, FK, S, D, pt, vec);
+    if (n_kv > 1) kt.load(k + base, rs, (j0 + 1) * FK, S, D, pt, vec);
     for (int j = 0; j < n_kv; ++j) {
       if (j + 1 < n_kv) {
         bar_sync<F_THREADS>(kBarKEmpty);
@@ -728,14 +753,16 @@ __global__ void __launch_bounds__(F_THREADS, 1)
         sm90::fence_proxy_async();
         bar_arrive<F_THREADS>(kBarKFull);
         if (j + 2 < n_kv) {
-          kt.load(k + base, rs, (j + 2) * FK, S, D, pt, vec);
+          kt.load(k + base, rs, (j0 + j + 2) * FK, S, D, pt, vec);
         }
       }
       if (j > 0) bar_sync<F_THREADS>(kBarVEmpty);
       vt.store(vh, vl, pt);
       sm90::fence_proxy_async();
       bar_arrive<F_THREADS>(kBarVFull);
-      if (j + 1 < n_kv) vt.load(v + base, rs, (j + 1) * FK, S, D, pt, vec);
+      if (j + 1 < n_kv) {
+        vt.load(v + base, rs, (j0 + j + 1) * FK, S, D, pt, vec);
+      }
     }
     return;
   }
@@ -744,7 +771,9 @@ __global__ void __launch_bounds__(F_THREADS, 1)
   const int tid = threadIdx.x % 128;
   const int row0 = qw0 + 16 * (tid / 32) + (tid % 32) / 4;
   const int col0 = 2 * (tid % 4);
-  float acc[DN / 2], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  // finite under a window, as in the bf16 kernel
+  const float m0 = WIN ? -1e30f : kNegInf;
+  float acc[DN / 2], m[2] = {m0, m0}, l[2] = {0.f, 0.f};
 #pragma unroll
   for (int i = 0; i < DN / 2; ++i) acc[i] = 0.f;
 
@@ -787,17 +816,22 @@ __global__ void __launch_bounds__(F_THREADS, 1)
     }
     sm90::wgmma_commit();
   };
-  // online softmax of tile j's raw scores sc[0-15], in place, as in the
-  // bf16 kernel (m in log2 units of the scaled scores; -inf masks on edge
-  // tiles only; no row's max is -inf after tile 0)
+  // online softmax of tile j0 + j's raw scores sc[0-15], in place, as
+  // in the bf16 kernel (m in log2 units of the scaled scores; -inf masks
+  // on edge tiles only; without a window no row's max is -inf after tile
+  // 0)
   auto softmax = [&](float (&sc)[32], int j, float (&corr)[2]) {
-    const int k0 = j * FK;
-    if (k0 + FK > S || (causal && k0 + FK - 1 > qw0)) {
+    const int k0 = (j0 + j) * FK;
+    if (k0 + FK > S || (causal && k0 + FK - 1 > qw0) ||
+        (WIN && k0 <= qw0 + FQ - 1 - window)) {
 #pragma unroll
       for (int e = 0; e < 16; ++e) {
         const int row = row0 + 8 * ((e / 2) % 2);
         const int col = k0 + 8 * (e / 4) + col0 + e % 2;
-        if (col >= S || (causal && col > row)) sc[e] = kNegInf;
+        if (col >= S || (causal && col > row) ||
+            (WIN && col <= row - window)) {
+          sc[e] = kNegInf;
+        }
       }
     }
 #pragma unroll
@@ -907,11 +941,11 @@ __global__ void __launch_bounds__(F_THREADS, 1)
 
 namespace {
 
-template <int NCH>
+template <int NCH, bool WIN>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int S, int H, int D, float scale, int causal, int vec,
-               cudaStream_t st) {
-  auto kernel = flash_attn_tf32_kernel<NCH>;
+               int S, int H, int D, float scale, int causal, int window,
+               int vec, cudaStream_t st) {
+  auto kernel = flash_attn_tf32_kernel<NCH, WIN>;
   constexpr int smem = F32Smem<NCH>::kBytes;
   static bool configured = false;    // above 48 KB only when allowed
   if (!configured) {
@@ -924,14 +958,15 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
   kernel<<<grid, F_THREADS, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), S, H, D,
-      scale * 1.4426950408889634f, causal, vec);   // log2(e)
+      scale * 1.4426950408889634f, causal, window, vec);   // log2(e)
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NCH, bool VEC>
+template <int NCH, bool VEC, bool WIN>
 int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
-              int S, int H, int D, float scale, int causal, cudaStream_t st) {
-  auto kernel = flash_attn_wgmma_kernel<NCH, VEC>;
+              int S, int H, int D, float scale, int causal, int window,
+              cudaStream_t st) {
+  auto kernel = flash_attn_wgmma_kernel<NCH, VEC, WIN>;
   constexpr int smem = TcSmem<NCH>::kBytes;
   static bool configured = false;    // above 48 KB only when allowed
   if (!configured) {
@@ -944,36 +979,60 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
   kernel<<<grid, TC_THREADS, smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), S, H, D,
-      scale * 1.4426950408889634f, causal);      // log2(e)
+      scale * 1.4426950408889634f, causal, window);      // log2(e)
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q, k, v, o: (B, S, H, D) contiguous, D <= 128; bf16 != 0 selects
-// bfloat16, else float32
+// q, k, v, o: (B, S, H, D) contiguous, D <= 128; window > 0: query i
+// sees keys j > i - window only; bf16 != 0 selects bfloat16, else float32
 extern "C" int repro_flash_attn(const void* q, const void* k, const void* v,
                                 void* o, int32_t B, int32_t S, int32_t H,
                                 int32_t D, float scale, int32_t causal,
-                                int32_t bf16, void* stream) {
+                                int32_t window, int32_t bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool aligned = ((reinterpret_cast<uintptr_t>(q) |
                          reinterpret_cast<uintptr_t>(k) |
                          reinterpret_cast<uintptr_t>(v) |
                          reinterpret_cast<uintptr_t>(o)) & 15) == 0;
+  // each kernel has an instantiation without the window's arithmetic
+  // (window 0: the causal kernels as they were) and one with it
+  const bool win = window > 0;
   if (!bf16) {
     const int vec = D % 4 == 0 && aligned;
-    return D <= 64 ? launch_f32<2>(q, k, v, o, B, S, H, D, scale, causal,
-                                   vec, st)
-                   : launch_f32<4>(q, k, v, o, B, S, H, D, scale, causal,
-                                   vec, st);
+    if (D <= 64) {
+      return win ? launch_f32<2, true>(q, k, v, o, B, S, H, D, scale, causal,
+                                       window, vec, st)
+                 : launch_f32<2, false>(q, k, v, o, B, S, H, D, scale,
+                                        causal, window, vec, st);
+    }
+    return win ? launch_f32<4, true>(q, k, v, o, B, S, H, D, scale, causal,
+                                     window, vec, st)
+               : launch_f32<4, false>(q, k, v, o, B, S, H, D, scale, causal,
+                                      window, vec, st);
   }
   const bool vec = D % 8 == 0 && aligned;
   if (D <= 64) {
-    return vec ? launch_tc<1, true>(q, k, v, o, B, S, H, D, scale, causal, st)
-               : launch_tc<1, false>(q, k, v, o, B, S, H, D, scale, causal,
-                                     st);
+    if (vec) {
+      return win ? launch_tc<1, true, true>(q, k, v, o, B, S, H, D, scale,
+                                            causal, window, st)
+                 : launch_tc<1, true, false>(q, k, v, o, B, S, H, D, scale,
+                                             causal, window, st);
+    }
+    return win ? launch_tc<1, false, true>(q, k, v, o, B, S, H, D, scale,
+                                           causal, window, st)
+               : launch_tc<1, false, false>(q, k, v, o, B, S, H, D, scale,
+                                            causal, window, st);
   }
-  return vec ? launch_tc<2, true>(q, k, v, o, B, S, H, D, scale, causal, st)
-             : launch_tc<2, false>(q, k, v, o, B, S, H, D, scale, causal, st);
+  if (vec) {
+    return win ? launch_tc<2, true, true>(q, k, v, o, B, S, H, D, scale,
+                                          causal, window, st)
+               : launch_tc<2, true, false>(q, k, v, o, B, S, H, D, scale,
+                                           causal, window, st);
+  }
+  return win ? launch_tc<2, false, true>(q, k, v, o, B, S, H, D, scale,
+                                         causal, window, st)
+             : launch_tc<2, false, false>(q, k, v, o, B, S, H, D, scale,
+                                          causal, window, st);
 }

@@ -12,16 +12,21 @@ from repro_torch.kernels._wrap import on_cpu
 from repro_torch.kernels.flash_attn.ref import flash_attention_ref
 
 _ARGS = (ctypes.c_void_p,) * 4 + (ctypes.c_int32,) * 4 + (
-    ctypes.c_float, ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p)
+    ctypes.c_float, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+    ctypes.c_void_p)
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 128
 _MAX_HEADS = 65535                 # gridDim.y: one row of blocks per (b, h)
 
 
-def flash_attention_kernel(q, k, v, *, causal=True, bq=128, bk=128):
+def flash_attention_kernel(q, k, v, *, causal=True, window=0, bq=128,
+                           bk=128):
     """q, k, v: (B, S, H, D) float32 or bfloat16, KV already expanded to
     H heads -> (B, S, H, D) softmax attention in q's dtype, scale
-    1/sqrt(D), float32 inside.
+    1/sqrt(D), float32 inside.  ``window`` > 0 is a sliding window: query
+    i sees keys j > i - window (the reference's model attention's band);
+    the kernels start each query tile's kv loop at the first tile inside
+    the band.  0 leaves the plain causal (or full) attention.
 
     ``bq`` and ``bk`` are the reference's query and kv block sizes, kept
     for parity of the signature and ignored: the kernels tile 64
@@ -37,9 +42,13 @@ def flash_attention_kernel(q, k, v, *, causal=True, bq=128, bk=128):
                          f"(B, S, H, D) shape, got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     B, S, H, D = q.shape
+    window = int(window)
+    if window < 0:
+        raise ValueError(f"flash_attention_kernel: window {window} < 0")
     if on_cpu("flash_attention_kernel", q, k, v):
         fold = lambda t: t.transpose(1, 2).reshape(B * H, S, D)
-        out = flash_attention_ref(fold(q), fold(k), fold(v), causal=causal)
+        out = flash_attention_ref(fold(q), fold(k), fold(v), causal=causal,
+                                  window=window)
         return out.reshape(B, H, S, D).transpose(1, 2)
     if not 0 < D <= MAX_HEAD_DIM or B * H > _MAX_HEADS:
         raise ValueError(f"flash_attention_kernel: shape {tuple(q.shape)} "
@@ -49,7 +58,7 @@ def flash_attention_kernel(q, k, v, *, causal=True, bq=128, bk=128):
     if out.numel():
         rc = _build.launcher("repro_flash_attn", _ARGS)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
-            H, D, 1.0 / math.sqrt(D), int(causal),
+            H, D, 1.0 / math.sqrt(D), int(causal), window,
             int(q.dtype == torch.bfloat16), _build.stream_ptr(q.device))
         _build.check(rc, "flash_attention_kernel")
         flash_attention_kernel.launches += 1

@@ -2,10 +2,16 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b \
         --requests 12 --max-new 16
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
         --smoke --device cpu
 
-The reference launcher's flags, plus ``--device`` (default: the CUDA
+Any registered token model: the dense transformers, the MoE configs
+(``olmoe-1b-7b``, ``phi3.5-moe-42b-a6.6b``), Gemma-3's local windows,
+Nemotron-4 and Chameleon (whose VQ image tokens share the text
+vocabulary).  MusicGen's encodec frames do not go through the engine, in
+the reference's engine as in this one: drive its ``prefill`` and
+``decode_step`` on ``{"frames": ...}`` directly.  The reference launcher's
+flags, plus ``--device`` (default: the CUDA
 device) and ``--dtype`` (default: bfloat16), the dtype of both the
 parameters and the activations.  The weights are random, drawn on the
 device from ``--seed``; the prompts come from numpy's generator with the
@@ -41,6 +47,10 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = configs.get_arch(args.arch)
+    if cfg.frontend == "encodec":
+        ap.error(f"{args.arch} takes encodec frames, not tokens: drive "
+                 f"models.transformer.prefill / decode_step with "
+                 f"{{'frames': ...}}")
     if args.smoke:
         cfg = cfg.smoke()
     device = resolve_device(args.device)

@@ -1,4 +1,4 @@
-"""Building blocks of the dense global-attention transformers.
+"""Building blocks of the attention-based transformers.
 
 Parameters are declared as ``PSpec`` trees (shape + init style), as in the
 reference; ``init_params`` turns a tree into tensors drawn from an explicit
@@ -9,9 +9,11 @@ way.
 
 All matmuls run in the activation dtype (bf16 by default) with float32
 accumulation; norms, softmax and rope run in float32.  Prefill attention
-is ``kernels.flash_attention_kernel`` (causal): the hand-written kernel on
-a CUDA tensor, its plain version on a CPU tensor.  Decode attention over
-the cache is ``attention_dense``, as in the reference.
+is ``kernels.flash_attention_kernel`` (causal, with the sliding window of
+a ``"local"`` layer): the hand-written kernel on a CUDA tensor, its plain
+version on a CPU tensor.  Decode attention over the cache is
+``attention_dense``, as in the reference; a local layer's cache is a ring
+of ``window_size`` slots once the sequence can outgrow it.
 """
 from __future__ import annotations
 
@@ -154,6 +156,21 @@ def apply_rope(x, pos, *, base=10_000.0, pct=1.0):
     return torch.cat([out, xp], dim=-1) if rot < D else out
 
 
+@functools.lru_cache(maxsize=16)
+def _sinusoidal_freq(d_model: int, device=None):
+    half = d_model // 2
+    freq = np.exp(-np.log(10_000.0) * np.arange(half) / half)
+    return torch.as_tensor(freq, dtype=torch.float32, device=device)
+
+
+def sinusoidal_emb(pos, d_model: int, dtype=torch.float32):
+    """pos: (...,) -> (..., d_model): [sin | cos] of pos times the
+    frequencies 10000^(-i / (d_model / 2)), in float32, cast to
+    ``dtype``."""
+    ang = pos[..., None].float() * _sinusoidal_freq(d_model, pos.device)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
 # ---------------------------------------------------------------------------
 # Attention
 # ---------------------------------------------------------------------------
@@ -161,18 +178,22 @@ def apply_rope(x, pos, *, base=10_000.0, pct=1.0):
 _NEG = -1e30
 
 
-def _mask(qpos, kpos):
-    """qpos: (Q,), kpos: (K,) -> bool (Q, K), causal."""
-    return kpos[None, :] <= qpos[:, None]
+def _mask(qpos, kpos, window=0):
+    """qpos: (Q,), kpos: (K,) -> bool (Q, K).  Causal, optional sliding
+    window (key positions within ``window`` behind the query)."""
+    m = kpos[None, :] <= qpos[:, None]
+    if window:
+        m &= kpos[None, :] > qpos[:, None] - window
+    return m
 
 
-def attention_dense(q, k, v, qpos, kpos, *, kv_len=None):
+def attention_dense(q, k, v, qpos, kpos, *, window=0, kv_len=None):
     """q: (B,Sq,KH,G,D)  k,v: (B,Sk,KH,D).  Scores and softmax in float32,
     the probabilities cast to v's dtype for the PV product, as in the
     reference (the decode path over the cache)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float()) * scale
-    m = _mask(qpos, kpos)
+    m = _mask(qpos, kpos, window)
     if kv_len is not None:                       # decode: valid cache prefix
         m &= ((kpos < kv_len) & (kpos >= 0))[None, :]
     s = torch.where(m[None, None, None], s, _NEG)
@@ -180,8 +201,9 @@ def attention_dense(q, k, v, qpos, kpos, *, kv_len=None):
     return torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
 
 
-def attention_prefill(q, k, v):
-    """Causal full-sequence attention through the flash kernel.
+def attention_prefill(q, k, v, window=0):
+    """Causal full-sequence attention through the flash kernel, banded to
+    ``window`` keys when it is set.
 
     q: (B,S,KH,G,D), k,v: (B,S,KH,D) -> (B,S,KH,G,D).  Query head
     ``h = kh*G + g`` meets KV head ``kh`` (the reference's
@@ -193,7 +215,8 @@ def attention_prefill(q, k, v):
     qh = q.reshape(B, S, KH * G, D)
     kh = k.repeat_interleave(G, dim=2) if G > 1 else k.contiguous()
     vh = v.repeat_interleave(G, dim=2) if G > 1 else v.contiguous()
-    o = flash_attention_kernel(qh.contiguous(), kh, vh, causal=True)
+    o = flash_attention_kernel(qh.contiguous(), kh, vh, causal=True,
+                               window=window)
     return o.reshape(B, S, KH, G, D)
 
 
@@ -211,11 +234,19 @@ def attn_pspecs(cfg):
     return p
 
 
-def attn_qkv(cfg, p, x, qpos):
+def rope_base(cfg, kind):
+    """Global layers (``"attn"``) take ``rope_base_global`` where the
+    config sets one (Gemma-3: 1e6); local layers keep ``rope_base``."""
+    if kind == "attn" and cfg.rope_base_global:
+        return cfg.rope_base_global
+    return cfg.rope_base
+
+
+def attn_qkv(cfg, p, x, qpos, kind="attn"):
     """Projections, qk-norm and rope: q (B,S,KH,G,D), k and v (B,S,KH,D)."""
     B, S, _ = x.shape
     KH, H, D = cfg.num_kv_heads, cfg.num_heads, cfg.head_dim
-    base = cfg.rope_base_global or cfg.rope_base
+    base = rope_base(cfg, kind)
     q = x @ p["wq"].to(x.dtype)
     k = x @ p["wk"].to(x.dtype)
     v = x @ p["wv"].to(x.dtype)
@@ -240,29 +271,68 @@ def attn_out(cfg, p, o):
     return o.reshape(B, S, cfg.num_heads * cfg.head_dim) @ p["wo"].to(o.dtype)
 
 
-def attn_apply(cfg, p, x, qpos, *, cache=None, kv_len=None):
-    """Global attention of a dense block.  x: (B,S,d).  ``cache`` None:
-    causal full-sequence attention (the flash kernel); returns (out,
-    {"k", "v"}) with this sequence's k and v, from which a prefill builds
-    its cache.  Else a decode step: k and v are written into ``cache`` at
+def ring_slot(kv_len: int, window: int) -> int:
+    """The ring cache's slot for position ``kv_len``."""
+    return kv_len % window
+
+
+@functools.lru_cache(maxsize=64)
+def cached_arange(n: int, device=None):
+    """``torch.arange(n)`` on ``device``, made once: a decode step reads
+    it in every layer."""
+    return torch.arange(n, device=device)
+
+
+def ring_positions(kv_len: int, window: int, device=None):
+    """Absolute position held in each ring slot once position ``kv_len``
+    is written: slot s holds kv_len - ((kv_len mod window - s) mod
+    window); slots not written yet come out negative."""
+    slots = cached_arange(window, device)
+    return kv_len - torch.remainder(kv_len % window - slots, window)
+
+
+def attn_apply(cfg, p, x, qpos, *, kind="attn", cache=None, kv_len=None):
+    """Attention of a block; ``kind`` ``"local"`` bands it to
+    ``cfg.window_size`` keys.  x: (B,S,d).  ``cache`` None: causal
+    full-sequence attention (the flash kernel); returns (out, {"k", "v"})
+    with this sequence's k and v, from which a prefill builds its cache.
+    Else a decode step: k and v are written into ``cache`` in place, at
     slot ``kv_len`` (a host int; clamped to the buffer as
-    ``dynamic_update_slice`` clamps) in place, and q attends over the
-    valid prefix; returns (out, cache)."""
-    q, k, v = attn_qkv(cfg, p, x, qpos)
+    ``dynamic_update_slice`` clamps), or, in a local layer's ring of
+    ``window`` slots, at ``ring_slot(kv_len, window)``; q attends over
+    the valid positions; returns (out, cache)."""
+    window = cfg.window_size if kind == "local" else 0
+    q, k, v = attn_qkv(cfg, p, x, qpos, kind)
     if cache is None:
-        return attn_out(cfg, p, attention_prefill(q, k, v)), {"k": k, "v": v}
+        o = attention_prefill(q, k, v, window)
+        return attn_out(cfg, p, o), {"k": k, "v": v}
     ck, cv = cache["k"], cache["v"]                          # (B,Sc,KH,D)
     S, Sc = x.shape[1], ck.shape[1]
-    slot = min(max(int(kv_len), 0), Sc - S)
+    kv_len = int(kv_len)
+    ring = bool(window) and Sc == window
+    slot = ring_slot(kv_len, window) if ring else kv_len
+    slot = min(max(slot, 0), Sc - S)
     ck[:, slot:slot + S] = k.to(ck.dtype)
     cv[:, slot:slot + S] = v.to(cv.dtype)
-    kpos = torch.arange(Sc, device=x.device)
-    o = attention_dense(q, ck, cv, qpos, kpos, kv_len=int(kv_len) + 1)
+    kpos = (ring_positions(kv_len, window, x.device) if ring
+            else cached_arange(Sc, x.device))
+    o = attention_dense(q, ck, cv, qpos, kpos, window=window,
+                        kv_len=kv_len + 1)
     return attn_out(cfg, p, o), cache
 
 
-def init_attn_cache(cfg, batch, max_seq, dtype=torch.bfloat16, device=None):
-    shape = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+def cache_len(cfg, max_seq: int, kind: str) -> int:
+    """A layer's cache length: ``min(max_seq, window_size)`` for a local
+    layer, else ``max_seq``."""
+    if kind == "local" and cfg.window_size:
+        return min(max_seq, cfg.window_size)
+    return max_seq
+
+
+def init_attn_cache(cfg, batch, max_seq, kind="attn", dtype=torch.bfloat16,
+                    device=None):
+    shape = (batch, cache_len(cfg, max_seq, kind), cfg.num_kv_heads,
+             cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -299,7 +369,11 @@ def mlp_apply(cfg, p, x):
 def embed_pspecs(cfg):
     p = {"table": PSpec((cfg.vocab_size, cfg.d_model), "embed")}
     if not cfg.tie_embeddings:
-        p["head"] = PSpec((cfg.d_model, cfg.vocab_size))
+        if cfg.num_codebooks > 1:
+            p["head"] = PSpec((cfg.num_codebooks, cfg.d_model,
+                               cfg.vocab_size))
+        else:
+            p["head"] = PSpec((cfg.d_model, cfg.vocab_size))
     return p
 
 
@@ -315,7 +389,7 @@ def embed_lookup(cfg, p, tokens, dtype=torch.bfloat16):
 
 
 def head_matrix(cfg, p):
-    """(d, V) head weights."""
+    """(d, V) or (K, d, V) head weights."""
     if cfg.tie_embeddings:
         return p["table"].T
     return p["head"]

@@ -1,19 +1,27 @@
-"""Decoder-only LM for the dense global-attention transformers.
+"""Decoder-only LM for the attention-based transformers.
 
-``Transformer`` is an ``nn.Module`` laid out as the reference's parameter
-tree (``embed``, ``final_norm``, ``blocks``), indexed the same way
+A model is a repeated ``layer_pattern`` of attention layers, ``"attn"``
+(global) or ``"local"`` (a sliding window of ``window_size`` keys, as in
+Gemma-3's 5 local : 1 global), each with a dense MLP or, for the MoE
+configs, a mixture of experts (``models.moe``).  ``Transformer`` is an
+``nn.Module`` laid out as the reference's parameter tree (``embed``,
+``final_norm``, ``blocks``), indexed the same way
 (``params["blocks"][i]["attn"]["wq"]``), with one ``Block`` a layer where
-the reference stacks the layers along a scanned leading axis.  The
-reference's entry points keep their names as module-level functions over
-it: ``forward_hidden`` and ``logits_fn`` (the full-sequence forward),
-``prefill`` (last-position logits and the KV cache; attention through the
-flash kernel) and ``decode_step`` (one token against the cache).  Layers
-run in a Python loop; there is no mesh and no rematerialisation on one
-card.
+the reference stacks each pattern position's layers along a scanned
+leading axis; layer i has kind ``layer_pattern[i % len(pattern)]`` for
+the whole groups and ``rem_layers`` after them.  The reference's entry
+points keep their names as module-level functions over it:
+``forward_hidden`` and ``logits_fn`` (the full-sequence forward),
+``prefill`` (last-position logits and the caches; attention through the
+flash kernel) and ``decode_step`` (one token or frame against the
+caches).  Inputs are ``{"tokens": (B, S)}`` or, for the encodec frontend
+(MusicGen), ``{"frames": (B, S, d_model)}`` (precomputed frame
+embeddings, as the reference's stub); several codebooks give (B, S, K, V)
+logits.  Layers run in a Python loop; there is no mesh and no
+rematerialisation on one card.
 
-Families that need more than a dense block (MoE, local windows, RG-LRU,
-RWKV-6, modality frontends, several codebooks, sinusoidal positions) are
-refused with a ``ValueError`` (ROADMAP queue A item 5).
+The recurrent families (RG-LRU, RWKV-6) are refused with a
+``ValueError`` (ROADMAP queue A item 5).
 """
 from __future__ import annotations
 
@@ -23,39 +31,47 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
+
+ATTN_KINDS = ("attn", "local")
 
 
 def check_supported(cfg) -> None:
     """Raise ``ValueError`` naming what this port lacks for ``cfg``."""
     missing = []
-    if cfg.moe:
-        missing.append("mixture-of-experts layers (models/moe.py)")
     kinds = set(cfg.layer_pattern)
-    if "local" in kinds:
-        missing.append("local-window attention and ring caches")
     if "rglru" in kinds or cfg.family == "rglru":
         missing.append("RG-LRU blocks (models/rglru.py)")
     if cfg.family == "rwkv6" or "rwkv" in kinds:
         missing.append("RWKV-6 mixing (models/rwkv6.py)")
-    if cfg.frontend != "none":
+    if cfg.frontend not in ("none", "vq_image", "encodec"):
         missing.append(f"the {cfg.frontend} frontend")
-    if cfg.num_codebooks > 1:
-        missing.append("multi-codebook heads")
-    if cfg.pos_emb not in ("rope", "none"):
+    if cfg.pos_emb not in ("rope", "sinusoidal", "none"):
         missing.append(f"{cfg.pos_emb} position embeddings")
     if missing:
-        raise ValueError(f"{cfg.name}: the port runs dense global-attention "
+        raise ValueError(f"{cfg.name}: the port runs attention-based "
                          f"transformers only; it lacks "
                          f"{', '.join(missing)} (ROADMAP queue A item 5)")
+
+
+def layer_kinds(cfg) -> list:
+    """Each layer's kind: the pattern over the whole groups, then
+    ``rem_layers``."""
+    return [cfg.layer_pattern[i % cfg.pattern_len]
+            for i in range(cfg.num_groups * cfg.pattern_len)] + list(
+                cfg.rem_layers)
 
 
 # ---------------------------------------------------------------------------
 # Parameters
 # ---------------------------------------------------------------------------
 
-def block_pspecs(cfg):
+def block_pspecs(cfg, kind="attn"):
+    if kind not in ATTN_KINDS:
+        raise ValueError(kind)
+    mlp = MOE.moe_pspecs(cfg) if cfg.moe else L.mlp_pspecs(cfg)
     return {"norm1": L.norm_pspecs(cfg), "attn": L.attn_pspecs(cfg),
-            "norm2": L.norm_pspecs(cfg), "mlp": L.mlp_pspecs(cfg)}
+            "norm2": L.norm_pspecs(cfg), "mlp": mlp}
 
 
 def model_pspecs(cfg):
@@ -63,7 +79,7 @@ def model_pspecs(cfg):
     layer instead of stacked along a scanned axis."""
     check_supported(cfg)
     return {"embed": L.embed_pspecs(cfg), "final_norm": L.norm_pspecs(cfg),
-            "blocks": [block_pspecs(cfg) for _ in range(cfg.num_layers)]}
+            "blocks": [block_pspecs(cfg, kind) for kind in layer_kinds(cfg)]}
 
 
 def _params(tree: dict) -> nn.ParameterDict:
@@ -72,7 +88,8 @@ def _params(tree: dict) -> nn.ParameterDict:
 
 
 class Block(nn.ModuleDict):
-    """One dense layer: ``norm1``, ``attn``, ``norm2``, ``mlp``."""
+    """One layer: ``norm1``, ``attn``, ``norm2``, ``mlp`` (dense, or the
+    MoE's ``router`` and (E, ...) expert weights)."""
 
     def __init__(self, tree: dict):
         super().__init__({k: _params(v) for k, v in tree.items()})
@@ -93,10 +110,13 @@ class Transformer(nn.ModuleDict):
                              f"{cfg.num_layers} layers")
         self.cfg = cfg
 
-    def forward(self, tokens, dtype=torch.bfloat16):
-        qpos = torch.arange(tokens.shape[1], device=tokens.device)
-        x = embed_input(self.cfg, self, {"tokens": tokens}, qpos, dtype)
-        hidden, _, _ = forward_hidden(self.cfg, self, x, qpos)
+    def forward(self, inputs, dtype=torch.bfloat16, *, moe_dense=False):
+        """``inputs``: a (B, S) tensor of tokens, or a batch dict."""
+        batch = inputs if isinstance(inputs, dict) else {"tokens": inputs}
+        qpos = torch.arange(seq_len(batch), device=batch_device(batch))
+        x = embed_input(self.cfg, self, batch, qpos, dtype)
+        hidden, _, _ = forward_hidden(self.cfg, self, x, qpos,
+                                      moe_dense=moe_dense, aux=False)
         return logits_fn(self.cfg, self, hidden)
 
 
@@ -152,20 +172,30 @@ def params_from_numpy(cfg, tree: dict, device=None) -> Transformer:
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg, batch, max_seq, dtype=torch.bfloat16, device=None):
-    """One ``{"k", "v"}`` buffer of (B, max_seq, KH, D) a layer."""
+    """One ``{"k", "v"}`` buffer of (B, Sc, KH, D) a layer: Sc = max_seq,
+    or ``min(max_seq, window_size)`` for a local layer."""
     device = resolve_device(device)
-    return [L.init_attn_cache(cfg, batch, max_seq, dtype, device)
-            for _ in range(cfg.num_layers)]
+    return [L.init_attn_cache(cfg, batch, max_seq, kind, dtype, device)
+            for kind in layer_kinds(cfg)]
 
 
-def _materialize_cache(k, v, S, Sc):
-    """A (B, Sc, KH, D) cache holding the first min(S, Sc) positions."""
+def _materialize_cache(k, v, S, Sc, window=0):
+    """A (B, Sc, KH, D) cache: a local layer's ring (``Sc == window <=
+    S``) holds positions S-window .. S-1 at slots ``pos mod window``;
+    otherwise the first min(S, Sc) positions from slot 0."""
     B, _, KH, D = k.shape
     ck = torch.zeros((B, Sc, KH, D), dtype=k.dtype, device=k.device)
     cv = torch.zeros((B, Sc, KH, D), dtype=v.dtype, device=v.device)
-    n = min(S, Sc)
-    ck[:, :n] = k[:, :n]
-    cv[:, :n] = v[:, :n]
+    if window and S >= window and Sc == window:
+        # slots (S - window + i) mod window for i = 0..window-1: the last
+        # window positions rolled so that position p sits at p mod window
+        shift = (S - window) % window
+        ck[:] = torch.roll(k[:, S - window:], shift, dims=1)
+        cv[:] = torch.roll(v[:, S - window:], shift, dims=1)
+    else:
+        n = min(S, Sc)
+        ck[:, :n] = k[:, :n]
+        cv[:, :n] = v[:, :n]
     return {"k": ck, "v": cv}
 
 
@@ -173,84 +203,131 @@ def _materialize_cache(k, v, S, Sc):
 # Blocks
 # ---------------------------------------------------------------------------
 
-def attn_with_cache(cfg, p, x, qpos, *, cache, kv_len, build_cache_len):
+def attn_with_cache(cfg, p, x, qpos, *, kind, cache, kv_len,
+                    build_cache_len):
     """``attn_apply``; for a prefill (``build_cache_len`` set), the cache
     built from its k and v (the reference projects them a second time;
-    the values are the same)."""
-    out, kv = L.attn_apply(cfg, p, x, qpos, cache=cache, kv_len=kv_len)
+    the values are the same), a local layer's as its ring."""
+    out, kv = L.attn_apply(cfg, p, x, qpos, kind=kind, cache=cache,
+                           kv_len=kv_len)
     if build_cache_len is not None:
+        window = cfg.window_size if kind == "local" else 0
         kv = _materialize_cache(kv["k"], kv["v"], x.shape[1],
-                                build_cache_len)
+                                L.cache_len(cfg, build_cache_len, kind),
+                                window)
     return out, kv
 
 
-def block_apply(cfg, p, x, qpos, *, cache=None, kv_len=None,
-                build_cache_len=None):
-    """Returns (x, new_cache)."""
+def block_apply(cfg, kind, p, x, qpos, *, cache=None, kv_len=None,
+                build_cache_len=None, moe_dense=False, aux=True):
+    """Returns (x, new_cache, aux_losses): the MoE's losses, or None for
+    a dense MLP (and, with ``aux=False``, their values None)."""
     h = L.apply_norm(cfg, p["norm1"], x)
-    a, new_cache = attn_with_cache(cfg, p["attn"], h, qpos, cache=cache,
-                                   kv_len=kv_len,
+    a, new_cache = attn_with_cache(cfg, p["attn"], h, qpos, kind=kind,
+                                   cache=cache, kv_len=kv_len,
                                    build_cache_len=build_cache_len)
     x = x + a
     h = L.apply_norm(cfg, p["norm2"], x)
-    return x + L.mlp_apply(cfg, p["mlp"], h), new_cache
+    if cfg.moe:
+        moe = MOE.moe_apply_dense if moe_dense else MOE.moe_apply
+        m, losses = moe(cfg, p["mlp"], h, aux=aux)
+    else:
+        m, losses = L.mlp_apply(cfg, p["mlp"], h), None
+    return x + m, new_cache, losses
 
 
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
 
+def _input(batch) -> torch.Tensor:
+    return batch["frames"] if "frames" in batch else batch["tokens"]
+
+
+def seq_len(batch) -> int:
+    """Positions in a batch of tokens (B, S) or frames (B, S, d)."""
+    return _input(batch).shape[1]
+
+
+def batch_device(batch):
+    return _input(batch).device
+
+
 def embed_input(cfg, params, batch, qpos, dtype=torch.bfloat16):
-    return L.embed_lookup(cfg, params["embed"], batch["tokens"], dtype)
+    """Token embeddings, or the encodec frontend's frames (B, S, d) cast
+    to ``dtype`` and scaled as embeddings are; sinusoidal positions added
+    at ``qpos`` where the config has them."""
+    if "frames" in batch:                       # stubbed modality frontend
+        x = batch["frames"].to(dtype)
+        if cfg.embed_scale:
+            x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=dtype).item()
+    else:
+        x = L.embed_lookup(cfg, params["embed"], batch["tokens"], dtype)
+    if cfg.pos_emb == "sinusoidal":
+        x = x + L.sinusoidal_emb(qpos, cfg.d_model, dtype)[None]
+    return x
 
 
 def forward_hidden(cfg, params, x, qpos, *, caches=None, kv_len=None,
-                   build_cache_len=None):
-    """Run all layers.  Returns (hidden, new_caches, aux); a dense model
-    has no auxiliary losses, so ``aux`` holds zeros."""
+                   build_cache_len=None, moe_dense=False, aux=True):
+    """Run all layers.  Returns (hidden, new_caches, aux): ``aux`` holds
+    the MoE layers' summed ``lb_loss`` and ``z_loss``, float32 scalars
+    (zeros for a dense model; None with ``aux=False``, which skips them)."""
     keep = caches is not None or build_cache_len is not None
+    kinds = layer_kinds(cfg)
     new_caches = []
+    total = None
+    if aux:
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        total = {"lb_loss": zero, "z_loss": zero}
     for i, bp in enumerate(params["blocks"]):
-        x, nc = block_apply(cfg, bp, x, qpos,
-                            cache=caches[i] if caches is not None else None,
-                            kv_len=kv_len, build_cache_len=build_cache_len)
+        x, nc, losses = block_apply(
+            cfg, kinds[i], bp, x, qpos,
+            cache=caches[i] if caches is not None else None, kv_len=kv_len,
+            build_cache_len=build_cache_len, moe_dense=moe_dense, aux=aux)
         if keep:
             new_caches.append(nc)
+        if aux and losses is not None:
+            total = {k: total[k] + losses[k] for k in total}
     x = L.apply_norm(cfg, params["final_norm"], x)
-    return x, (new_caches if keep else None), {"lb_loss": 0.0,
-                                               "z_loss": 0.0}
+    return x, (new_caches if keep else None), total
 
 
 def logits_fn(cfg, params, hidden):
-    head = L.head_matrix(cfg, params["embed"])
-    return hidden @ head.to(hidden.dtype)
+    """(B, S, V) logits, or (B, S, K, V) with K codebook heads."""
+    head = L.head_matrix(cfg, params["embed"]).to(hidden.dtype)
+    if cfg.num_codebooks > 1:
+        return torch.einsum("bsd,kdv->bskv", hidden, head)
+    return hidden @ head
 
 
 # ---------------------------------------------------------------------------
 # Serving
 # ---------------------------------------------------------------------------
 
-def prefill(cfg, params, batch, max_seq, *, dtype=torch.bfloat16):
-    """Full-sequence forward building the cache.  ``batch``: {"tokens":
-    (B, S) integer tensor}; prompts are not masked for left padding
-    (positions are ``arange(S)``), as in the reference.  Returns
-    (last_logits (B, 1, V), caches)."""
-    S = batch["tokens"].shape[1]
-    qpos = torch.arange(S, device=batch["tokens"].device)
+def prefill(cfg, params, batch, max_seq, *, moe_dense=False,
+            dtype=torch.bfloat16):
+    """Full-sequence forward building the caches.  ``batch``: {"tokens":
+    (B, S) integer tensor} or {"frames": (B, S, d)}; prompts are not
+    masked for left padding (positions are ``arange(S)``), as in the
+    reference.  Returns (last_logits (B, 1, [K,] V), caches)."""
+    qpos = torch.arange(seq_len(batch), device=batch_device(batch))
     x = embed_input(cfg, params, batch, qpos, dtype)
     hidden, caches, _ = forward_hidden(cfg, params, x, qpos,
-                                       build_cache_len=max_seq)
+                                       build_cache_len=max_seq,
+                                       moe_dense=moe_dense, aux=False)
     return logits_fn(cfg, params, hidden[:, -1:]), caches
 
 
-def decode_step(cfg, params, caches, pos: int, batch, *,
+def decode_step(cfg, params, caches, pos: int, batch, *, moe_dense=False,
                 dtype=torch.bfloat16):
-    """One token at 0-based position ``pos`` (a host int) for the whole
-    batch.  ``batch``: {"tokens": (B, 1)}.  The caches are updated in
-    place.  Returns (logits (B, 1, V), caches)."""
-    qpos = torch.arange(int(pos), int(pos) + 1,
-                        device=batch["tokens"].device)
+    """One token (or frame) at 0-based position ``pos`` (a host int) for
+    the whole batch.  ``batch``: {"tokens": (B, 1)} or {"frames": (B, 1,
+    d)}.  The caches are updated in place.  Returns (logits (B, 1, [K,]
+    V), caches)."""
+    qpos = torch.arange(int(pos), int(pos) + 1, device=batch_device(batch))
     x = embed_input(cfg, params, batch, qpos, dtype)
     hidden, caches, _ = forward_hidden(cfg, params, x, qpos, caches=caches,
-                                       kv_len=int(pos))
+                                       kv_len=int(pos), moe_dense=moe_dense,
+                                       aux=False)
     return logits_fn(cfg, params, hidden), caches

@@ -612,6 +612,32 @@ def test_flash_attention_kernel_bf16_tiles(cuda, s, d, causal):
                                rtol=2 ** -7)
 
 
+# the band of a local layer: 1 (the diagonal alone) to past S (causal);
+# S across the 64- and 128-row query tiles, so the first kv tile of a
+# query tile is often partly outside the band (rows whose band starts past
+# it), and some rows meet whole masked tiles before their first key
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, (2e-5, 1e-4)),
+                                       (torch.bfloat16, (4e-3, 2 ** -7))])
+@pytest.mark.parametrize("window", [1, 8, 63, 64, 100, 1024])
+@pytest.mark.parametrize("s,d", [(1, 64), (65, 128), (200, 40),
+                                 (1000, 128), (4096, 64)])
+def test_flash_attention_kernel_window(cuda, s, d, window, dtype, tol):
+    """Both kernels with a sliding window against the plain version with
+    the same window, at their causal tolerances."""
+    shape = (1, s, 3, d)
+    gen = torch.Generator().manual_seed(s * 1000 + d + window)
+    q, k, v = (torch.randn(shape, generator=gen).to(dtype)
+               for _ in range(3))
+    got = flash_attention_kernel(q.to(cuda), k.to(cuda), v.to(cuda),
+                                 window=window)
+    fold = lambda t: t.transpose(1, 2).reshape(3, s, d)
+    want = flash_attention_ref(fold(q), fold(k), fold(v), window=window)
+    want = want.reshape(1, 3, s, d).transpose(1, 2)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.cpu().float(), want.float(),
+                               atol=tol[0], rtol=tol[1])
+
+
 def test_new_kernels_count_their_launches(cuda):
     reset_launch_counts()
     fx_log(torch.ones(5, dtype=torch.int32, device=cuda))
@@ -832,6 +858,70 @@ def test_lm_bf16_decode_on_the_card_matches_the_cpu(cuda):
         runs[dev] = outs, caches
     (want, wc), (got, gc) = runs["cpu"], runs["cuda"]
     assert len(got) == 9 and got[-1].dtype == torch.bfloat16
+    for g, w in list(zip(got, want)) + [(a[k], b[k]) for a, b in zip(gc, wc)
+                                        for k in ("k", "v")]:
+        g, w = g.float().cpu(), w.float()
+        assert (g - w).abs().max() <= 2.0 ** -7 * w.abs().max()
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "phi3.5-moe-42b-a6.6b",
+                                  "gemma3-27b", "musicgen-large"])
+def test_lm_zoo_on_the_card_matches_the_cpu(cuda, arch):
+    """Smoke-width MoE (capacity dispatch), Gemma-3 (window 8: the
+    windowed flash kernel in its local layers' prefill, ring caches
+    wrapped by the decode) and MusicGen (frames, codebook heads) in bf16:
+    a prefill of 20 and 8 decode steps on the card against the CPU's on
+    the same weights; every MoE layer's routing (top-k experts, ranks,
+    kept mask, buffer rows) equal at every call; logits and final caches
+    within 2^-7 of their largest magnitude (two bf16 steps)."""
+    from repro_torch import configs
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
+    cfg = configs.get_arch(arch).smoke()
+    cpu = T.init_params(cfg, dtype=torch.bfloat16, device="cpu", seed=1)
+    card = T.init_params(cfg, dtype=torch.bfloat16, device="cpu", seed=1)
+    card = card.to(cuda)
+    rng = np.random.default_rng(2)
+    if cfg.frontend == "encodec":
+        batch = {"frames": torch.from_numpy(rng.standard_normal(
+            (2, 28, cfg.d_model))).to(torch.bfloat16)}
+    else:
+        batch = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (2, 28)))}
+    cut = lambda b, lo, hi: {k: v[:, lo:hi] for k, v in b.items()}
+    orig, runs = MOE.dispatch, {}
+    for dev, m in (("cpu", cpu), ("cuda", card)):
+        routes = []
+
+        def recording(*args, **kw):
+            routes.append(orig(*args, **kw))
+            return routes[-1]
+        MOE.dispatch = recording
+        try:
+            b = {k: v.to(dev) for k, v in batch.items()}
+            with torch.inference_mode():
+                before = flash_attention_kernel.launches
+                lg, caches = T.prefill(cfg, m, cut(b, 0, 20), 28)
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                    assert flash_attention_kernel.launches == \
+                        before + cfg.num_layers
+                outs = [lg]
+                for t in range(20, 28):
+                    lg, caches = T.decode_step(cfg, m, caches, t,
+                                               cut(b, t, t + 1))
+                    outs.append(lg)
+        finally:
+            MOE.dispatch = orig
+        runs[dev] = outs, caches, routes
+    (want, wc, wr), (got, gc, gr) = runs["cpu"], runs["cuda"]
+    assert len(gr) == len(wr) == (9 * cfg.num_layers if cfg.moe else 0)
+    for g, w in zip(gr, wr):
+        assert g["C"] == w["C"]
+        for key in ("gate_idx", "rank", "keep", "dst"):
+            assert torch.equal(g[key].cpu(), w[key]), key
+    if cfg.window_size:
+        assert gc[0]["k"].shape[1] == cfg.window_size
     for g, w in list(zip(got, want)) + [(a[k], b[k]) for a, b in zip(gc, wc)
                                         for k in ("k", "v")]:
         g, w = g.float().cpu(), w.float()

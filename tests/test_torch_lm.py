@@ -49,6 +49,9 @@ from repro_torch.models import transformer as T
 from repro_torch.serve.engine import Request, ServeEngine, sample_logits
 
 ARCHS = ["qwen1.5-4b", "glm4-9b"]
+# the rest of the attention zoo (tests/test_torch_lm_zoo*.py)
+ZOO = ["phi3.5-moe-42b-a6.6b", "olmoe-1b-7b", "gemma3-27b", "nemotron-4-15b",
+       "chameleon-34b", "musicgen-large"]
 DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 LOGIT_RTOL = 2.0 ** -7
 CACHE_RTOL = 2.0 ** -7
@@ -100,7 +103,7 @@ def model(request):
 
 
 def test_configs_match_the_reference():
-    for arch in ARCHS:
+    for arch in ARCHS + ZOO:
         want = jconfigs.get_arch(arch)
         got = configs.get_arch(arch)
         assert dataclasses.asdict(got) == dataclasses.asdict(want)
@@ -108,7 +111,9 @@ def test_configs_match_the_reference():
             dataclasses.asdict(want.smoke())
         assert got.param_count() == want.param_count()
     assert configs.ASSIGNED == jconfigs.ASSIGNED
-    assert set(configs.NOT_PORTED) | set(ARCHS) == set(configs.ASSIGNED)
+    assert set(configs.NOT_PORTED) | set(ARCHS + ZOO) == \
+        set(configs.ASSIGNED)
+    assert set(configs.NOT_PORTED) == {"recurrentgemma-2b", "rwkv6-1.6b"}
     for name in configs.NOT_PORTED:
         with pytest.raises(KeyError, match="ROADMAP queue A item 5"):
             configs.get_arch(name)
@@ -119,11 +124,38 @@ def test_configs_match_the_reference():
                                   "rwkv6-1.6b", "chameleon-34b",
                                   "musicgen-large"])
 def test_unsupported_families_are_refused(arch):
-    cfg = ArchConfig(**dataclasses.asdict(jconfigs.get_arch(arch).smoke()))
-    with pytest.raises(ValueError, match="ROADMAP queue A item 5"):
-        T.model_pspecs(cfg)
-    with pytest.raises(ValueError, match="lacks"):
-        T.init_params(cfg, device="cpu")
+    """The recurrent families are still refused; the attention ones that
+    were refused before the zoo's port build, with the reference's
+    parameter tree (each leaf's shape, the scanned stacks unstacked one
+    block a layer)."""
+    jcfg = jconfigs.get_arch(arch).smoke()
+    cfg = ArchConfig(**dataclasses.asdict(jcfg))
+    if arch in configs.NOT_PORTED:
+        with pytest.raises(ValueError, match="ROADMAP queue A item 5"):
+            T.model_pspecs(cfg)
+        with pytest.raises(ValueError, match="lacks"):
+            T.init_params(cfg, device="cpu")
+        return
+    m = T.init_params(cfg, device="cpu")
+    jshapes = JT.abstract_params(jcfg)
+    shape = lambda tree: {k: (shape(v) if isinstance(
+        v, (dict, torch.nn.Module)) else tuple(v.shape))
+        for k, v in tree.items()}
+    for key in ("embed", "final_norm"):
+        assert shape(m[key]) == shape(jshapes[key]), key
+    plen, groups = cfg.pattern_len, cfg.num_groups
+    for layer, block in enumerate(m["blocks"]):
+        g, i = divmod(layer, plen)
+        want = (jax.tree.map(lambda s: s.shape[1:], jshapes["blocks"][i])
+                if g < groups else
+                jax.tree.map(lambda s: s.shape,
+                             jshapes["rem_blocks"][layer - groups * plen]))
+        assert shape(block) == jax.tree.map(
+            tuple, want, is_leaf=lambda x: isinstance(x, tuple)), layer
+    # every leaf counted (the analytic param_count leaves out a LayerNorm
+    # final norm's bias, in the reference as in the port)
+    assert sum(p.numel() for p in m.parameters()) == sum(
+        int(np.prod(s.shape)) for s in jax.tree.leaves(jshapes))
 
 
 def test_full_forward_matches_the_reference(model):

@@ -53,7 +53,13 @@ def test_port_imports_without_jax():
             "repro_torch.configs.glm4_9b", "repro_torch.configs.qwen15_4b",
             "repro_torch.models.layers", "repro_torch.models.transformer",
             "repro_torch.serve.engine", "repro_torch.launch.serve",
-            "repro_torch.models"} <= set(_port_modules())
+            "repro_torch.models", "repro_torch.models.moe",
+            "repro_torch.models.registry", "repro_torch.configs.olmoe",
+            "repro_torch.configs.phi35_moe",
+            "repro_torch.configs.gemma3_27b",
+            "repro_torch.configs.nemotron4_15b",
+            "repro_torch.configs.chameleon_34b",
+            "repro_torch.configs.musicgen_large"} <= set(_port_modules())
 
 
 def test_port_sources_do_not_name_the_reference():

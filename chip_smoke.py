@@ -233,6 +233,28 @@ farm, the DNN pipeline), and checks what comes out:
               at 1024, failed by the ring slot one late, and its layer 0
               ring after the 4096 prefill (positions 3072..4095 at slots
               pos mod 1024) equal to the full forward's k and v.
+19. lm_recurrent — RecurrentGemma-2B (26 layers: 18 RG-LRU, 8 local
+              attention of 10 x 256 heads over 1 KV head, window 2048;
+              2.89 B parameters) and RWKV-6-1.6B (24 layers, 32 WKV heads
+              of 64; 1.60 B) at published widths and full depth, drawn on
+              the card from a seed, bf16, the leaves the reference
+              initialises to zeros (and lam) redrawn in RWKV's and
+              Griffin's own ranges; each through lm_serve's two streams
+              (schedules equal to the launcher's), each prefill batch
+              launching flash 8 and linear_scan 18 times (RecurrentGemma)
+              or wkv6 24 times and flash never (RWKV-6); the cache bytes a
+              sequence holds after 16 and 4096 positions (equal for
+              RWKV-6, capped by the ring for RecurrentGemma); a decode
+              step's profile at batch 8; lm_serve's decode gate, the
+              "dense" truth running the recurrent layers through their
+              kernels' plain versions, and the cache check on layer 0's
+              recurrent state against one prefill of all the positions
+              (and RecurrentGemma's first local layer's ring), failed by
+              the conv window kept one step late (RG-LRU), by the
+              time-mix shift left unadvanced (RWKV-6) and, across the
+              ring's wrap at 2048, by the ring slot one late; the float32
+              twin (RecurrentGemma's first rglru and local layers;
+              RWKV-6's first two), card against CPU.
     The kernel rows of these paths (mac_conv2d at VGG-16 conv3, at
     batch 32 of it, at ResNet-50's 3x3 and MobileNetV2's 1x1 layers,
     fx_log at 2^20 values, flash_attention_kernel at the LM prefill's
@@ -240,7 +262,11 @@ farm, the DNN pipeline), and checks what comes out:
     S = 1024, and lm_zoo's layer 0 inputs: Gemma-3's local layer with
     the window of 1024 (row 8w; its bound counts the band's scores, its
     library call is SDPA with the band as a boolean mask) and MusicGen's
-    D = 64 (row 8m)) are timed as in phase 9; the two integer
+    D = 64 (row 8m), and lm_recurrent's: RecurrentGemma's first local
+    layer, D 256 and window 2048, in bf16 and float32 (rows 8r, 8r'),
+    and linear_scan and wkv6 on layer 0's arguments in stream b's
+    prefill and the decode step after it) are timed as in phase 9; the two
+    integer
     kernels are held bitwise, flash at its tolerance (on the LM input,
     element by element: 2^-8 (sum_k p_k |v_k| + |got|) + 2^-7 |want|, the
     kernel's bf16 p and the two outputs' roundings); each second shape
@@ -251,9 +277,10 @@ farm, the DNN pipeline), and checks what comes out:
     device kernels of the SDPA call they are compared with.
 
 Launch counters are zeroed just before each path's run (phases 3-8 and
-11-18, and each learning path, the probed run, each serving row and
+11-19, and each learning path, the probed run, each serving row and
 each route_opt row; lm_serve's and lm_moe's two streams are one path
-each, lm_zoo's five prefill-and-decode runs are summed into one; the
+each, lm_zoo's five prefill-and-decode runs are summed into one, as
+are lm_recurrent's two archs' streams; the
 graph's build is part of the path, except in phase 5, which reuses phase
 4's net) and read just after; a kernel of that path that never launched
 fails the run.  Every phase prints one JSON line (the serving, routing
@@ -300,8 +327,9 @@ from repro_torch.core.quant import quantize_per_axis  # noqa: E402
 from repro_torch.kernels import (_build, compact_lanes,  # noqa: E402
                                  event_link_loads, flash_attention_kernel,
                                  fx_exp, fx_log, launch_counts, lif_step,
-                                 mac_conv2d, mac_gemm, noc_link_loads,
-                                 reset_launch_counts, syn_accum)
+                                 linear_scan, mac_conv2d, mac_gemm,
+                                 noc_link_loads, reset_launch_counts,
+                                 syn_accum, wkv6)
 from repro_torch.kernels.event_gather.ops import (  # noqa: E402
     launch as event_gather_launch)
 from repro_torch.kernels.event_gather.ops import (  # noqa: E402
@@ -316,6 +344,8 @@ from repro_torch.kernels.explog.ref import (FX_ONE, LN2,  # noqa: E402
 from repro_torch.kernels.flash_attn.ref import (  # noqa: E402
     flash_attention_ref)
 from repro_torch.kernels.lif.ref import lif_step_ref  # noqa: E402
+from repro_torch.kernels.linear_scan.ref import (  # noqa: E402
+    linear_scan_ref)
 from repro_torch.kernels.link_load.ref import (  # noqa: E402
     noc_link_loads_ref)
 from repro_torch.kernels.mac_conv.ops import launch as conv_launch  # noqa: E402
@@ -325,6 +355,7 @@ from repro_torch.kernels.mac_gemm.ref import mac_gemm_ref  # noqa: E402
 from repro_torch.kernels.syn_accum.ref import (pack_spikes,  # noqa: E402
                                                popcount_words,
                                                spike_words, syn_accum_ref)
+from repro_torch.kernels.wkv6.ref import wkv6_ref  # noqa: E402
 from repro_torch.core.nef import build_ensemble, encode_drive  # noqa: E402
 from repro_torch.core.dvfs import QueueDVFS  # noqa: E402
 from repro_torch.learn.adaptive import adaptive_control_graph  # noqa: E402
@@ -339,6 +370,8 @@ from repro_torch.serve.fleet.engine import broadcast_state  # noqa: E402
 from repro_torch import configs as lm_configs  # noqa: E402
 from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.models import moe as lm_moe  # noqa: E402
+from repro_torch.models import rglru as lm_rglru  # noqa: E402
+from repro_torch.models import rwkv6 as lm_rwkv  # noqa: E402
 from repro_torch.models import transformer as lm  # noqa: E402
 from repro_torch.routeopt import check_delivery, optimize_routes  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
@@ -505,6 +538,51 @@ ZOO = (("phi3.5-moe-42b-a6.6b", 4), ("gemma3-27b", 8),
        ("nemotron-4-15b", 4), ("chameleon-34b", 4), ("musicgen-large", 48))
 ZOO_PREFILL, ZOO_DECODE_STEPS = (4, 4096), 4
 ZOO_FAULTS, GEMMA_RING_CHECK = ("cache_slot",), (1, 1000, 48)
+# lm_recurrent: the recurrent pair at published widths and full depth,
+# RecurrentGemma-2B (arXiv:2402.19427: 26 layers, 8 x (rglru, rglru,
+# local) and 2 remainder rglru layers; d_model 2560, RG-LRU width 2560,
+# 10 x 256 heads over 1 KV head, window 2048) and RWKV-6-1.6B
+# (arXiv:2404.05892: 24 layers, 32 WKV heads of 64), through lm_serve's
+# two streams.  Each prefill batch launches these kernels so many times;
+# the decode gate's faults (beside lm_serve's gate, RecurrentGemma's ring
+# crossing its wrap at 2048: RG_RING_CHECK, batch, prompt, steps); the
+# float32 twin's 2 layers (RecurrentGemma: its first rglru and first
+# local layer)
+RECURRENT_ARCHS = ("recurrentgemma-2b", "rwkv6-1.6b")
+RECURRENT_PREFILL = {
+    "recurrentgemma-2b": {"flash_attention_kernel": 8, "linear_scan": 18,
+                          "wkv6": 0},
+    "rwkv6-1.6b": {"flash_attention_kernel": 0, "linear_scan": 0,
+                   "wkv6": 24}}
+RECURRENT_FAULTS = {"recurrentgemma-2b": ("conv_shift",),
+                    "rwkv6-1.6b": ("token_shift",)}
+RG_RING_CHECK = (1, 2040, 16)
+RECURRENT_TWIN = {"recurrentgemma-2b": ("rglru", "local")}
+# the leaves the reference initialises to zeros (lam: to ones), under
+# which a token-shift or conv fault barely moves the output: redrawn on
+# the card from the phase's seed, in the ranges RWKV-6 and Griffin use
+# (token-shift mixes uniform in [0, 1]; w0 uniform in [-6, 1], per-step
+# decays 0.07 to 0.9975; u and the conv taps normal, std 0.5; lam such
+# that a = exp(-8 softplus(lam)), the decay at a saturated gate, is
+# uniform in [0.9, 0.999], Griffin's own range) or, for the rest, normal
+# with std 0.1
+RECURRENT_REDRAW = {
+    "mu_base": ("uniform", 0.0, 1.0), "mu_wkvrg": ("uniform", 0.0, 1.0),
+    "mix_k": ("uniform", 0.0, 1.0), "mix_r": ("uniform", 0.0, 1.0),
+    "w0": ("uniform", -6.0, 1.0), "u": ("normal", 0.5),
+    "conv_w": ("normal", 0.5), "lam": ("decay", 0.9, 0.999),
+    "w2_decay": ("normal", 0.1), "ln_x_scale": ("normal", 0.1),
+    "ln_x_bias": ("normal", 0.1), "conv_b": ("normal", 0.1),
+    "bi": ("normal", 0.1), "ba": ("normal", 0.1)}
+# the recurrent kernels against their plain versions: linear_scan at the
+# reference test's atol = rtol = 1e-5 (the same float32 formula, so in
+# practice bitwise); wkv6's state at the same, its y at 2^-16 of its
+# largest magnitude (sums of D = 64 products in another order), rtol 0
+WKV_Y_REL = 2.0 ** -16
+# operations an element of linear_scan: two sigmoids (exp, add, divide),
+# the decay's multiply and exp, 1 - exp(2 log a) (3), max, sqrt, two
+# multiplies for b, the recurrence's multiply and add
+SCAN_OPS = 18
 GEMM_SAMPLE = 4096              # the int8 GEMM sample: 4096^3
 FLOAT_RTOL, FLOAT_ATOL, ENERGY_RTOL = 1e-5, 1e-6, 1e-6
 L2_FLUSH_BYTES = 256 << 20      # five times the H100's 50 MB L2
@@ -541,7 +619,10 @@ KERNEL_SYMBOLS = {"lif_step": r"\blif_step_kernel\b",
                   "mac_gemm": r"\bmac_gemm(_dp4a)?_kernel\b",
                   "fx_log": r"\bfx_log_kernel\b",
                   "mac_conv2d": r"\bmac_conv(_igmma)?_kernel\b",
-                  "flash_attention_kernel": r"\bflash_attn_(wgmma|tf32)_kernel\b"}
+                  "flash_attention_kernel":
+                      r"\bflash_attn_(wgmma|tf32|f32_simt)_kernel\b",
+                  "linear_scan": r"\blinear_scan_kernel\b",
+                  "wkv6": r"\bwkv6_kernel\b"}
 PASS_SYMBOLS = {"mac_gemm": r"\bimma_pack_kernel\b",
                 "mac_conv2d": r"\bimma_pack_kernel\b"}
 # tensor-core SASS: wgmma is HGMMA (bf16, and TF32 as HGMMA.*TF32) /
@@ -549,7 +630,7 @@ PASS_SYMBOLS = {"mac_gemm": r"\bimma_pack_kernel\b",
 # mangled name: instantiations) whose every instantiation must hold the
 # instruction named
 TENSOR_CORE_OPS = ("HGMMA", "IGMMA", "HMMA", "IMMA")
-TENSOR_CORE_KERNELS = {"flash_attn_wgmma_kernel": (8, "HGMMA"),
+TENSOR_CORE_KERNELS = {"flash_attn_wgmma_kernel": (12, "HGMMA"),
                        "flash_attn_tf32_kernel": (4, "HGMMA.TF32"),
                        "mac_gemm_kernel": (4, "IGMMA"),
                        "mac_conv_igmma_kernel": (12, "IGMMA")}
@@ -2565,31 +2646,39 @@ def lm_requests(cfg, n: int, prompt_len: int, max_new: int, seed: int):
                     max_new_tokens=max_new) for i in range(n)]
 
 
-def lm_stream(cfg, model, spec: dict, want: dict, seed: int, what: str):
+def lm_stream(cfg, model, spec: dict, want: dict, seed: int, what: str,
+              per_prefill: dict | None = None):
     """Serve one stream through ``ServeEngine.run`` and check it: the
-    schedule, ``num_layers`` flash launches each prefill batch, every
+    schedule, each prefill batch's kernel launches (``per_prefill``,
+    kernel -> launches; default ``num_layers`` flash launches), every
     request ``max_new`` tokens in [0, vocab)."""
+    per_prefill = per_prefill or {"flash_attention_kernel": cfg.num_layers}
     eng = ServeEngine(cfg, model, max_seq=spec["max_seq"])
     reqs = lm_requests(cfg, spec["requests"], spec["prompt_len"],
                        spec["max_new"], seed)
     for r in reqs:
         eng.submit(r)
     per_batch = []
-    run_batch = eng._run_batch
+    prefill = lm.prefill
 
-    def counted(batch):
-        n0 = flash_attention_kernel.launches
-        run_batch(batch)
-        per_batch.append(flash_attention_kernel.launches - n0)
-    eng._run_batch = counted
-    t0 = time.perf_counter()
-    stats = eng.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    def counted(*args, **kw):
+        n0 = launch_counts()
+        out = prefill(*args, **kw)
+        n1 = launch_counts()
+        per_batch.append({k: n1[k] - n0[k] for k in per_prefill})
+        return out
+    lm.prefill = counted
+    try:
+        t0 = time.perf_counter()
+        stats = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        lm.prefill = prefill
     got = {k: stats[k] for k in want}
     check(got == want, f"{cfg.name} {what}: schedule {got} != {want}")
-    check(per_batch == [cfg.num_layers] * stats["rounds"],
-          f"{cfg.name} {what}: flash launches a prefill batch {per_batch}")
+    check(per_batch == [per_prefill] * stats["rounds"],
+          f"{cfg.name} {what}: launches a prefill batch {per_batch}")
     for r in reqs:
         check(len(r.out_tokens) == spec["max_new"]
               and all(0 <= t < cfg.vocab_size for t in r.out_tokens),
@@ -2597,7 +2686,7 @@ def lm_stream(cfg, model, spec: dict, want: dict, seed: int, what: str):
     generated = sum(len(r.out_tokens) for r in reqs)
     dec = np.asarray(eng.timings["decode_s"]) * 1e3
     return reqs, dict(
-        spec=spec, schedule=got, flash_launches_per_prefill=per_batch,
+        spec=spec, schedule=got, launches_per_prefill=per_batch,
         wall_s=wall, prefill_ms=[s * 1e3 for s in eng.timings["prefill_s"]],
         decode_ms_p50=float(np.percentile(dec, 50)),
         decode_ms_mean=float(dec.mean()), decode_steps=len(dec),
@@ -2621,8 +2710,7 @@ def lm_decode_profile(cfg, model, dev, batch: int, prompt: int,
     launches = sum(n for n, _ in kernels.values()) / LM_PROFILE_STEPS
     busy_us = sum(us for _, us in kernels.values()) / LM_PROFILE_STEPS
     weights = sum(p.numel() * p.element_size() for p in model.parameters())
-    cache = sum(c[k].numel() * c[k].element_size() for c in caches
-                for k in c)
+    cache = tree_bytes(caches)
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:5]
     return dict(batch=batch, position=prompt, launches_per_step=launches,
                 busy_us=busy_us, wall_us=wall_us / LM_PROFILE_STEPS,
@@ -2631,6 +2719,18 @@ def lm_decode_profile(cfg, model, dev, batch: int, prompt: int,
                 top_kernels=[dict(name=k, launches=n / LM_PROFILE_STEPS,
                                   us=us / LM_PROFILE_STEPS)
                              for k, (n, us) in top])
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of a nested list / dict tree."""
+    if torch.is_tensor(tree):
+        return [tree]
+    items = tree.values() if isinstance(tree, dict) else tree
+    return [t for x in items for t in tree_leaves(x)]
+
+
+def tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
 
 
 def rel_max(got, want) -> float:
@@ -2658,14 +2758,30 @@ def lm_cut(batch, lo, hi):
 def lm_full_dense(cfg, model, batch, dtype, moe_dense=True):
     """The full-sequence forward with the reference's model attention at
     these lengths (``attention_dense``, banded in local layers: p rounded
-    to v's dtype before P V) in every layer, and the MoE's dense oracle:
-    its logits and each layer's k and v."""
+    to v's dtype before P V) in every attention layer, the recurrent
+    layers through their kernels' plain versions (the sequential RG-LRU
+    and WKV), and the MoE's dense oracle: its logits and each attention
+    layer's k and v (None for a recurrent layer)."""
     L = lm_layers
     S = lm.seq_len(batch)
     qpos = torch.arange(S, device=model["embed"]["table"].device)
     x = lm.embed_input(cfg, model, batch, qpos, dtype)
     kv = []
     for kind, bp in zip(lm.layer_kinds(cfg), model["blocks"]):
+        if kind in ("rglru", "rwkv"):
+            h = L.apply_norm(cfg, bp["norm1"], x)
+            if kind == "rglru":
+                x = x + lm_rglru.rglru_block_apply(cfg, bp["rec"], h,
+                                                   scan=linear_scan_ref)[0]
+                h = L.apply_norm(cfg, bp["norm2"], x)
+                x = x + L.mlp_apply(cfg, bp["mlp"], h)
+            else:
+                x = x + lm_rwkv.time_mix_apply(cfg, bp["tmix"], h,
+                                               wkv=wkv6_ref)[0]
+                h = L.apply_norm(cfg, bp["norm2"], x)
+                x = x + lm_rwkv.channel_mix_apply(cfg, bp["cmix"], h)[0]
+            kv.append(None)
+            continue
         h = L.apply_norm(cfg, bp["norm1"], x)
         q, k, v = L.attn_qkv(cfg, bp["attn"], h, qpos, kind)
         kv.append((k, v))
@@ -2703,13 +2819,18 @@ def lm_fault(kind):
     (query head h meets KV head h mod KH, not h // G), ``cache_slot``
     (each step's k and v written one slot late), ``ring_slot`` (a local
     layer's ring written one slot past ``pos mod window``, its positions
-    kept) or ``gate_norm`` (the MoE's top-k gate values left
-    un-renormalised)."""
+    kept), ``gate_norm`` (the MoE's top-k gate values left
+    un-renormalised), ``conv_shift`` (an RG-LRU decode step keeps its conv
+    window one step late: ``full[:, -cw:-1]`` for ``full[:, -(cw-1):]``)
+    or ``token_shift`` (an RWKV-6 decode step leaves the time mixing's
+    shift where it was, so the next step reads x_{t-2} as x_{t-1})."""
     L = lm_layers
     module, name = {"gqa_head_map": (L, "attention_dense"),
                     "cache_slot": (L, "attn_apply"),
                     "ring_slot": (L, "ring_slot"),
                     "gate_norm": (lm_moe, "_gates"),
+                    "conv_shift": (lm_rglru, "_causal_conv"),
+                    "token_shift": (lm_rwkv, "time_mix_apply"),
                     None: (None, None)}[kind]
     if name is None:
         yield
@@ -2730,21 +2851,35 @@ def lm_fault(kind):
 
     def gates(cfg, probs):
         return lm_moe._top_k(probs, cfg.experts_per_token)
+
+    def conv_late(p, u, conv_cache):
+        out, new = orig(p, u, conv_cache)
+        if u.shape[1] == 1:                       # a decode step
+            cw = p["conv_w"].shape[0]
+            new = torch.cat([conv_cache.to(u.dtype), u], 1)[:, -cw:-1]
+        return out, new
+
+    def shift_kept(cfg, p, x, cache=None, **kw):
+        out, new = orig(cfg, p, x, cache=cache, **kw)
+        if cache is not None:                     # a decode step
+            new = dict(new, shift=cache["shift"])
+        return out, new
     setattr(module, name, {"gqa_head_map": gqa, "cache_slot": slot,
-                           "ring_slot": ring, "gate_norm": gates}[kind])
+                           "ring_slot": ring, "gate_norm": gates,
+                           "conv_shift": conv_late,
+                           "token_shift": shift_kept}[kind])
     try:
         yield
     finally:
         setattr(module, name, orig)
 
 
-def cache_vs_kv(cfg, cache, k, v, S: int) -> float:
-    """Layer 0's cache after positions 0..S-1 against the full forward's
-    k and v (B, S, KH, D): each slot against the position it holds (a
-    ring's slot s the position ``ring_positions`` gives, else slot p
-    position p), relative max error."""
+def cache_vs_kv(cfg, cache, k, v, S: int, kind: str) -> float:
+    """An attention layer's cache after positions 0..S-1 against the full
+    forward's k and v (B, S, KH, D): each slot against the position it
+    holds (a ring's slot s the position ``ring_positions`` gives, else
+    slot p position p), relative max error."""
     Sc = cache["k"].shape[1]
-    kind = lm.layer_kinds(cfg)[0]
     if kind == "local" and Sc == cfg.window_size and S > Sc:
         pos = lm_layers.ring_positions(S - 1, Sc, k.device)
     else:
@@ -2752,6 +2887,26 @@ def cache_vs_kv(cfg, cache, k, v, S: int) -> float:
     slots = torch.arange(len(pos), device=k.device)
     return max(rel_max(cache[c][:, slots], t[:, pos])
                for c, t in (("k", k), ("v", v)))
+
+
+def cache_check(cfg, caches, kv, full_caches, S: int) -> float:
+    """The decode's caches after positions 0..S-1, relative max error: a
+    recurrent layer 0's state (RG-LRU: conv and state; RWKV-6: both
+    shifts and the WKV state) against the one a prefill of all S
+    positions leaves (``full_caches``), and the first attention layer's
+    cache against the full forward's k and v (``cache_vs_kv``); the
+    larger."""
+    kinds = lm.layer_kinds(cfg)
+    errs = []
+    if kinds[0] not in lm.ATTN_KINDS:
+        errs += [rel_max(g, w) for g, w in zip(tree_leaves(caches[0]),
+                                               tree_leaves(full_caches[0]))]
+    first = next((i for i, k in enumerate(kinds) if k in lm.ATTN_KINDS),
+                 None)
+    if first is not None:
+        errs.append(cache_vs_kv(cfg, caches[first], *kv[first], S,
+                                kinds[first]))
+    return max(errs)
 
 
 def lm_decode_vs_full(cfg, model, dev, *, faults=LM_FAULTS,
@@ -2765,8 +2920,9 @@ def lm_decode_vs_full(cfg, model, dev, *, faults=LM_FAULTS,
     within LM_DECODE_BF16_FACTOR of the bf16 full forward's own distance
     from it (for an MoE config the larger of the dense-attention and the
     served bf16 full forward's: the routing's near ties), and layer 0's
-    cache within LM_CACHE0_REL of the full forward's k and v; each of
-    ``faults`` must fail that gate.  The
+    cache within LM_CACHE0_REL of the full forward's k and v (a
+    recurrent family: ``cache_check``); each of ``faults`` must fail that
+    gate.  The
     reference's relation (decode against the bf16 full forward, both with
     its dense attention) is reported beside 0.02, and against the served
     bf16 forward (flash).  ``sizes``: batch, prompt, decode steps."""
@@ -2785,6 +2941,8 @@ def lm_decode_vs_full(cfg, model, dev, *, faults=LM_FAULTS,
                               moe_dense)[0][:, P - 1:]
         want = want[:, P - 1:]
         served = model(batch, moe_dense=moe_dense)[:, P - 1:]
+        full_caches = (None if lm.layer_kinds(cfg)[0] in lm.ATTN_KINDS
+                       else lm.prefill(cfg, model, batch, P + n)[1])
         noise = rel_max(want, truth)
         served_noise = rel_max(served, truth)
         if cfg.moe:
@@ -2801,7 +2959,7 @@ def lm_decode_vs_full(cfg, model, dev, *, faults=LM_FAULTS,
             vs_f32 = rel_max(dec, truth)
             readings[fault or "sound"] = dict(
                 vs_float32=vs_f32, ratio=vs_f32 / max(noise, 1e-30),
-                cache0=cache_vs_kv(cfg, caches[0], *kv[0], P + n),
+                cache0=cache_check(cfg, caches, kv, full_caches, P + n),
                 reference_relation=rel_max(dec, want),
                 served_relation=rel_max(dec, served))
     passes = lambda r: (r["ratio"] < LM_DECODE_BF16_FACTOR
@@ -2851,16 +3009,29 @@ def same_dispatch(got: list, want: list, what: str) -> None:
                   f"{what}: layer {i} {key} differs")
 
 
-def lm_twin(cfg, dev) -> dict:
-    """The float32 twin: ``LM_TWIN_LAYERS`` layers at full width, weights
-    drawn on the CPU and copied to the card; prefill logits of the card
-    (TF32 off, the 3xTF32 flash kernel) against the CPU's (plain
-    versions), and an MoE's routing in every layer, card == CPU."""
+def twin_launches(cfg) -> dict:
+    """The hand kernels a prefill of ``cfg`` launches, by layer kind."""
+    kinds = lm.layer_kinds(cfg)
+    return {"flash_attention_kernel": sum(k in lm.ATTN_KINDS for k in kinds),
+            "linear_scan": kinds.count("rglru"), "wkv6": kinds.count("rwkv")}
+
+
+def lm_twin(cfg, dev, pattern=None) -> dict:
+    """The float32 twin: ``LM_TWIN_LAYERS`` layers at full width (of the
+    layer kinds ``pattern`` where given), weights drawn on the CPU (a
+    recurrent family's redrawn as ``redraw_recurrent``) and copied to the
+    card; prefill logits of the card (TF32 off, the float32 flash kernel,
+    linear_scan, wkv6) against the CPU's (plain versions), each layer's
+    kernel launched once, and an MoE's routing in every layer, card ==
+    CPU."""
     import copy
-    twin = dataclasses.replace(cfg, num_layers=LM_TWIN_LAYERS)
+    twin = dataclasses.replace(cfg, num_layers=LM_TWIN_LAYERS, **(
+        {"layer_pattern": pattern} if pattern else {}))
     t0 = time.perf_counter()
     cpu_model = lm.init_params(twin, dtype=torch.float32, device="cpu",
                                seed=LM_SEED)
+    redrawn = (redraw_recurrent(cpu_model, LM_SEED)
+               if cfg.family in ("rglru", "rwkv6") else None)
     card_model = copy.deepcopy(cpu_model).to(dev)
     init_s = time.perf_counter() - t0
     toks = torch.from_numpy(np.random.default_rng(3).integers(
@@ -2868,13 +3039,15 @@ def lm_twin(cfg, dev) -> dict:
     S = LM_TWIN_SHAPE[1]
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 must be off")
     with torch.no_grad():
-        n0 = flash_attention_kernel.launches
+        n0 = launch_counts()
         with moe_dispatches() as card_routes:
             got, _ = lm.prefill(twin, card_model, {"tokens": toks.to(dev)},
                                 S, dtype=torch.float32)
         torch.cuda.synchronize()
-        check(flash_attention_kernel.launches - n0 == LM_TWIN_LAYERS,
-              f"{cfg.name} twin: flash launches")
+        n1 = launch_counts()
+        launched = {k: n1[k] - n0[k] for k in twin_launches(twin)}
+        check(launched == twin_launches(twin),
+              f"{cfg.name} twin: launches {launched}")
         t0 = time.perf_counter()
         with moe_dispatches() as cpu_routes:
             want, _ = lm.prefill(twin, cpu_model, {"tokens": toks}, S,
@@ -2889,6 +3062,9 @@ def lm_twin(cfg, dev) -> dict:
     out = dict(layers=LM_TWIN_LAYERS, shape=list(LM_TWIN_SHAPE),
                dtype="float32", init_and_copy_s=init_s, cpu_prefill_s=cpu_s,
                rel_err=rel, tolerance=LM_TWIN_REL)
+    if pattern or redrawn:
+        out.update(kinds=lm.layer_kinds(twin), launches=launched,
+                   redrawn=sorted(redrawn))
     if cfg.moe:
         out["moe_layers_routed_equal"] = len(card_routes)
     return out
@@ -3196,6 +3372,173 @@ def phase_lm_zoo(dev) -> tuple[dict, dict]:
     return total, attn
 
 
+def pspec_count(cfg) -> int:
+    """The parameters of ``cfg``'s tree (the reference's tree, leaf for
+    leaf: tests/test_torch_lm.py), every leaf counted (``param_count``
+    leaves out LayerNorm biases and RWKV-6's ``ln0``)."""
+    def walk(node):
+        if isinstance(node, lm_layers.PSpec):
+            return int(np.prod(node.shape))
+        items = node.values() if isinstance(node, dict) else node
+        return sum(walk(x) for x in items)
+    return walk(lm.model_pspecs(cfg))
+
+
+def redraw_recurrent(model, seed: int) -> dict:
+    """Redraw ``model``'s RECURRENT_REDRAW leaves (the recurrent blocks'
+    zero-initialised leaves and lam) in place, on the model's device from
+    a generator seeded with ``seed``, in float32 and then the leaf's
+    dtype.  Returns each leaf name's law and the elements redrawn."""
+    dev = model["embed"]["table"].device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    drawn = {}
+    for block in model["blocks"]:
+        for sub in ("rec", "tmix", "cmix"):
+            if sub not in block:
+                continue
+            for name, prm in block[sub].items():
+                if name not in RECURRENT_REDRAW:
+                    continue
+                law, *arg = RECURRENT_REDRAW[name]
+                x = torch.empty(prm.shape, dtype=torch.float32, device=dev)
+                if law == "normal":
+                    x.normal_(0.0, arg[0], generator=gen)
+                else:
+                    x.uniform_(arg[0], arg[1], generator=gen)
+                if law == "decay":    # lam of a decay a at a saturated gate
+                    x = torch.log(torch.expm1(-torch.log(x) / 8.0))
+                with torch.no_grad():
+                    prm.copy_(x.to(prm.dtype))
+                entry = drawn.setdefault(name, [law, *arg, 0])
+                entry[-1] += x.numel()
+    return drawn
+
+
+@contextlib.contextmanager
+def first_calls(module, name: str):
+    """Record the arguments of ``module.name``'s first call with S > 1
+    (a prefill) and its first with S = 1 (a decode step), keyed
+    "prefill" and "decode"; S is dim 1 of the first argument."""
+    orig, seen = getattr(module, name), {}
+
+    def recording(*args, **kw):
+        key = "decode" if args[0].shape[1] == 1 else "prefill"
+        seen.setdefault(key, args)
+        return orig(*args, **kw)
+    setattr(module, name, recording)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, orig)
+
+
+def seq_cache_bytes(cfg, positions: int) -> int:
+    """The cache bytes one sequence holds after ``positions`` positions
+    (its caches sized to hold them: ``init_cache`` at max_seq =
+    ``positions``), bf16 activations."""
+    return tree_bytes(lm.init_cache(cfg, 1, positions, device="cpu"))
+
+
+def recurrent_arch(arch: str, dev, seed: int) -> tuple:
+    """One arch of lm_recurrent at published widths and full depth: (its
+    report, the launch counts of its two streams, the kernels' inputs at
+    its prefill and decode shapes)."""
+    cfg = lm_configs.get_arch(arch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = lm.init_params(cfg, dtype=torch.bfloat16, device=dev, seed=seed)
+    redrawn = redraw_recurrent(model, seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == pspec_count(cfg),
+          f"lm_recurrent {arch}: {n_params} parameters, tree "
+          f"{pspec_count(cfg)}")
+    want = RECURRENT_PREFILL[arch]
+    streams, reqs = {}, {}
+    reset_launch_counts()
+    for i, (what, spec, sched) in enumerate(LM_STREAMS):
+        reqs[what], streams[what] = lm_stream(cfg, model, spec, sched,
+                                              seed + i, what,
+                                              per_prefill=want)
+    counts = launch_counts()
+    check_launched(counts, [k for k, n in want.items() if n],
+                   f"lm_recurrent {arch}")
+    check(all(n == 0 for k, n in counts.items()
+              if not want.get(k)), f"lm_recurrent {arch}: {counts}")
+    max_mem = torch.cuda.max_memory_allocated()
+    # the cache a sequence holds: O(1) for RWKV-6, capped by the ring of
+    # the local layers (and O(1) in the rglru layers) for RecurrentGemma
+    cache_bytes = {n: seq_cache_bytes(cfg, n) for n in (16, 4096)}
+    if cfg.window_size:
+        check(cache_bytes[4096] == seq_cache_bytes(cfg, cfg.window_size)
+              == seq_cache_bytes(cfg, 4 * cfg.window_size)
+              and cache_bytes[16] <= cache_bytes[4096],
+              f"lm_recurrent {arch}: cache bytes {cache_bytes}")
+    else:
+        check(cache_bytes[16] == cache_bytes[4096],
+              f"lm_recurrent {arch}: cache bytes {cache_bytes}")
+    (_, spec_a, _) = LM_STREAMS[0]
+    profile_a = lm_decode_profile(cfg, model, dev,
+                                  max(streams["a"]["schedule"]["batch_hist"]),
+                                  spec_a["prompt_len"], spec_a["max_seq"])
+    gates = {"decode_vs_full": lm_decode_vs_full(
+        cfg, model, dev, faults=RECURRENT_FAULTS[arch])}
+    if cfg.window_size:
+        gates["ring_wrap"] = lm_decode_vs_full(
+            cfg, model, dev, faults=("ring_slot",), sizes=RG_RING_CHECK)
+    # the kernels' own inputs: stream b's prefill (its first local layer's
+    # flash input, layer 0's recurrence) and a decode step after it
+    batch = prompts(reqs["b"], dev)
+    S = lm.seq_len(batch)
+    del reqs
+    with torch.no_grad(), \
+            first_calls(lm_layers, "flash_attention_kernel") as fl, \
+            first_calls(lm_rglru, "linear_scan") as ls, \
+            first_calls(lm_rwkv, "wkv6") as wk:
+        logits, caches = lm.prefill(cfg, model, batch, S + 1)
+        lm.decode_step(cfg, model, caches, S,
+                       {"tokens": logits[:, -1].argmax(-1)[:, None]})
+    del caches
+    inputs = {"flash": fl.get("prefill"), "linear_scan": ls or None,
+              "wkv6": wk or None}
+    report = dict(
+        layers=cfg.num_layers, kinds={k: lm.layer_kinds(cfg).count(k)
+                                      for k in set(cfg.layer_pattern)},
+        d_model=cfg.d_model, heads=[cfg.num_heads, cfg.head_dim],
+        kv_heads=cfg.num_kv_heads, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
+        window=cfg.window_size, params=n_params,
+        param_count=cfg.param_count(), tree_params=pspec_count(cfg),
+        redrawn=redrawn, dtype="bfloat16", init_s=init_s, streams=streams,
+        launches=counts, max_memory_allocated=max_mem,
+        cache_bytes_per_sequence=cache_bytes, decode_profile=profile_a,
+        **gates)
+    del model
+    torch.cuda.empty_cache()
+    report["float32_twin"] = lm_twin(cfg, dev, RECURRENT_TWIN.get(arch))
+    torch.cuda.empty_cache()
+    return report, counts, inputs
+
+
+def phase_lm_recurrent(dev) -> tuple[dict, dict]:
+    """RecurrentGemma-2B and RWKV-6-1.6B at published widths and full
+    depth, one after the other, each freed before the next is drawn.
+    Returns the summed launch counts of their streams, and the kernels'
+    inputs: RecurrentGemma's first local layer's flash input (D 256,
+    window 2048) and each recurrence kernel's prefill and decode
+    arguments."""
+    t_phase = time.perf_counter()
+    archs, total, inputs = {}, {}, {}
+    for i, arch in enumerate(RECURRENT_ARCHS):
+        archs[arch], counts, ins = recurrent_arch(arch, dev, LM_SEED + i)
+        total = {k: total.get(k, 0) + n for k, n in counts.items()}
+        inputs.update({k: v for k, v in ins.items() if v})
+    emit("lm_recurrent", archs=archs, launches=total,
+         card=torch.cuda.get_device_name(0),
+         phase_s=time.perf_counter() - t_phase)
+    return total, inputs
+
+
 def phase_dnn(dev) -> dict:
     reset_launch_counts()
     got = tiled_dnn_workload(device=dev)
@@ -3374,7 +3717,7 @@ def phase_attention(dev) -> tuple[dict, dict]:
 
 
 def phase_accel_kernels(dev, log: tuple, attn: dict, lm_attn: tuple,
-                        zoo_attn: dict) -> list:
+                        zoo_attn: dict, rec_in: dict) -> list:
     """The kernel rows of phases 12-14 at their paths' shapes: mac_conv2d
     at VGG-16 conv3 (and batch 32 of it), fx_log at phase 13's 2^20
     values, flash_attention_kernel at phase 16's LM prefill (layer 0 of
@@ -3382,7 +3725,8 @@ def phase_accel_kernels(dev, log: tuple, attn: dict, lm_attn: tuple,
     float32 S = 1024, and lm_zoo's layer 0 inputs: Gemma-3's local layer,
     window 1024, and MusicGen's D = 64); ``log`` and ``attn`` are phases
     13 and 14's inputs, outputs and plain outputs, ``lm_attn`` phase 16's
-    q, k, v, ``zoo_attn`` lm_zoo's ((q, k, v), window)."""
+    q, k, v, ``zoo_attn`` lm_zoo's ((q, k, v), window), ``rec_in``
+    lm_recurrent's kernel inputs (``phase_lm_recurrent``)."""
     flush = l2_flusher(dev)
     rows = []
 
@@ -3565,9 +3909,78 @@ def phase_accel_kernels(dev, log: tuple, attn: dict, lm_attn: tuple,
                                    "frames, D 64): row 8m")):
         qkv, window = zoo_attn[key]
         zoo_rows.append(model_row([], qkv, window, shape_tag=what))
+    # RecurrentGemma-2B's first local layer (layer 2) in lm_recurrent's
+    # prefill of stream b: D 256, 10 query heads over 1 KV head, window
+    # 2048; bf16 (the wgmma kernel with Q from shared memory) and the same
+    # input in float32 (the CUDA-core kernel)
+    rg_window = lm_configs.get_arch("recurrentgemma-2b").window_size
+    rq, rk, rv = rec_in.pop("flash")
+    zoo_rows.append(model_row(
+        [], (rq, rk, rv), rg_window,
+        shape_tag="lm_recurrent prefill (RecurrentGemma-2B layer 2, local, "
+                  "window 2048, D 256): row 8r"))
+    qkv32 = tuple(t.float() for t in (rq, rk, rv))
+    del rq, rk, rv
+    got32 = flash_attention_kernel(*qkv32, window=rg_window)
+    want32 = attention_plain(*qkv32, window=rg_window)
+    zoo_rows.append(attn_row(
+        [], (qkv32, got32, want32), CUDA_CORE_OPS_PER_S, 3, window=rg_window,
+        shape_tag="the same in float32 (flash_attn_f32_simt_kernel): row "
+                  "8r'"))
+    del qkv32, got32, want32
+    torch.cuda.empty_cache()
     model_row(rows, lm_attn, 0,
               main_path="lm_serve prefill (GLM-4-9B layer 0, stream b)",
               other_shapes=[at_b1, at_f32] + zoo_rows)
+
+    # the recurrences at lm_recurrent's shapes, on their own arguments:
+    # layer 0's in stream b's prefill (the main path's shape) and in the
+    # decode step after it (S = 1); no library call computes them
+    def scan_row(rows, args, iters, plain_iters, **extra):
+        xi, xa, u, lam, h0 = args
+        (y, hf), (y_ref, hf_ref) = linear_scan(*args), linear_scan_ref(*args)
+        check(torch.allclose(hf, hf_ref, atol=1e-5, rtol=1e-5),
+              f"linear_scan: h_final {max_abs_err(hf, hf_ref)}")
+        B, S, W = u.shape
+        kernel_row(
+            rows, flush, "linear_scan", "src/repro_torch/csrc/linear_scan.cu",
+            "src/repro/models/rglru.py:72 rg_lru (jax.lax.associative_scan; "
+            "no Pallas kernel)", lambda: linear_scan(*args),
+            lambda: linear_scan_ref(*args), y, y_ref,
+            4 * (4 * B * S * W + W + 2 * B * W), SCAN_OPS * B * S * W, iters,
+            plain_iters, tol=(1e-5, 1e-5), shape=[B, S, W],
+            h_final_max_abs_err=max_abs_err(hf, hf_ref), **extra)
+        return rows[-1]
+
+    def wkv_row(rows, args, iters, plain_iters, **extra):
+        r, k, v, lw, u, s0 = args
+        (y, st), (y_ref, st_ref) = wkv6(*args), wkv6_ref(*args)
+        check(torch.allclose(st, st_ref, atol=1e-5, rtol=1e-5),
+              f"wkv6: state {max_abs_err(st, st_ref)}")
+        B, S, H, D = r.shape
+        n = B * S * H * D
+        kernel_row(
+            rows, flush, "wkv6", "src/repro_torch/csrc/wkv6.cu",
+            "src/repro/models/rwkv6.py:102 wkv_chunked (einsums; no Pallas "
+            "kernel)", lambda: wkv6(*args), lambda: wkv6_ref(*args), y,
+            y_ref, 3 * n * r.element_size() + 8 * n + 4 * H * D
+            + 8 * B * H * D * D, 5 * D * D * B * S * H, iters, plain_iters,
+            tol=(WKV_Y_REL * float(y_ref.abs().max()), 0.0),
+            shape=[B, S, H, D], dtype=str(r.dtype).removeprefix("torch."),
+            tolerance_atol=f"2^-16 of max |y| "
+                           f"({WKV_Y_REL * float(y_ref.abs().max())})",
+            state_max_abs_err=max_abs_err(st, st_ref), **extra)
+        return rows[-1]
+    ls, wk = rec_in["linear_scan"], rec_in["wkv6"]
+    scan_row(rows, ls["prefill"], 20, 1,
+             main_path="lm_recurrent prefill (RecurrentGemma-2B layer 0, "
+                       "stream b)",
+             other_shapes=[scan_row([], ls["decode"], 50, 5,
+                                    shape_tag="decode step (S = 1)")])
+    wkv_row(rows, wk["prefill"], 20, 1,
+            main_path="lm_recurrent prefill (RWKV-6-1.6B layer 0, stream b)",
+            other_shapes=[wkv_row([], wk["decode"], 50, 5,
+                                  shape_tag="decode step (S = 1)")])
     return rows
 
 
@@ -3612,6 +4025,7 @@ def main() -> int:
     paths["lm_serve"], lm_attn = phase_lm_serve(dev)
     paths["lm_moe"] = phase_lm_moe(dev)
     paths["lm_zoo"], zoo_attn = phase_lm_zoo(dev)
+    paths["lm_recurrent"], rec_in = phase_lm_recurrent(dev)
     paths["dnn_pipeline"] = phase_dnn(dev)
     paths["mac_efficiency"] = phase_mac_efficiency(dev)
     paths["dnn_layers"] = phase_dnn_layers(dev)
@@ -3619,13 +4033,14 @@ def main() -> int:
     paths["attention"], attn = phase_attention(dev)
     rows = phase_kernels(dev, sim, prog, main, main_event, farm_rows,
                          farm_links, farm_main, farm_noc, encode_ops, sass)
-    rows += phase_accel_kernels(dev, log, attn, lm_attn, zoo_attn)
-    del log, attn, lm_attn, zoo_attn
+    rows += phase_accel_kernels(dev, log, attn, lm_attn, zoo_attn, rec_in)
+    del log, attn, lm_attn, zoo_attn, rec_in
     # each kernel's launches on the path it was checked at
     home = {"event_link_loads": "hybrid_farm_4096pe", "mac_gemm": "hybrid",
             "compact_lanes": "event_ring_4096pe",
             "mac_conv2d": "dnn_layers", "fx_log": "elementary",
-            "flash_attention_kernel": "lm_serve"}
+            "flash_attention_kernel": "lm_serve",
+            "linear_scan": "lm_recurrent", "wkv6": "lm_recurrent"}
     for row in rows:
         name = row["name"]
         row["launches"] = paths[home.get(name, "board_ring_4096pe")][name]

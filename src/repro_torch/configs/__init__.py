@@ -1,11 +1,9 @@
 """Config registry: the paper's constants (``paper``) and the LM
 architectures the port runs.  Importing this package registers every
-attention-based architecture (the dense transformers, the two MoE
-models, Gemma-3's local windows, Chameleon and MusicGen); ``get_arch`` of
-a recurrent one (RG-LRU, RWKV-6) raises a ``KeyError`` naming what it
-still needs."""
+assigned architecture: the dense transformers, the two MoE models,
+Gemma-3's local windows, Chameleon, MusicGen and the recurrent pair
+(RecurrentGemma's RG-LRU, RWKV-6)."""
 from repro_torch.configs.base import (
-    NOT_PORTED,
     SHAPES,
     ArchConfig,
     ShapeSpec,
@@ -23,7 +21,9 @@ from repro_torch.configs.glm4_9b import GLM4_9B
 from repro_torch.configs.nemotron4_15b import NEMOTRON4_15B
 from repro_torch.configs.qwen15_4b import QWEN15_4B
 from repro_torch.configs.chameleon_34b import CHAMELEON_34B
+from repro_torch.configs.rwkv6_1b6 import RWKV6_1B6
 from repro_torch.configs.musicgen_large import MUSICGEN_LARGE
+from repro_torch.configs.recurrentgemma_2b import RECURRENTGEMMA_2B
 
 from repro_torch.configs import paper
 
@@ -42,7 +42,8 @@ ASSIGNED = [
 
 __all__ = [
     "ArchConfig", "ShapeSpec", "SHAPES", "all_archs", "cells", "get_arch",
-    "register", "shape_applicable", "paper", "ASSIGNED", "NOT_PORTED",
+    "register", "shape_applicable", "paper", "ASSIGNED",
     "PHI35_MOE", "OLMOE", "GEMMA3_27B", "GLM4_9B", "NEMOTRON4_15B",
-    "QWEN15_4B", "CHAMELEON_34B", "MUSICGEN_LARGE",
+    "QWEN15_4B", "CHAMELEON_34B", "RWKV6_1B6", "MUSICGEN_LARGE",
+    "RECURRENTGEMMA_2B",
 ]

@@ -3,9 +3,7 @@
 Every assigned architecture is a frozen ``ArchConfig``; every workload shape
 is a ``ShapeSpec``.  Reduced ("smoke") variants of each arch are derived
 mechanically so CPU tests stay cheap while exercising the same code paths.
-A copy of the reference's ``configs/base.py`` (pure dataclasses); only
-``get_arch`` differs: an assigned architecture whose model family the port
-does not run yet raises a ``KeyError`` that names the work still to do.
+A copy of the reference's ``configs/base.py`` (pure dataclasses).
 """
 from __future__ import annotations
 
@@ -257,14 +255,6 @@ def shape_applicable(arch: ArchConfig, shape: ShapeSpec) -> bool:
 
 _REGISTRY: dict = {}
 
-# assigned architectures not registered in the port, and what they need
-# (ROADMAP queue A, item 5: the recurrent families)
-NOT_PORTED = {
-    "rwkv6-1.6b": "the RWKV-6 time and channel mixing (models/rwkv6.py)",
-    "recurrentgemma-2b": "RG-LRU blocks (models/rglru.py) and local "
-                         "attention at head_dim 256",
-}
-
 
 def register(cfg: ArchConfig) -> ArchConfig:
     assert cfg.name not in _REGISTRY, f"duplicate arch {cfg.name}"
@@ -273,10 +263,6 @@ def register(cfg: ArchConfig) -> ArchConfig:
 
 
 def get_arch(name: str) -> ArchConfig:
-    if name in NOT_PORTED:
-        raise KeyError(f"arch {name!r} is not ported yet: it needs "
-                       f"{NOT_PORTED[name]}, ROADMAP queue A item 5; "
-                       f"have {sorted(_REGISTRY)}")
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name]

@@ -29,7 +29,9 @@
 // 4 S^2 D H / 2 = 137 GFLOP, 139 us at the bf16 tensor-core rate, against
 // 134 MB of bytes (40 us).  float32 at S = 1024 is 8.6 GFLOP: 128 us at
 // the CUDA cores' float32 rate, 52 us for the three TF32 products of the
-// split at the TF32 tensor-core rate.
+// split at the TF32 tensor-core rate.  RecurrentGemma's local prefill (4 x
+// 4096, 10 heads of 256, window 2048: 6.29 M band pairs a head) is 258
+// GFLOP, 261 us in bf16 and 3.85 ms on the CUDA cores in float32.
 //
 // bfloat16 (flash_attn_wgmma_kernel).  A block is one warpgroup (128
 // threads) and one 64-row query tile, two blocks an SM, so one block's
@@ -37,9 +39,16 @@
 // S = Q K^T is wgmma m64n64k16 with Q's operand in registers (loaded once
 // from shared memory by ldmatrix) and K's tile ((kv, D) row-major, K-major
 // for this product) in shared memory, into a float32 accumulator; D is
-// zero-filled up to 64 or 128 (zero columns add nothing; the extra output
-// columns are not stored).  The online softmax (exp2 of log2-scaled
-// scores, one FFMA and one MUFU.EX2 a score, tree maxima and sums) turns
+// zero-filled up to 64, 128 or 256 (zero columns add nothing; the extra
+// output columns are not stored).  At D = 256 (NCH = 4: RecurrentGemma's
+// local layers) Q's fragments would take 64 more registers beside O's 128
+// float32, S's 32 and the two P's 32, past a thread's 255: there Q stays
+// in shared memory as the first operand of S = Q K^T (both operands from
+// shared memory), and the block, whose 230,400 bytes of Q and three K/V
+// stages leave room for no second one, runs alone on its SM; its 16
+// staging copies a tile recompute their addresses (hoisted out of the kv
+// loop, they spilled).  The online softmax (exp2 of log2-scaled scores,
+// one FFMA and one MUFU.EX2 a score, tree maxima and sums) turns
 // the accumulator into p in registers, rounded to bf16, which is the A
 // operand of O += P V (wgmma m64n64k16 with A in registers; V's tile is
 // (kv, D) row-major, MN-major for this product, read with the transpose
@@ -53,6 +62,17 @@
 // rounded to bf16 before P V (the one new rounding; l sums the float32
 // p); ex2.approx has a relative error of about 2^-22.  D % 8 != 0 or
 // unaligned rows stage with plain loads instead of cp.async.
+//
+// float32 at 128 < D <= 256 (flash_attn_f32_simt_kernel): the 3xTF32
+// kernel's split Q alone would fill shared memory there (Q hi and lo are
+// 128 KB at 64 rows), so these head sizes run on the CUDA cores: a block
+// of 256 threads owns 64 query rows and walks 64-row kv tiles, each
+// thread 4 rows by 4 kv columns of S (a 16-thread group shares a row
+// quartet, so the row's maxima and sums are 16-lane shuffles) and 4 rows
+// by 16 output columns of O in registers; Q, K and V sit in shared memory
+// in rows padded to 257 floats (conflict-free: a column walk steps one
+// bank a row), p goes through a 64 x 65 tile for P V, all in float32 with
+// exp2f (no approximate exponent).  Bound: float32 operations.
 //
 // float32 (flash_attn_tf32_kernel).  TF32 keeps 10 mantissa bits, too few
 // for the float32 tolerance, so each operand x is split into x_hi =
@@ -112,6 +132,17 @@ struct TcSmem {
   static constexpr int kBytes = kQ + KV_STAGES * 2 * kKV + 1024;  // + align
 };
 
+// x, which the compiler cannot see through: addresses and descriptors
+// built from it are recomputed at each use instead of held in registers
+// across the kv loop (which spilled them: a thread of the float32
+// kernel's 384-thread block has 168 registers; at D = 256 the bf16
+// kernel's 16 staging copies)
+template <typename T>
+__device__ __forceinline__ T opaque(T x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
 // Stage rows [r0, r0 + ROWS) of one (batch, head) into a swizzled tile:
 // with VEC (D % 8 == 0, 16-byte aligned rows) one cp.async per 8 values,
 // else plain loads and stores; rows >= S and columns >= D are zeros.
@@ -123,7 +154,9 @@ __device__ __forceinline__ void stage_tc(uint8_t* tile, const bf16* src,
     const uint32_t dst = sm90::smem_addr(tile);
 #pragma unroll
     for (int x = 0; x < ROWS * 8 * NCH / TC_THREADS; ++x) {
-      const int e = tid + x * TC_THREADS;
+      // at D = 256 the 16 copies' addresses, hoisted out of the kv loop,
+      // would spill: there they are recomputed from an opaque tid
+      const int e = (NCH == 4 ? opaque(tid) : tid) + x * TC_THREADS;
       const int r = e / (8 * NCH), c = e % (8 * NCH);   // c: 8-value chunk
       const bool in = r0 + r < S && c * 8 < D;
       sm90::cp_async16(
@@ -169,6 +202,29 @@ __device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32],
         "n"(TB ? 1 : 0));
 }
 
+// d (64 x 64, f32) (+)= A (64 x 16 at descriptor da, K-major) * B (16 x
+// 64 at descriptor db, K-major), both from shared memory; scale_d = 0
+// overwrites d
+__device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32],
+                                                   uint64_t da, uint64_t db,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // four 8 x 8 bf16 matrices from shared memory, lane l giving the row
 // address of matrix l / 8: the register operand of a 16 x 16 tile
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
@@ -207,13 +263,15 @@ __device__ __forceinline__ float quad_sum(float x) {
 // wgmma's register A operand for k step ks is the same rows and columns
 // 16 ks .. 16 ks + 15, so p packs straight from the score accumulator.
 template <int NCH, bool VEC, bool WIN>
-__global__ void __launch_bounds__(TC_THREADS, 2)
+__global__ void __launch_bounds__(TC_THREADS, NCH == 4 ? 1 : 2)
     flash_attn_wgmma_kernel(const bf16* __restrict__ q,
                             const bf16* __restrict__ k,
                             const bf16* __restrict__ v, bf16* __restrict__ o,
                             int S, int H, int D, float scale_log2,
                             int causal, int window) {
   using L = TcSmem<NCH>;
+  // Q from shared memory (D = 256), else from registers
+  constexpr bool QS = NCH == 4;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sq =
       smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023);
@@ -243,23 +301,30 @@ __global__ void __launch_bounds__(TC_THREADS, 2)
   // m, l and acc as they are (p = exp2(-inf) = 0, correction 1)
   const float m0 = WIN ? -1e30f : kNegInf;
   float acc[NCH][32], m[2] = {m0, m0}, l[2] = {0.f, 0.f};
-  uint32_t qf[4 * NCH][4];           // Q's register operand, k step ks
+  uint32_t qf[QS ? 1 : 4 * NCH][4];  // Q's register operand, k step ks
 #pragma unroll
   for (int c = 0; c < NCH; ++c) {
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
   }
   // S = Q K^T of the kv tile in stage st, all 4 NCH k steps (the zero
-  // columns past D add nothing), Q from registers, one wgmma group
+  // columns past D add nothing), Q from registers (or, QS, from its
+  // shared-memory tile, K-major as K's), one wgmma group
   auto issue_qk = [&](float (&sc)[32], int st) {
     const uint32_t k_addr = sm90::smem_addr(sk(st));
 #pragma unroll
     for (int ks = 0; ks < 4 * NCH; ++ks) {
       const int blk = ks / 4, off = (ks % 4) * 32;   // 16 d = 32 bytes
-      wgmma_rs_m64n64k16<false>(
-          sc, qf[ks], sm90::desc_sw128(k_addr + blk * TK * 128 + off, 16,
-                                       1024),
-          ks > 0);
+      const uint64_t db =
+          sm90::desc_sw128(k_addr + blk * TK * 128 + off, 16, 1024);
+      if constexpr (QS) {
+        wgmma_ss_m64n64k16(
+            sc, sm90::desc_sw128(sm90::smem_addr(sq) + blk * TQ * 128 + off,
+                                 16, 1024),
+            db, ks > 0);
+      } else {
+        wgmma_rs_m64n64k16<false>(sc, qf[ks], db, ks > 0);
+      }
     }
     sm90::wgmma_commit();
   };
@@ -361,13 +426,15 @@ __global__ void __launch_bounds__(TC_THREADS, 2)
   wait_tile();                       // Q and tile 0
   // Q's register operand for every k step, loaded once: lane l reads the
   // row of matrix l / 8 (rows + 8 for odd matrices, d + 8 for the last two)
+  if constexpr (!QS) {
 #pragma unroll
-  for (int ks = 0; ks < 4 * NCH; ++ks) {
-    const int lane = tid % 32, mat = lane / 8;
-    const int row = 16 * (tid / 32) + 8 * (mat % 2) + lane % 8;
-    const int chunk = 2 * ks + mat / 2;            // 8 d values a chunk
-    ldmatrix_x4(qf[ks], sm90::smem_addr(sq) + (chunk / 8) * TQ * 128 +
-                            sm90::sw128(row, chunk % 8));
+    for (int ks = 0; ks < 4 * NCH; ++ks) {
+      const int lane = tid % 32, mat = lane / 8;
+      const int row = 16 * (tid / 32) + 8 * (mat % 2) + lane % 8;
+      const int chunk = 2 * ks + mat / 2;          // 8 d values a chunk
+      ldmatrix_x4(qf[ks], sm90::smem_addr(sq) + (chunk / 8) * TQ * 128 +
+                              sm90::sw128(row, chunk % 8));
+    }
   }
   sm90::wgmma_fence();
   issue_qk(s, 0);
@@ -461,15 +528,6 @@ struct F32Smem {
   static constexpr int kBytes = 2 * F_CONSUMERS * kQ + kK + 2 * kV + 1024;
 };
 
-// x, which the compiler cannot see through: addresses and descriptors
-// built from it are recomputed at each use instead of held in registers
-// across the kv loop (which spilled them: a thread of a 384-thread
-// block has 168 registers)
-template <typename T>
-__device__ __forceinline__ T opaque(T x) {
-  asm volatile("" : "+r"(x));
-  return x;
-}
 template <int COUNT>
 __device__ __forceinline__ void bar_sync(int id) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(COUNT) : "memory");
@@ -939,7 +997,177 @@ __global__ void __launch_bounds__(F_THREADS, 1)
   }
 }
 
+
+// ------------------------------------ float32, 128 < D <= 256: CUDA cores
+
 namespace {
+
+constexpr int SQ = 64, SKV = 64, S_THREADS = 256, SD = 256;
+constexpr int SD_STRIDE = SD + 1, SP_STRIDE = SKV + 1;   // padded rows
+constexpr int kSimtSmem = 4 * (SQ * SD_STRIDE + 2 * SKV * SD_STRIDE +
+                               SQ * SP_STRIDE);
+
+// rows [r0, r0 + ROWS) of one (batch, head), D floats each, into a tile of
+// rows padded to SD_STRIDE floats; rows >= S are zeros (columns >= D are
+// left as they are: no product reads them into a stored output)
+template <int ROWS>
+__device__ __forceinline__ void stage_simt(float* tile, const float* src,
+                                           int64_t rs, int r0, int S, int D,
+                                           int tid) {
+  for (int e = tid; e < ROWS * D; e += S_THREADS) {
+    const int r = e / D, c = e % D;
+    tile[r * SD_STRIDE + c] =
+        r0 + r < S ? __ldg(src + static_cast<int64_t>(r0 + r) * rs + c)
+                   : 0.f;
+  }
+}
+
+}  // namespace
+
+// Thread t = 16 ty + tx holds scores of rows 4 ty + i (i < 4) at kv
+// columns tx + 16 j (j < 4) of a tile, and O's rows 4 ty + i at columns
+// tx + 16 jj (jj < 16)
+__global__ void __launch_bounds__(S_THREADS, 1)
+    flash_attn_f32_simt_kernel(const float* __restrict__ q,
+                               const float* __restrict__ k,
+                               const float* __restrict__ v,
+                               float* __restrict__ o, int S, int H, int D,
+                               float scale_log2, int causal, int window) {
+  extern __shared__ float smem_f[];
+  float* sq = smem_f;
+  float* sk = sq + SQ * SD_STRIDE;
+  float* sv = sk + SKV * SD_STRIDE;
+  float* sp = sv + SKV * SD_STRIDE;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int n_tiles = (S + SQ - 1) / SQ;
+  const int q0 = (n_tiles - 1 - blockIdx.x) * SQ;   // longest first
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int64_t rs = static_cast<int64_t>(H) * D;
+  const int64_t base = (static_cast<int64_t>(b) * S * H + h) * D;
+  const int j0 = window > 0 ? max(0, q0 - window + 1) / SKV : 0;
+  const int j1 = causal ? min((S + SKV - 1) / SKV, (q0 + SQ - 1) / SKV + 1)
+                        : (S + SKV - 1) / SKV;
+  // m starts finite, so that a tile wholly masked for a row leaves m, l
+  // and acc as they are (p = exp2(-inf) = 0, correction 1)
+  float acc[4][16], m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -1e30f;
+    l[i] = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj) acc[i][jj] = 0.f;
+  }
+  stage_simt<SQ>(sq, q + base, rs, q0, S, D, tid);
+  for (int jt = j0; jt < j1; ++jt) {
+    const int k0 = jt * SKV;
+    stage_simt<SKV>(sk, k + base, rs, k0, S, D, tid);
+    stage_simt<SKV>(sv, v + base, rs, k0, S, D, tid);
+    __syncthreads();
+    float sc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
+    }
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      float qv[4], kv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qv[i] = sq[(4 * ty + i) * SD_STRIDE + d];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) kv[j] = sk[(tx + 16 * j) * SD_STRIDE + d];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
+      }
+    }
+    // online softmax of the tile's rows, m in log2 units of the scaled
+    // scores; masked scores (past S, above the diagonal, at or past
+    // ``window`` behind the row) are -inf
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + 4 * ty + i;
+      float mx = -__builtin_huge_valf();
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = k0 + tx + 16 * j;
+        const bool out = col >= S || (causal && col > row) ||
+                         (window > 0 && col <= row - window);
+        sc[i][j] = out ? -__builtin_huge_valf() : sc[i][j] * scale_log2;
+        mx = fmaxf(mx, sc[i][j]);
+      }
+#pragma unroll
+      for (int w = 8; w > 0; w /= 2) {
+        mx = fmaxf(mx, __shfl_xor_sync(~0u, mx, w));
+      }
+      const float m_new = fmaxf(m[i], mx);
+      const float corr = exp2f(m[i] - m_new);
+      m[i] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = exp2f(sc[i][j] - m_new);
+        sum += p;
+        sp[(4 * ty + i) * SP_STRIDE + tx + 16 * j] = p;
+      }
+      l[i] = l[i] * corr + sum;           // this thread's part of the row
+#pragma unroll
+      for (int jj = 0; jj < 16; ++jj) acc[i][jj] *= corr;
+    }
+    __syncthreads();
+    // O += P V over the tile's kv rows
+#pragma unroll 2
+    for (int c = 0; c < SKV; ++c) {
+      float pv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pv[i] = sp[(4 * ty + i) * SP_STRIDE + c];
+#pragma unroll
+      for (int jj = 0; jj < 16; ++jj) {
+        const float vv = sv[c * SD_STRIDE + tx + 16 * jj];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i][jj] = fmaf(pv[i], vv, acc[i][jj]);
+      }
+    }
+    __syncthreads();                      // K, V and P are rewritten next
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float lt = l[i];
+#pragma unroll
+    for (int w = 8; w > 0; w /= 2) lt += __shfl_xor_sync(~0u, lt, w);
+    const int row = q0 + 4 * ty + i;
+    if (row >= S) continue;
+    const float l_safe = fmaxf(lt, 1e-30f);
+    float* out = o + base + static_cast<int64_t>(row) * rs;
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj) {
+      const int col = tx + 16 * jj;
+      if (col < D) out[col] = acc[i][jj] / l_safe;
+    }
+  }
+}
+
+namespace {
+
+int launch_f32_simt(const void* q, const void* k, const void* v, void* o,
+                    int B, int S, int H, int D, float scale, int causal,
+                    int window, cudaStream_t st) {
+  static bool configured = false;    // above 48 KB only when allowed
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_attn_f32_simt_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kSimtSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const dim3 grid((S + SQ - 1) / SQ, B * H);
+  flash_attn_f32_simt_kernel<<<grid, S_THREADS, kSimtSmem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), S, H, D,
+      scale * 1.4426950408889634f, causal, window);      // log2(e)
+  return static_cast<int>(cudaGetLastError());
+}
 
 template <int NCH, bool WIN>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
@@ -985,7 +1213,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
 
 }  // namespace
 
-// q, k, v, o: (B, S, H, D) contiguous, D <= 128; window > 0: query i
+// q, k, v, o: (B, S, H, D) contiguous, D <= 256; window > 0: query i
 // sees keys j > i - window only; bf16 != 0 selects bfloat16, else float32
 extern "C" int repro_flash_attn(const void* q, const void* k, const void* v,
                                 void* o, int32_t B, int32_t S, int32_t H,
@@ -1001,6 +1229,10 @@ extern "C" int repro_flash_attn(const void* q, const void* k, const void* v,
   const bool win = window > 0;
   if (!bf16) {
     const int vec = D % 4 == 0 && aligned;
+    if (D > 128) {
+      return launch_f32_simt(q, k, v, o, B, S, H, D, scale, causal, window,
+                             st);
+    }
     if (D <= 64) {
       return win ? launch_f32<2, true>(q, k, v, o, B, S, H, D, scale, causal,
                                        window, vec, st)
@@ -1023,6 +1255,18 @@ extern "C" int repro_flash_attn(const void* q, const void* k, const void* v,
     return win ? launch_tc<1, false, true>(q, k, v, o, B, S, H, D, scale,
                                            causal, window, st)
                : launch_tc<1, false, false>(q, k, v, o, B, S, H, D, scale,
+                                            causal, window, st);
+  }
+  if (D > 128) {
+    if (vec) {
+      return win ? launch_tc<4, true, true>(q, k, v, o, B, S, H, D, scale,
+                                            causal, window, st)
+                 : launch_tc<4, true, false>(q, k, v, o, B, S, H, D, scale,
+                                             causal, window, st);
+    }
+    return win ? launch_tc<4, false, true>(q, k, v, o, B, S, H, D, scale,
+                                           causal, window, st)
+               : launch_tc<4, false, false>(q, k, v, o, B, S, H, D, scale,
                                             causal, window, st);
   }
   if (vec) {

@@ -15,7 +15,7 @@ _ARGS = (ctypes.c_void_p,) * 4 + (ctypes.c_int32,) * 4 + (
     ctypes.c_float, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
     ctypes.c_void_p)
 _DTYPES = (torch.float32, torch.bfloat16)
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 _MAX_HEADS = 65535                 # gridDim.y: one row of blocks per (b, h)
 
 
@@ -31,8 +31,9 @@ def flash_attention_kernel(q, k, v, *, causal=True, window=0, bq=128,
     ``bq`` and ``bk`` are the reference's query and kv block sizes, kept
     for parity of the signature and ignored: the kernels tile 64
     (bfloat16) or 128 (float32, 3xTF32) query rows against kv tiles of
-    64 or 32 rows and bounds-check any S, so the result does not depend
-    on them."""
+    64 or 32 rows (float32 at D > 128: 64 against 64 on the CUDA cores)
+    and bounds-check any S, so the result does not depend on them.  D is
+    at most 256."""
     if not (q.dtype == k.dtype == v.dtype and q.dtype in _DTYPES):
         raise TypeError(f"flash_attention_kernel: q, k, v must all be "
                         f"float32 or bfloat16, got {q.dtype}, {k.dtype}, "

@@ -4,11 +4,14 @@
         --requests 12 --max-new 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
         --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch recurrentgemma-2b
 
 Any registered token model: the dense transformers, the MoE configs
 (``olmoe-1b-7b``, ``phi3.5-moe-42b-a6.6b``), Gemma-3's local windows,
-Nemotron-4 and Chameleon (whose VQ image tokens share the text
-vocabulary).  MusicGen's encodec frames do not go through the engine, in
+Nemotron-4, Chameleon (whose VQ image tokens share the text
+vocabulary) and the recurrent pair, ``recurrentgemma-2b`` (RG-LRU
+layers and local attention at head_dim 256) and ``rwkv6-1.6b``.  MusicGen's encodec frames do not go through the engine, in
 the reference's engine as in this one: drive its ``prefill`` and
 ``decode_step`` on ``{"frames": ...}`` directly.  The reference launcher's
 flags, plus ``--device`` (default: the CUDA

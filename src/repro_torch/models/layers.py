@@ -342,10 +342,16 @@ def init_attn_cache(cfg, batch, max_seq, kind="attn", dtype=torch.bfloat16,
 # ---------------------------------------------------------------------------
 
 def mlp_pspecs(cfg):
+    """The MLP's leaves; ``rwkv_channel_mix`` is RWKV-6's channel mixing
+    (``models.rwkv6.channel_mix_apply``)."""
     d, f = cfg.d_model, cfg.d_ff
     if cfg.mlp in ("swiglu", "geglu"):
         return {"wi": PSpec((d, f)), "wg": PSpec((d, f)),
                 "wo": PSpec((f, d), "out")}
+    if cfg.mlp == "rwkv_channel_mix":
+        return {"wk": PSpec((d, f)), "wv": PSpec((f, d), "out"),
+                "wr": PSpec((d, d)), "mix_k": PSpec((d,), "zeros"),
+                "mix_r": PSpec((d,), "zeros")}
     return {"wi": PSpec((d, f)), "wo": PSpec((f, d), "out")}
 
 

@@ -1,27 +1,28 @@
-"""Decoder-only LM for the attention-based transformers.
+"""Decoder-only LM for every assigned architecture.
 
-A model is a repeated ``layer_pattern`` of attention layers, ``"attn"``
+A model is a repeated ``layer_pattern`` of layers: attention, ``"attn"``
 (global) or ``"local"`` (a sliding window of ``window_size`` keys, as in
 Gemma-3's 5 local : 1 global), each with a dense MLP or, for the MoE
-configs, a mixture of experts (``models.moe``).  ``Transformer`` is an
-``nn.Module`` laid out as the reference's parameter tree (``embed``,
-``final_norm``, ``blocks``), indexed the same way
-(``params["blocks"][i]["attn"]["wq"]``), with one ``Block`` a layer where
-the reference stacks each pattern position's layers along a scanned
-leading axis; layer i has kind ``layer_pattern[i % len(pattern)]`` for
+configs, a mixture of experts (``models.moe``); ``"rglru"``, Griffin's
+recurrent block (``models.rglru``, RecurrentGemma's rglru, rglru, local);
+or ``"rwkv"``, RWKV-6's time and channel mixing (``models.rwkv6``).
+``Transformer`` is an ``nn.Module`` laid out as the reference's
+parameter tree (``embed``, ``final_norm``, ``blocks``), indexed the same
+way (``params["blocks"][i]["attn"]["wq"]``), with one ``Block`` a layer
+where the reference stacks each pattern position's layers along a
+scanned leading axis; layer i has kind ``layer_pattern[i % len(pattern)]`` for
 the whole groups and ``rem_layers`` after them.  The reference's entry
 points keep their names as module-level functions over it:
 ``forward_hidden`` and ``logits_fn`` (the full-sequence forward),
 ``prefill`` (last-position logits and the caches; attention through the
-flash kernel) and ``decode_step`` (one token or frame against the
-caches).  Inputs are ``{"tokens": (B, S)}`` or, for the encodec frontend
+flash kernel, the recurrences through the linear_scan and wkv6 kernels)
+and ``decode_step`` (one token or frame against the caches: an attention
+layer's k and v, a recurrent layer's state, O(1) in the sequence).
+Inputs are ``{"tokens": (B, S)}`` or, for the encodec frontend
 (MusicGen), ``{"frames": (B, S, d_model)}`` (precomputed frame
 embeddings, as the reference's stub); several codebooks give (B, S, K, V)
 logits.  Layers run in a Python loop; there is no mesh and no
 rematerialisation on one card.
-
-The recurrent families (RG-LRU, RWKV-6) are refused with a
-``ValueError`` (ROADMAP queue A item 5).
 """
 from __future__ import annotations
 
@@ -32,6 +33,8 @@ from torch import nn
 from repro_torch import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.models import rglru as RG
+from repro_torch.models import rwkv6 as RWKV
 
 ATTN_KINDS = ("attn", "local")
 
@@ -39,19 +42,13 @@ ATTN_KINDS = ("attn", "local")
 def check_supported(cfg) -> None:
     """Raise ``ValueError`` naming what this port lacks for ``cfg``."""
     missing = []
-    kinds = set(cfg.layer_pattern)
-    if "rglru" in kinds or cfg.family == "rglru":
-        missing.append("RG-LRU blocks (models/rglru.py)")
-    if cfg.family == "rwkv6" or "rwkv" in kinds:
-        missing.append("RWKV-6 mixing (models/rwkv6.py)")
     if cfg.frontend not in ("none", "vq_image", "encodec"):
         missing.append(f"the {cfg.frontend} frontend")
     if cfg.pos_emb not in ("rope", "sinusoidal", "none"):
         missing.append(f"{cfg.pos_emb} position embeddings")
     if missing:
-        raise ValueError(f"{cfg.name}: the port runs attention-based "
-                         f"transformers only; it lacks "
-                         f"{', '.join(missing)} (ROADMAP queue A item 5)")
+        raise ValueError(f"{cfg.name}: the port lacks "
+                         f"{', '.join(missing)}")
 
 
 def layer_kinds(cfg) -> list:
@@ -67,19 +64,30 @@ def layer_kinds(cfg) -> list:
 # ---------------------------------------------------------------------------
 
 def block_pspecs(cfg, kind="attn"):
-    if kind not in ATTN_KINDS:
-        raise ValueError(kind)
-    mlp = MOE.moe_pspecs(cfg) if cfg.moe else L.mlp_pspecs(cfg)
-    return {"norm1": L.norm_pspecs(cfg), "attn": L.attn_pspecs(cfg),
-            "norm2": L.norm_pspecs(cfg), "mlp": mlp}
+    if kind in ATTN_KINDS:
+        mlp = MOE.moe_pspecs(cfg) if cfg.moe else L.mlp_pspecs(cfg)
+        return {"norm1": L.norm_pspecs(cfg), "attn": L.attn_pspecs(cfg),
+                "norm2": L.norm_pspecs(cfg), "mlp": mlp}
+    if kind == "rglru":
+        return {"norm1": L.norm_pspecs(cfg), "rec": RG.rglru_pspecs(cfg),
+                "norm2": L.norm_pspecs(cfg), "mlp": L.mlp_pspecs(cfg)}
+    if kind == "rwkv":
+        return {"norm1": L.norm_pspecs(cfg),
+                "tmix": RWKV.time_mix_pspecs(cfg),
+                "norm2": L.norm_pspecs(cfg), "cmix": L.mlp_pspecs(cfg)}
+    raise ValueError(kind)
 
 
 def model_pspecs(cfg):
     """The module's tree: the reference's, with ``blocks`` one entry a
-    layer instead of stacked along a scanned axis."""
+    layer instead of stacked along a scanned axis (``ln0``, RWKV-6's norm
+    of the embeddings, where the family has it)."""
     check_supported(cfg)
-    return {"embed": L.embed_pspecs(cfg), "final_norm": L.norm_pspecs(cfg),
-            "blocks": [block_pspecs(cfg, kind) for kind in layer_kinds(cfg)]}
+    p = {"embed": L.embed_pspecs(cfg), "final_norm": L.norm_pspecs(cfg)}
+    if cfg.family == "rwkv6":
+        p["ln0"] = L.norm_pspecs(cfg)
+    p["blocks"] = [block_pspecs(cfg, kind) for kind in layer_kinds(cfg)]
+    return p
 
 
 def _params(tree: dict) -> nn.ParameterDict:
@@ -89,7 +97,8 @@ def _params(tree: dict) -> nn.ParameterDict:
 
 class Block(nn.ModuleDict):
     """One layer: ``norm1``, ``attn``, ``norm2``, ``mlp`` (dense, or the
-    MoE's ``router`` and (E, ...) expert weights)."""
+    MoE's ``router`` and (E, ...) expert weights); a recurrent layer's
+    ``rec`` (RG-LRU) or ``tmix`` and ``cmix`` (RWKV-6) in their place."""
 
     def __init__(self, tree: dict):
         super().__init__({k: _params(v) for k, v in tree.items()})
@@ -104,6 +113,7 @@ class Transformer(nn.ModuleDict):
         super().__init__({
             "embed": _params(tree["embed"]),
             "final_norm": _params(tree["final_norm"]),
+            **({"ln0": _params(tree["ln0"])} if "ln0" in tree else {}),
             "blocks": nn.ModuleList(Block(b) for b in tree["blocks"])})
         if len(self["blocks"]) != cfg.num_layers:
             raise ValueError(f"{cfg.name}: {len(self['blocks'])} blocks for "
@@ -162,20 +172,33 @@ def params_from_numpy(cfg, tree: dict, device=None) -> Transformer:
                            for k, sub in stacked.items()})
         else:
             blocks.append(tree["rem_blocks"][layer - groups * plen])
-    return Transformer(cfg, {"embed": conv(tree["embed"]),
-                             "final_norm": conv(tree["final_norm"]),
-                             "blocks": [conv(b) for b in blocks]})
+    top = {k: conv(tree[k]) for k in ("embed", "final_norm", "ln0")
+           if k in tree}
+    return Transformer(cfg, {**top, "blocks": [conv(b) for b in blocks]})
 
 
 # ---------------------------------------------------------------------------
 # Caches
 # ---------------------------------------------------------------------------
 
+def init_layer_cache(cfg, kind, batch, max_seq, dtype=torch.bfloat16,
+                     device=None):
+    if kind in ATTN_KINDS:
+        return L.init_attn_cache(cfg, batch, max_seq, kind, dtype, device)
+    if kind == "rglru":
+        return RG.init_rglru_cache(cfg, batch, dtype, device)
+    if kind == "rwkv":
+        return RWKV.init_rwkv_cache(cfg, batch, dtype, device)
+    raise ValueError(kind)
+
+
 def init_cache(cfg, batch, max_seq, dtype=torch.bfloat16, device=None):
-    """One ``{"k", "v"}`` buffer of (B, Sc, KH, D) a layer: Sc = max_seq,
-    or ``min(max_seq, window_size)`` for a local layer."""
+    """One zero cache a layer: an attention layer's ``{"k", "v"}`` buffer
+    of (B, Sc, KH, D), Sc = max_seq, or ``min(max_seq, window_size)`` for
+    a local layer; an RG-LRU layer's ``{"conv", "state"}``; an RWKV-6
+    layer's ``{"tmix": {"shift", "state"}, "cmix": {"shift"}}``."""
     device = resolve_device(device)
-    return [L.init_attn_cache(cfg, batch, max_seq, kind, dtype, device)
+    return [init_layer_cache(cfg, kind, batch, max_seq, dtype, device)
             for kind in layer_kinds(cfg)]
 
 
@@ -221,7 +244,26 @@ def attn_with_cache(cfg, p, x, qpos, *, kind, cache, kv_len,
 def block_apply(cfg, kind, p, x, qpos, *, cache=None, kv_len=None,
                 build_cache_len=None, moe_dense=False, aux=True):
     """Returns (x, new_cache, aux_losses): the MoE's losses, or None for
-    a dense MLP (and, with ``aux=False``, their values None)."""
+    a dense MLP or a recurrent layer (and, with ``aux=False``, their
+    values None).  A recurrent layer's cache is its state after x, from
+    ``cache`` (None: zeros), whether or not the call builds caches."""
+    if kind == "rglru":
+        h = L.apply_norm(cfg, p["norm1"], x)
+        r, new_cache = RG.rglru_block_apply(cfg, p["rec"], h, cache=cache)
+        x = x + r
+        h = L.apply_norm(cfg, p["norm2"], x)
+        return x + L.mlp_apply(cfg, p["mlp"], h), new_cache, None
+    if kind == "rwkv":
+        h = L.apply_norm(cfg, p["norm1"], x)
+        t, tcache = RWKV.time_mix_apply(
+            cfg, p["tmix"], h, cache=cache["tmix"] if cache else None)
+        x = x + t
+        h = L.apply_norm(cfg, p["norm2"], x)
+        c, ccache = RWKV.channel_mix_apply(
+            cfg, p["cmix"], h, cache=cache["cmix"] if cache else None)
+        return x + c, {"tmix": tcache, "cmix": ccache}, None
+    if kind not in ATTN_KINDS:
+        raise ValueError(kind)
     h = L.apply_norm(cfg, p["norm1"], x)
     a, new_cache = attn_with_cache(cfg, p["attn"], h, qpos, kind=kind,
                                    cache=cache, kv_len=kv_len,
@@ -256,7 +298,7 @@ def batch_device(batch):
 def embed_input(cfg, params, batch, qpos, dtype=torch.bfloat16):
     """Token embeddings, or the encodec frontend's frames (B, S, d) cast
     to ``dtype`` and scaled as embeddings are; sinusoidal positions added
-    at ``qpos`` where the config has them."""
+    at ``qpos`` where the config has them; RWKV-6's ``ln0``."""
     if "frames" in batch:                       # stubbed modality frontend
         x = batch["frames"].to(dtype)
         if cfg.embed_scale:
@@ -265,6 +307,8 @@ def embed_input(cfg, params, batch, qpos, dtype=torch.bfloat16):
         x = L.embed_lookup(cfg, params["embed"], batch["tokens"], dtype)
     if cfg.pos_emb == "sinusoidal":
         x = x + L.sinusoidal_emb(qpos, cfg.d_model, dtype)[None]
+    if cfg.family == "rwkv6":
+        x = L.apply_norm(cfg, params["ln0"], x)
     return x
 
 
@@ -323,8 +367,9 @@ def decode_step(cfg, params, caches, pos: int, batch, *, moe_dense=False,
                 dtype=torch.bfloat16):
     """One token (or frame) at 0-based position ``pos`` (a host int) for
     the whole batch.  ``batch``: {"tokens": (B, 1)} or {"frames": (B, 1,
-    d)}.  The caches are updated in place.  Returns (logits (B, 1, [K,]
-    V), caches)."""
+    d)}.  Attention caches are updated in place; a recurrent layer's
+    state comes back as a new cache.  Returns (logits (B, 1, [K,] V),
+    caches)."""
     qpos = torch.arange(int(pos), int(pos) + 1, device=batch_device(batch))
     x = embed_input(cfg, params, batch, qpos, dtype)
     hidden, caches, _ = forward_hidden(cfg, params, x, qpos, caches=caches,

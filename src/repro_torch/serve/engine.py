@@ -7,7 +7,10 @@ offered load — idle deployments run narrow/cheap, bursts widen the batch.
 
 Continuous-batching-lite: one padded decode batch; finished sequences are
 replaced from the queue between rounds.  Prefill (the flash kernel in
-every layer) and decode run eagerly on the parameters' device.
+every attention layer, linear_scan or wkv6 in a recurrent one) and
+decode run eagerly on the parameters' device; the caches, an attention
+layer's k and v or a recurrent layer's state, pass through both as the
+model returns them.
 """
 from __future__ import annotations
 

@@ -21,9 +21,9 @@ from repro_torch.chip.workloads import (adaptive_control_workload,
 from repro_torch.kernels import (compact_lanes, event_link_loads,
                                  flash_attention_kernel,
                                  fx_exp, fx_log, launch_counts, lif_step,
-                                 link_loads_csc, mac_conv2d, mac_gemm,
-                                 noc_link_loads, reset_launch_counts,
-                                 syn_accum)
+                                 linear_scan, link_loads_csc, mac_conv2d,
+                                 mac_gemm, noc_link_loads,
+                                 reset_launch_counts, syn_accum, wkv6)
 from repro_torch.kernels.event_gather.ops import route as event_gather_route
 from repro_torch.kernels.event_gather.ref import (compact_lanes_ref,
                                                   event_link_loads_ref)
@@ -31,12 +31,14 @@ from repro_torch.kernels.explog.ops import exp_table, fx_exp_launch
 from repro_torch.kernels.explog.ref import FX_ONE, LN2, fx_exp_ref, fx_log_ref
 from repro_torch.kernels.flash_attn.ref import flash_attention_ref
 from repro_torch.kernels.lif.ref import lif_step_ref
+from repro_torch.kernels.linear_scan.ref import linear_scan_ref
 from repro_torch.kernels.link_load.ref import (link_loads_csc_ref,
                                                noc_link_loads_ref)
 from repro_torch.kernels.mac_conv.ops import route as conv_route
 from repro_torch.kernels.mac_conv.ref import mac_conv2d_ref
 from repro_torch.kernels.mac_gemm.ref import mac_gemm_ref
 from repro_torch.kernels.syn_accum.ref import syn_accum_ref
+from repro_torch.kernels.wkv6.ref import wkv6_ref
 from repro_torch.learn import (PES, STDP, LearnSlot, init_learn_state,
                                make_learn_step)
 from repro_torch.learn.adaptive import adaptive_control_graph
@@ -638,6 +640,89 @@ def test_flash_attention_kernel_window(cuda, s, d, window, dtype, tol):
                                atol=tol[0], rtol=tol[1])
 
 
+# head_dim 129-256: bf16 on the wgmma kernel with Q from shared memory
+# (D zero-filled to 256), float32 on the CUDA-core kernel; S across the
+# 64-row tiles, causal, full and banded (RecurrentGemma's window 2048)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, (2e-5, 1e-4)),
+                                       (torch.bfloat16, (4e-3, 2 ** -7))])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 64),
+                                           (True, 2048)])
+@pytest.mark.parametrize("s,d", [(1, 256), (65, 256), (300, 136),
+                                 (1000, 200), (2200, 256)])
+def test_flash_attention_kernel_head_dim_256(cuda, s, d, causal, window,
+                                             dtype, tol):
+    shape = (1, s, 2, d)
+    gen = torch.Generator().manual_seed(s * 1000 + d + window)
+    q, k, v = (torch.randn(shape, generator=gen).to(dtype)
+               for _ in range(3))
+    got = flash_attention_kernel(q.to(cuda), k.to(cuda), v.to(cuda),
+                                 causal=causal, window=window)
+    fold = lambda t: t.transpose(1, 2).reshape(2, s, d)
+    want = flash_attention_ref(fold(q), fold(k), fold(v), causal=causal,
+                               window=window)
+    want = want.reshape(1, 2, s, d).transpose(1, 2)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.cpu().float(), want.float(),
+                               atol=tol[0], rtol=tol[1])
+
+
+@pytest.mark.parametrize("B,S,W", [(1, 1, 1), (2, 37, 100), (3, 100, 2560),
+                                   (8, 1, 2560), (1, 4097, 33)])
+def test_linear_scan_kernel(cuda, B, S, W):
+    """The RG-LRU kernel against its plain version at the reference test's
+    atol = rtol = 1e-5 (the same float32 formula, one thread a channel);
+    Griffin-range decays so that the state carries across the walk."""
+    gen = torch.Generator().manual_seed(B * 1000 + S + W)
+    xi, xa, u = (torch.randn(B, S, W, generator=gen) for _ in range(3))
+    a0 = torch.empty(W).uniform_(0.9, 0.999, generator=gen)
+    lam = torch.log(torch.expm1(-torch.log(a0) / 8.0))
+    h0 = torch.randn(B, W, generator=gen)
+    args = (xi, xa, u, lam, h0)
+    y, h = linear_scan(*(t.to(cuda) for t in args))
+    y_ref, h_ref = linear_scan_ref(*args)
+    torch.testing.assert_close(y.cpu(), y_ref, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(h.cpu(), h_ref, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,D", [(1, 1, 1, 8), (2, 50, 3, 16),
+                                     (1, 200, 2, 32), (2, 64, 4, 64),
+                                     (8, 1, 32, 64), (1, 33, 2, 128)])
+def test_wkv6_kernel(cuda, B, S, H, D, dtype):
+    """The WKV kernel against its plain version (wkv_sequential): the
+    state at atol = rtol = 1e-5 (the same rounded products and sums), y
+    within 2^-16 of its largest magnitude (its D products summed in
+    another order)."""
+    gen = torch.Generator().manual_seed(B * 100 + S + H + D)
+    r, k, v = (torch.randn(B, S, H, D, generator=gen).to(dtype)
+               for _ in range(3))
+    lw = -torch.exp(torch.empty(B, S, H, D).uniform_(-6.0, 1.0,
+                                                     generator=gen))
+    u = 0.5 * torch.randn(H, D, generator=gen)
+    s0 = torch.randn(B, H, D, D, generator=gen)
+    args = (r, k, v, lw, u, s0)
+    y, st = wkv6(*(t.to(cuda) for t in args))
+    y_ref, st_ref = wkv6_ref(*args)
+    assert y.dtype == st.dtype == torch.float32
+    torch.testing.assert_close(st.cpu(), st_ref, atol=1e-5, rtol=1e-5)
+    assert (y.cpu() - y_ref).abs().max() <= 2.0 ** -16 * y_ref.abs().max()
+
+
+def test_recurrent_kernels_count_their_launches(cuda):
+    reset_launch_counts()
+    linear_scan(*[torch.ones(1, 3, 4, device=cuda)] * 3,
+                torch.ones(4, device=cuda), torch.ones(1, 4, device=cuda))
+    wkv6(*[torch.ones(1, 3, 2, 8, device=cuda)] * 4,
+         torch.ones(2, 8, device=cuda), torch.ones(1, 2, 8, 8, device=cuda))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["linear_scan"] == counts["wkv6"] == 1
+    with pytest.raises(ValueError, match="head size"):
+        wkv6(*[torch.ones(1, 3, 2, 12, device=cuda)] * 4,
+             torch.ones(2, 12, device=cuda),
+             torch.ones(1, 2, 12, 12, device=cuda))
+
+
 def test_new_kernels_count_their_launches(cuda):
     reset_launch_counts()
     fx_log(torch.ones(5, dtype=torch.int32, device=cuda))
@@ -924,6 +1009,64 @@ def test_lm_zoo_on_the_card_matches_the_cpu(cuda, arch):
         assert gc[0]["k"].shape[1] == cfg.window_size
     for g, w in list(zip(got, want)) + [(a[k], b[k]) for a, b in zip(gc, wc)
                                         for k in ("k", "v")]:
+        g, w = g.float().cpu(), w.float()
+        assert (g - w).abs().max() <= 2.0 ** -7 * w.abs().max()
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-1.6b"])
+def test_recurrent_smoke_models_on_the_card_match_the_cpu(cuda, arch):
+    """Smoke-width RecurrentGemma (RG-LRU layers through linear_scan, the
+    local layer's windowed flash at window 8, its ring wrapped by the
+    decode) and RWKV-6 (wkv6) in bf16: a prefill of 20 and 8 decode steps
+    on the card against the CPU's on the same weights (the zero leaves
+    redrawn from a seeded normal); each prefill launches each layer's
+    kernel once; logits and every final cache leaf within 2^-7 of their
+    largest magnitude (two bf16 steps)."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    cfg = configs.get_arch(arch).smoke()
+    cpu = T.init_params(cfg, dtype=torch.bfloat16, device="cpu", seed=1)
+    gen = torch.Generator().manual_seed(3)
+    specs = T.model_pspecs(cfg)["blocks"]
+    with torch.no_grad():
+        for spec, block in zip(specs, cpu["blocks"]):
+            for sub, leaves in spec.items():
+                for name, ps in leaves.items():
+                    if ps.init == "zeros":
+                        block[sub][name].copy_(0.5 * torch.randn(
+                            ps.shape, generator=gen))
+    card = T.init_params(cfg, dtype=torch.bfloat16, device="cpu", seed=1)
+    card.load_state_dict(cpu.state_dict())
+    card = card.to(cuda)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 28)))
+    kinds = T.layer_kinds(cfg)
+    want_launches = {"flash_attention_kernel": kinds.count("local"),
+                     "linear_scan": kinds.count("rglru"),
+                     "wkv6": kinds.count("rwkv")}
+    runs = {}
+    for dev, m in (("cpu", cpu), ("cuda", card)):
+        tt = toks.to(dev)
+        with torch.inference_mode():
+            before = launch_counts()
+            lg, caches = T.prefill(cfg, m, {"tokens": tt[:, :20]}, 28)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                after = launch_counts()
+                assert {k: after[k] - before[k] for k in want_launches} == \
+                    want_launches
+            outs = [lg]
+            for t in range(20, 28):
+                lg, caches = T.decode_step(cfg, m, caches, t,
+                                           {"tokens": tt[:, t:t + 1]})
+                outs.append(lg)
+        runs[dev] = outs, caches
+    (want, wc), (got, gc) = runs["cpu"], runs["cuda"]
+    flat = lambda c: ([x for v in c.values() for x in flat(v)]
+                      if isinstance(c, dict) else [c])
+    pairs = list(zip(got, want)) + [(a, b) for g, w in zip(gc, wc)
+                                    for a, b in zip(flat(g), flat(w))]
+    for g, w in pairs:
         g, w = g.float().cpu(), w.float()
         assert (g - w).abs().max() <= 2.0 ** -7 * w.abs().max()
 

@@ -31,10 +31,10 @@ from repro_torch.core.dvfs import DVFSController
 from repro_torch.core.energy import PEEnergyModel
 from repro_torch.kernels import (compact_lanes, event_link_loads,
                                  flash_attention_kernel, fx_exp, fx_log,
-                                 launch_counts, lif_step,
+                                 launch_counts, lif_step, linear_scan,
                                  link_loads_csc, mac_conv2d, mac_gemm,
                                  noc_link_loads, reset_launch_counts,
-                                 syn_accum)
+                                 syn_accum, wkv6)
 from repro_torch.kernels.explog.ref import LN2, LOG_TABLE, MAX_EXP_ARG
 from repro_torch.kernels.lif.ops import lif_params_fx
 from repro_torch.kernels.link_load.ref import link_loads_ref
@@ -236,13 +236,17 @@ def test_plain_versions_do_not_count_launches():
     compact_lanes(torch.ones(5, dtype=torch.bool), 3)
     noc_link_loads(torch.ones(3), torch.ones(3),
                    torch.zeros(1, 4, dtype=torch.int32), n_links=4)
+    linear_scan(*[torch.ones(1, 3, 4)] * 3, torch.ones(4), torch.ones(1, 4))
+    wkv6(*[torch.ones(1, 3, 2, 4)] * 4, torch.ones(2, 4),
+         torch.ones(1, 2, 4, 4))
     assert launch_counts() == {"fx_exp": 0, "lif_step": 0,
                                "link_loads_csc": 0, "noc_link_loads": 0,
                                "syn_accum": 0,
                                "event_link_loads": 0, "mac_gemm": 0,
                                "fx_log": 0, "mac_conv2d": 0,
                                "flash_attention_kernel": 0,
-                               "compact_lanes": 0}
+                               "compact_lanes": 0, "linear_scan": 0,
+                               "wkv6": 0}
 
 
 # ------------------------------------------------------------------ tick pieces

@@ -103,7 +103,10 @@ def model(request):
 
 
 def test_configs_match_the_reference():
-    for arch in ARCHS + ZOO:
+    """Every registered config, field for field, and nothing refused."""
+    assert set(configs.all_archs()) == set(jconfigs.all_archs()) >= set(
+        ARCHS + ZOO + ["recurrentgemma-2b", "rwkv6-1.6b"])
+    for arch in jconfigs.all_archs():
         want = jconfigs.get_arch(arch)
         got = configs.get_arch(arch)
         assert dataclasses.asdict(got) == dataclasses.asdict(want)
@@ -111,12 +114,8 @@ def test_configs_match_the_reference():
             dataclasses.asdict(want.smoke())
         assert got.param_count() == want.param_count()
     assert configs.ASSIGNED == jconfigs.ASSIGNED
-    assert set(configs.NOT_PORTED) | set(ARCHS + ZOO) == \
-        set(configs.ASSIGNED)
-    assert set(configs.NOT_PORTED) == {"recurrentgemma-2b", "rwkv6-1.6b"}
-    for name in configs.NOT_PORTED:
-        with pytest.raises(KeyError, match="ROADMAP queue A item 5"):
-            configs.get_arch(name)
+    assert set(configs.ASSIGNED) <= set(configs.all_archs())
+    assert not hasattr(configs, "NOT_PORTED")
 
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "phi3.5-moe-42b-a6.6b",
@@ -124,24 +123,21 @@ def test_configs_match_the_reference():
                                   "rwkv6-1.6b", "chameleon-34b",
                                   "musicgen-large"])
 def test_unsupported_families_are_refused(arch):
-    """The recurrent families are still refused; the attention ones that
-    were refused before the zoo's port build, with the reference's
+    """The families the port once refused (the zoo's, and the recurrent
+    pair's RG-LRU and RWKV-6 blocks) build, with the reference's
     parameter tree (each leaf's shape, the scanned stacks unstacked one
-    block a layer)."""
+    block a layer, RWKV-6's ``ln0``)."""
     jcfg = jconfigs.get_arch(arch).smoke()
     cfg = ArchConfig(**dataclasses.asdict(jcfg))
-    if arch in configs.NOT_PORTED:
-        with pytest.raises(ValueError, match="ROADMAP queue A item 5"):
-            T.model_pspecs(cfg)
-        with pytest.raises(ValueError, match="lacks"):
-            T.init_params(cfg, device="cpu")
-        return
+    T.check_supported(cfg)
     m = T.init_params(cfg, device="cpu")
     jshapes = JT.abstract_params(jcfg)
     shape = lambda tree: {k: (shape(v) if isinstance(
         v, (dict, torch.nn.Module)) else tuple(v.shape))
         for k, v in tree.items()}
-    for key in ("embed", "final_norm"):
+    top = [k for k in jshapes if k not in ("blocks", "rem_blocks")]
+    assert set(top) == {k for k in m.keys() if k != "blocks"}
+    for key in top:
         assert shape(m[key]) == shape(jshapes[key]), key
     plen, groups = cfg.pattern_len, cfg.num_groups
     for layer, block in enumerate(m["blocks"]):

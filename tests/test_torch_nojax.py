@@ -59,7 +59,14 @@ def test_port_imports_without_jax():
             "repro_torch.configs.gemma3_27b",
             "repro_torch.configs.nemotron4_15b",
             "repro_torch.configs.chameleon_34b",
-            "repro_torch.configs.musicgen_large"} <= set(_port_modules())
+            "repro_torch.configs.musicgen_large",
+            "repro_torch.configs.recurrentgemma_2b",
+            "repro_torch.configs.rwkv6_1b6", "repro_torch.models.rglru",
+            "repro_torch.models.rwkv6", "repro_torch.kernels.linear_scan",
+            "repro_torch.kernels.linear_scan.ops",
+            "repro_torch.kernels.linear_scan.ref",
+            "repro_torch.kernels.wkv6", "repro_torch.kernels.wkv6.ops",
+            "repro_torch.kernels.wkv6.ref"} <= set(_port_modules())
 
 
 def test_port_sources_do_not_name_the_reference():

@@ -265,7 +265,9 @@ farm, the DNN pipeline), and checks what comes out:
     D = 64 (row 8m), and lm_recurrent's: RecurrentGemma's first local
     layer, D 256 and window 2048, in bf16 and float32 (rows 8r, 8r'),
     and linear_scan and wkv6 on layer 0's arguments in stream b's
-    prefill and the decode step after it) are timed as in phase 9; the two
+    prefill and the decode step after it, wkv6's prefill again with the
+    strongest decays; its prefill takes the chunked kernel, its decode
+    step the sequential one) are timed as in phase 9; the two
     integer
     kernels are held bitwise, flash at its tolerance (on the LM input,
     element by element: 2^-8 (sum_k p_k |v_k| + |got|) + 2^-7 |want|, the
@@ -355,6 +357,7 @@ from repro_torch.kernels.mac_gemm.ref import mac_gemm_ref  # noqa: E402
 from repro_torch.kernels.syn_accum.ref import (pack_spikes,  # noqa: E402
                                                popcount_words,
                                                spike_words, syn_accum_ref)
+from repro_torch.kernels.wkv6.ops import route as wkv6_route  # noqa: E402
 from repro_torch.kernels.wkv6.ref import wkv6_ref  # noqa: E402
 from repro_torch.core.nef import build_ensemble, encode_drive  # noqa: E402
 from repro_torch.core.dvfs import QueueDVFS  # noqa: E402
@@ -576,9 +579,14 @@ RECURRENT_REDRAW = {
     "bi": ("normal", 0.1), "ba": ("normal", 0.1)}
 # the recurrent kernels against their plain versions: linear_scan at the
 # reference test's atol = rtol = 1e-5 (the same float32 formula, so in
-# practice bitwise); wkv6's state at the same, its y at 2^-16 of its
-# largest magnitude (sums of D = 64 products in another order), rtol 0
+# practice bitwise); wkv6's y at 2^-16 of its largest magnitude, rtol 0
+# (sums of D = 64 products in another order), its state on the
+# sequential route at atol = rtol = 1e-5 (the same rounded products and
+# sums), on the chunked route (prefill) at 2^-16 of its largest
+# magnitude too (the chunked algebra sums in another order)
 WKV_Y_REL = 2.0 ** -16
+# the recurrent tests' strongest decay range: log(-lw) ~ U(-8, 3)
+WKV_STRONG_DECAY = (-8.0, 3.0)
 # operations an element of linear_scan: two sigmoids (exp, add, divide),
 # the decay's multiply and exp, 1 - exp(2 log a) (3), max, sqrt, two
 # multiplies for b, the recurrence's multiply and add
@@ -622,7 +630,7 @@ KERNEL_SYMBOLS = {"lif_step": r"\blif_step_kernel\b",
                   "flash_attention_kernel":
                       r"\bflash_attn_(wgmma|tf32|f32_simt)_kernel\b",
                   "linear_scan": r"\blinear_scan_kernel\b",
-                  "wkv6": r"\bwkv6_kernel\b"}
+                  "wkv6": r"\bwkv6(_chunked)?_kernel\b"}
 PASS_SYMBOLS = {"mac_gemm": r"\bimma_pack_kernel\b",
                 "mac_conv2d": r"\bimma_pack_kernel\b"}
 # tensor-core SASS: wgmma is HGMMA (bf16, and TF32 as HGMMA.*TF32) /
@@ -3462,8 +3470,14 @@ def recurrent_arch(arch: str, dev, seed: int) -> tuple:
                                               seed + i, what,
                                               per_prefill=want)
     counts = launch_counts()
+    wkv_routes = dict(wkv6.route_launches)
     check_launched(counts, [k for k, n in want.items() if n],
                    f"lm_recurrent {arch}")
+    # RWKV-6's prefills of 4096 take the chunked kernel, its 16-token
+    # prompts and decode steps the sequential one
+    check(all(wkv_routes.values()) if want["wkv6"] else
+          not any(wkv_routes.values()),
+          f"lm_recurrent {arch}: wkv6 routes {wkv_routes}")
     check(all(n == 0 for k, n in counts.items()
               if not want.get(k)), f"lm_recurrent {arch}: {counts}")
     max_mem = torch.cuda.max_memory_allocated()
@@ -3510,7 +3524,8 @@ def recurrent_arch(arch: str, dev, seed: int) -> tuple:
         window=cfg.window_size, params=n_params,
         param_count=cfg.param_count(), tree_params=pspec_count(cfg),
         redrawn=redrawn, dtype="bfloat16", init_s=init_s, streams=streams,
-        launches=counts, max_memory_allocated=max_mem,
+        launches=counts, wkv6_route_launches=wkv_routes,
+        max_memory_allocated=max_mem,
         cache_bytes_per_sequence=cache_bytes, decode_profile=profile_a,
         **gates)
     del model
@@ -3955,9 +3970,18 @@ def phase_accel_kernels(dev, log: tuple, attn: dict, lm_attn: tuple,
     def wkv_row(rows, args, iters, plain_iters, **extra):
         r, k, v, lw, u, s0 = args
         (y, st), (y_ref, st_ref) = wkv6(*args), wkv6_ref(*args)
-        check(torch.allclose(st, st_ref, atol=1e-5, rtol=1e-5),
-              f"wkv6: state {max_abs_err(st, st_ref)}")
         B, S, H, D = r.shape
+        which = wkv6_route(S, D)
+        check(bool(torch.isfinite(y).all() and torch.isfinite(st).all()),
+              f"wkv6 ({which}): not finite")
+        y_limit = WKV_Y_REL * float(y_ref.abs().max())
+        st_limit = WKV_Y_REL * float(st_ref.abs().max())
+        if which == "chunked":
+            check(max_abs_err(st, st_ref) <= st_limit,
+                  f"wkv6: state {max_abs_err(st, st_ref)} > {st_limit}")
+        else:
+            check(torch.allclose(st, st_ref, atol=1e-5, rtol=1e-5),
+                  f"wkv6: state {max_abs_err(st, st_ref)}")
         n = B * S * H * D
         kernel_row(
             rows, flush, "wkv6", "src/repro_torch/csrc/wkv6.cu",
@@ -3965,11 +3989,13 @@ def phase_accel_kernels(dev, log: tuple, attn: dict, lm_attn: tuple,
             "kernel)", lambda: wkv6(*args), lambda: wkv6_ref(*args), y,
             y_ref, 3 * n * r.element_size() + 8 * n + 4 * H * D
             + 8 * B * H * D * D, 5 * D * D * B * S * H, iters, plain_iters,
-            tol=(WKV_Y_REL * float(y_ref.abs().max()), 0.0),
-            shape=[B, S, H, D], dtype=str(r.dtype).removeprefix("torch."),
-            tolerance_atol=f"2^-16 of max |y| "
-                           f"({WKV_Y_REL * float(y_ref.abs().max())})",
-            state_max_abs_err=max_abs_err(st, st_ref), **extra)
+            tol=(y_limit, 0.0), shape=[B, S, H, D],
+            dtype=str(r.dtype).removeprefix("torch."), wkv6_route=which,
+            tolerance_atol=f"2^-16 of max |y| ({y_limit})",
+            state_max_abs_err=max_abs_err(st, st_ref),
+            state_tolerance=(f"2^-16 of max |state| ({st_limit})"
+                             if which == "chunked" else "atol 1e-5 rtol 1e-5"),
+            **extra)
         return rows[-1]
     ls, wk = rec_in["linear_scan"], rec_in["wkv6"]
     scan_row(rows, ls["prefill"], 20, 1,
@@ -3977,10 +4003,20 @@ def phase_accel_kernels(dev, log: tuple, attn: dict, lm_attn: tuple,
                        "stream b)",
              other_shapes=[scan_row([], ls["decode"], 50, 5,
                                     shape_tag="decode step (S = 1)")])
+    # the prefill input again with the strongest decays on the chunked
+    # route: no overflow, the same limits
+    r, k, v, lw, u, s0 = wk["prefill"]
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED)
+    strong = (r, k, v, -torch.exp(torch.empty_like(lw).uniform_(
+        *WKV_STRONG_DECAY, generator=gen)), u, s0)
     wkv_row(rows, wk["prefill"], 20, 1,
             main_path="lm_recurrent prefill (RWKV-6-1.6B layer 0, stream b)",
             other_shapes=[wkv_row([], wk["decode"], 50, 5,
-                                  shape_tag="decode step (S = 1)")])
+                                  shape_tag="decode step (S = 1)"),
+                          wkv_row([], strong, 5, 1,
+                                  shape_tag="the prefill input, log decays "
+                                            "-exp(U(-8, 3))")])
+    del strong
     return rows
 
 

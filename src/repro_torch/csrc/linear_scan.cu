@@ -14,27 +14,42 @@
 //   b_t = sqrt(max(1 - exp(2 log a_t), 1e-12)) i_t u_t
 //   h_t = a_t h_{t-1} + b_t,  y_t = h_t
 // with the reference's operation order; h_t is a product and a sum, each
-// rounded (no FMA), as the plain version computes it.
+// rounded (no FMA), as the plain version computes it, so y and h_final
+// equal the plain version's bit for bit.
 //
-// Design.  One thread per (b, c), channels on neighbouring lanes, so each
-// position's three loads and one store are coalesced across a warp; the
-// thread walks S in order.  a_t and b_t do not depend on h, so only one
-// multiply-add a step is serial: the thread loads the next U positions
-// into registers while it computes the current U (double buffering),
-// keeping 3 U loads in flight.  Blocks of one warp spread the (B w) / 32
-// warps over every SM.  S = 1 is the decode step.
+// Design.  Only h_t = a_t h_{t-1} + b_t is serial; a_t and b_t depend on
+// the inputs alone.  One block per (batch, stripe of 32 channels) walks S
+// in tiles of 32 positions x 32 channels through a ring of 6 stages in
+// shared memory (12 KB a stage: xi, xa, u).  Warps 1-8 are producers: each
+// copies its 4 rows of a tile with 4-byte cp.async (zero bytes past S and
+// W are never read), 4 tiles ahead, so a block keeps 48 KB in flight and
+// an SM with its 2-3 blocks over 100 KB; then each computes a_t and b_t
+// for the rows it copied, in place over xi and xa, with the exact float32
+// operations of the plain version.  Warp 0 walks the previous tile's 32
+// positions, two dependent operations a position, and stores each
+// position's row of 32 channels (one coalesced 128-byte line) to y.  One
+// barrier a tile hands a computed tile to the walker and a walked stage
+// back to the copies.  S = 1 (decode) runs the same kernel: one row, two
+// barriers.
 //
 // Bound: bytes.  At RecurrentGemma-2B's prefill (B 4, S 4096, w 2560) the
 // kernel reads three float32 (B, S, w) tensors and writes one: 671 MB,
-// 200 us at 3.35 TB/s; its ~30 operations an element are 10 us of the
-// float32 rate.
+// 200 us at 3.35 TB/s; its ~18 operations an element are 11 us of the
+// float32 rate.  The walk is ~10 cycles a position, 4096 positions
+// ~20 us a block, far below the bytes.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 namespace {
 
-constexpr int LS_THREADS = 32, LS_U = 16;
+constexpr int LS_STRIPE = 32;            // channels a block (one a lane)
+constexpr int LS_P = 32;                 // positions a tile
+constexpr int LS_STAGES = 6;             // ring of tiles in shared memory
+constexpr int LS_PRODUCERS = 8;          // warps that copy and compute
+constexpr int LS_ROWS = LS_P / LS_PRODUCERS;   // rows a producer warp
+constexpr int LS_THREADS = 32 * (1 + LS_PRODUCERS);
+constexpr int LS_TILE = LS_P * LS_STRIPE;      // floats of one tensor a tile
 
 // log(1 + exp(x)) as jax.nn.softplus computes it: max(x, 0) +
 // log1p(exp(-|x|))
@@ -46,6 +61,22 @@ __device__ __forceinline__ float sigmoid(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
+// copy 4 bytes global -> shared, or nothing (the slot keeps stale data
+// that no thread reads)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 }  // namespace
 
 __global__ void __launch_bounds__(LS_THREADS)
@@ -55,50 +86,96 @@ __global__ void __launch_bounds__(LS_THREADS)
                        const float* __restrict__ lam,
                        const float* __restrict__ h0, float* __restrict__ y,
                        float* __restrict__ h_final, int S, int W) {
-  const int c = blockIdx.x * LS_THREADS + threadIdx.x;
+  // stage s: [0] xi then a, [1] xa then b, [2] u; each [LS_P][LS_STRIPE]
+  extern __shared__ float ring[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = blockIdx.x * LS_STRIPE + lane;
   const int b = blockIdx.y;
-  if (c >= W) return;
-  const float neg_c_sp = -8.f * softplus(lam[c]);
-  float h = h0[static_cast<int64_t>(b) * W + c];
+  const bool live = c < W;
   const int64_t base = static_cast<int64_t>(b) * S * W + c;
-  float ci[LS_U], ca[LS_U], cu[LS_U];
-  auto load = [&](float (&vi)[LS_U], float (&va)[LS_U], float (&vu)[LS_U],
-                  int t0) {
-#pragma unroll
-    for (int j = 0; j < LS_U; ++j) {
-      if (t0 + j < S) {
-        const int64_t at = base + static_cast<int64_t>(t0 + j) * W;
-        vi[j] = __ldg(xi + at);
-        va[j] = __ldg(xa + at);
-        vu[j] = __ldg(u + at);
-      }
-    }
+  const int n_tiles = (S + LS_P - 1) / LS_P;
+  auto stage = [&](int tile, int which) {
+    return ring + ((tile % LS_STAGES) * 3 + which) * LS_TILE;
   };
-  load(ci, ca, cu, 0);
-  for (int t0 = 0; t0 < S; t0 += LS_U) {
-    float ni[LS_U], na[LS_U], nu[LS_U];
-    if (t0 + LS_U < S) load(ni, na, nu, t0 + LS_U);
+
+  if (warp > 0) {
+    // producer: rows r0 .. r0 + LS_ROWS - 1 of every tile, channel c
+    const int r0 = (warp - 1) * LS_ROWS;
+    const float neg_c_sp = live ? -8.f * softplus(lam[c]) : 0.f;
+    auto copy = [&](int tile) {
+      if (tile < n_tiles && live) {
 #pragma unroll
-    for (int j = 0; j < LS_U; ++j) {
-      if (t0 + j < S) {
-        const float gate_i = sigmoid(ci[j]);
-        const float gate_a = sigmoid(ca[j]);
-        const float log_a = neg_c_sp * gate_a;
-        const float a = expf(log_a);
-        const float beta = sqrtf(fmaxf(1.f - expf(2.f * log_a), 1e-12f));
-        const float bt = __fmul_rn(__fmul_rn(beta, gate_i), cu[j]);
-        h = __fadd_rn(__fmul_rn(a, h), bt);
-        y[base + static_cast<int64_t>(t0 + j) * W] = h;
+        for (int j = 0; j < LS_ROWS; ++j) {
+          const int t = tile * LS_P + r0 + j;
+          if (t < S) {
+            const int64_t at = base + static_cast<int64_t>(t) * W;
+            const int slot = (r0 + j) * LS_STRIPE + lane;
+            cp_async4(stage(tile, 0) + slot, xi + at);
+            cp_async4(stage(tile, 1) + slot, xa + at);
+            cp_async4(stage(tile, 2) + slot, u + at);
+          }
+        }
       }
-    }
+      cp_async_commit();
+    };
 #pragma unroll
-    for (int j = 0; j < LS_U; ++j) {
-      ci[j] = ni[j];
-      ca[j] = na[j];
-      cu[j] = nu[j];
+    for (int n = 0; n < LS_STAGES - 2; ++n) copy(n);
+    for (int n = 0; n <= n_tiles; ++n) {
+      if (n < n_tiles) {
+        // stage (n + 4) % 6 was walked in iteration n - 1
+        copy(n + LS_STAGES - 2);
+        cp_async_wait<LS_STAGES - 2>();   // this thread's tile n landed
+        if (live) {
+#pragma unroll
+          for (int j = 0; j < LS_ROWS; ++j) {
+            const int t = n * LS_P + r0 + j;
+            if (t < S) {
+              const int slot = (r0 + j) * LS_STRIPE + lane;
+              float* sa = stage(n, 0) + slot;
+              float* sb = stage(n, 1) + slot;
+              const float gate_i = sigmoid(*sa);
+              const float gate_a = sigmoid(*sb);
+              const float log_a = neg_c_sp * gate_a;
+              const float a = expf(log_a);
+              const float beta =
+                  sqrtf(fmaxf(1.f - expf(2.f * log_a), 1e-12f));
+              *sb = __fmul_rn(__fmul_rn(beta, gate_i), stage(n, 2)[slot]);
+              *sa = a;
+            }
+          }
+        }
+      }
+      __syncthreads();
     }
+    cp_async_wait<0>();
+  } else {
+    // walker: tile n - 1 in iteration n
+    float h = live ? h0[static_cast<int64_t>(b) * W + c] : 0.f;
+    for (int n = 0; n <= n_tiles; ++n) {
+      if (n > 0 && live) {
+        const int tile = n - 1, t0 = tile * LS_P;
+        const float* sa = stage(tile, 0) + lane;
+        const float* sb = stage(tile, 1) + lane;
+        float* yt = y + base + static_cast<int64_t>(t0) * W;
+        if (t0 + LS_P <= S) {
+#pragma unroll
+          for (int j = 0; j < LS_P; ++j) {
+            h = __fadd_rn(__fmul_rn(sa[j * LS_STRIPE], h),
+                          sb[j * LS_STRIPE]);
+            yt[static_cast<int64_t>(j) * W] = h;
+          }
+        } else {
+          for (int j = 0; j < S - t0; ++j) {
+            h = __fadd_rn(__fmul_rn(sa[j * LS_STRIPE], h),
+                          sb[j * LS_STRIPE]);
+            yt[static_cast<int64_t>(j) * W] = h;
+          }
+        }
+      }
+      __syncthreads();
+    }
+    if (live) h_final[static_cast<int64_t>(b) * W + c] = h;
   }
-  h_final[static_cast<int64_t>(b) * W + c] = h;
 }
 
 // xi, xa, u, y: (B, S, W) float32 contiguous; lam: (W,); h0, h_final:
@@ -108,8 +185,17 @@ extern "C" int repro_linear_scan(const void* xi, const void* xa,
                                  const void* h0, void* y, void* h_final,
                                  int32_t B, int32_t S, int32_t W,
                                  void* stream) {
-  const dim3 grid((W + LS_THREADS - 1) / LS_THREADS, B);
-  linear_scan_kernel<<<grid, LS_THREADS, 0,
+  constexpr int smem = LS_STAGES * 3 * LS_TILE * sizeof(float);
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        linear_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const dim3 grid((W + LS_STRIPE - 1) / LS_STRIPE, B);
+  linear_scan_kernel<<<grid, LS_THREADS, smem,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(xi), static_cast<const float*>(xa),
       static_cast<const float*>(u), static_cast<const float*>(lam),

@@ -36,3 +36,4 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+    wkv6.route_launches.update(dict.fromkeys(wkv6.route_launches, 0))

@@ -1,6 +1,14 @@
 """``wkv6`` wrapper (CPU: plain version, CUDA: ``csrc/wkv6.cu``): RWKV-6's
 WKV recurrence.  No Pallas counterpart: the reference runs chunked
-einsums (prefill) and a ``lax.scan`` (decode)."""
+einsums (prefill) and a ``lax.scan`` (decode).
+
+On a CUDA tensor the shape picks the kernel, with no knob: head size
+``CHUNKED_D`` (64, every RWKV-6's) and at least ``CHUNK`` (64) positions
+take the chunked kernel (``wkv6_chunked_kernel``, prefill); every other
+shape, decode's S = 1 among them, the sequential one (``wkv6_kernel``),
+whose state equals the plain version's bit for bit.  The chunked route's
+y and state agree with the plain version within 2^-16 of their largest
+magnitudes (another summation order)."""
 from __future__ import annotations
 
 import ctypes
@@ -12,8 +20,14 @@ from repro_torch.kernels._wrap import expect_dtype, on_cpu
 from repro_torch.kernels.wkv6.ref import wkv6_ref
 
 _ARGS = (ctypes.c_void_p,) * 8 + (ctypes.c_int32,) * 5 + (ctypes.c_void_p,)
-HEAD_SIZES = (8, 16, 32, 64, 128)     # the kernel's instantiations
+HEAD_SIZES = (8, 16, 32, 64, 128)     # the sequential kernel's instantiations
+CHUNKED_D, CHUNK = 64, 64             # the chunked kernel's head size, chunk
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+def route(S: int, D: int) -> str:
+    """The kernel a CUDA call of S positions at head size D launches."""
+    return "chunked" if D == CHUNKED_D and S >= CHUNK else "sequential"
 
 
 def wkv6(r, k, v, lw, u, state0):
@@ -41,14 +55,22 @@ def wkv6(r, k, v, lw, u, state0):
     y = torch.empty(r.shape, dtype=torch.float32, device=r.device)
     state = torch.empty_like(state0)
     if state0.numel():
-        rc = _build.launcher("repro_wkv6", _ARGS)(
-            r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
-            u.data_ptr(), state0.data_ptr(), y.data_ptr(), state.data_ptr(),
-            B, S, H, D, int(r.dtype == torch.bfloat16),
-            _build.stream_ptr(r.device))
+        which = route(S, D)
+        args = (r, k, v, lw, u, state0, y, state)
+        if which == "chunked" and any(t.data_ptr() % 16 for t in args):
+            raise ValueError("wkv6: the chunked kernel copies 16-byte "
+                             "pieces: every tensor must start 16-byte "
+                             "aligned")
+        name = "repro_wkv6_chunked" if which == "chunked" else "repro_wkv6"
+        rc = _build.launcher(name, _ARGS)(
+            *(t.data_ptr() for t in args), B, S, H, D,
+            int(r.dtype == torch.bfloat16), _build.stream_ptr(r.device))
         _build.check(rc, "wkv6")
         wkv6.launches += 1
+        wkv6.route_launches[which] += 1
     return y, state
 
 
 wkv6.launches = 0
+# launches by route ("sequential", "chunked"), zeroed with ``launches``
+wkv6.route_launches = {"sequential": 0, "chunked": 0}

@@ -38,6 +38,7 @@ from repro_torch.kernels.mac_conv.ops import route as conv_route
 from repro_torch.kernels.mac_conv.ref import mac_conv2d_ref
 from repro_torch.kernels.mac_gemm.ref import mac_gemm_ref
 from repro_torch.kernels.syn_accum.ref import syn_accum_ref
+from repro_torch.kernels.wkv6.ops import route as wkv6_route
 from repro_torch.kernels.wkv6.ref import wkv6_ref
 from repro_torch.learn import (PES, STDP, LearnSlot, init_learn_state,
                                make_learn_step)
@@ -666,22 +667,58 @@ def test_flash_attention_kernel_head_dim_256(cuda, s, d, causal, window,
                                atol=tol[0], rtol=tol[1])
 
 
+# S across the 32-position tiles and the 6-stage ring (192), W across the
+# 32-channel stripes
 @pytest.mark.parametrize("B,S,W", [(1, 1, 1), (2, 37, 100), (3, 100, 2560),
-                                   (8, 1, 2560), (1, 4097, 33)])
+                                   (8, 1, 2560), (1, 4097, 33), (2, 31, 31),
+                                   (1, 32, 32), (2, 33, 65), (1, 191, 64),
+                                   (1, 192, 95), (2, 193, 64)])
 def test_linear_scan_kernel(cuda, B, S, W):
-    """The RG-LRU kernel against its plain version at the reference test's
-    atol = rtol = 1e-5 (the same float32 formula, one thread a channel);
+    """The RG-LRU kernel against its plain version on the card, y and h
+    bit for bit (the same float32 operations, no FMA in the recurrence);
     Griffin-range decays so that the state carries across the walk."""
     gen = torch.Generator().manual_seed(B * 1000 + S + W)
     xi, xa, u = (torch.randn(B, S, W, generator=gen) for _ in range(3))
     a0 = torch.empty(W).uniform_(0.9, 0.999, generator=gen)
     lam = torch.log(torch.expm1(-torch.log(a0) / 8.0))
     h0 = torch.randn(B, W, generator=gen)
-    args = (xi, xa, u, lam, h0)
-    y, h = linear_scan(*(t.to(cuda) for t in args))
+    args = [t.to(cuda) for t in (xi, xa, u, lam, h0)]
+    y, h = linear_scan(*args)
     y_ref, h_ref = linear_scan_ref(*args)
-    torch.testing.assert_close(y.cpu(), y_ref, atol=1e-5, rtol=1e-5)
-    torch.testing.assert_close(h.cpu(), h_ref, atol=1e-5, rtol=1e-5)
+    assert torch.equal(y, y_ref) and torch.equal(h, h_ref)
+
+
+# the sequential route holds the state at atol = rtol = 1e-5 (the same
+# rounded products and sums); the chunked one (D 64, S >= 64) holds y and
+# the state within 2^-16 of their largest magnitudes (another order of
+# summation); y within 2^-16 on both
+WKV_REL = 2.0 ** -16
+# the recurrent tests' decay ranges: log(-lw) uniform in each
+WKV_DECAYS = {"wide": (-8.0, 3.0), "fast": (-2.0, 0.0),
+              "slow": (-10.0, -5.0)}
+
+
+def _wkv_check(cuda, args):
+    y, st = wkv6(*(t.to(cuda) for t in args))
+    y_ref, st_ref = wkv6_ref(*args)
+    assert y.dtype == st.dtype == torch.float32
+    y, st = y.cpu(), st.cpu()
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    assert (y - y_ref).abs().max() <= WKV_REL * y_ref.abs().max()
+    B, S, H, D = args[0].shape
+    if wkv6_route(S, D) == "chunked":
+        assert (st - st_ref).abs().max() <= WKV_REL * st_ref.abs().max()
+    else:
+        torch.testing.assert_close(st, st_ref, atol=1e-5, rtol=1e-5)
+
+
+def _wkv_args(gen, B, S, H, D, dtype, decay=(-6.0, 1.0)):
+    r, k, v = (torch.randn(B, S, H, D, generator=gen).to(dtype)
+               for _ in range(3))
+    lw = -torch.exp(torch.empty(B, S, H, D).uniform_(*decay, generator=gen))
+    u = 0.5 * torch.randn(H, D, generator=gen)
+    s0 = torch.randn(B, H, D, D, generator=gen)
+    return r, k, v, lw, u, s0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -689,23 +726,25 @@ def test_linear_scan_kernel(cuda, B, S, W):
                                      (1, 200, 2, 32), (2, 64, 4, 64),
                                      (8, 1, 32, 64), (1, 33, 2, 128)])
 def test_wkv6_kernel(cuda, B, S, H, D, dtype):
-    """The WKV kernel against its plain version (wkv_sequential): the
-    state at atol = rtol = 1e-5 (the same rounded products and sums), y
-    within 2^-16 of its largest magnitude (its D products summed in
-    another order)."""
+    """The WKV kernels against their plain version (wkv_sequential), each
+    route at its tolerance (``_wkv_check``); (2, 64, 4, 64) is on the
+    chunked route, the rest on the sequential one."""
     gen = torch.Generator().manual_seed(B * 100 + S + H + D)
-    r, k, v = (torch.randn(B, S, H, D, generator=gen).to(dtype)
-               for _ in range(3))
-    lw = -torch.exp(torch.empty(B, S, H, D).uniform_(-6.0, 1.0,
-                                                     generator=gen))
-    u = 0.5 * torch.randn(H, D, generator=gen)
-    s0 = torch.randn(B, H, D, D, generator=gen)
-    args = (r, k, v, lw, u, s0)
-    y, st = wkv6(*(t.to(cuda) for t in args))
-    y_ref, st_ref = wkv6_ref(*args)
-    assert y.dtype == st.dtype == torch.float32
-    torch.testing.assert_close(st.cpu(), st_ref, atol=1e-5, rtol=1e-5)
-    assert (y.cpu() - y_ref).abs().max() <= 2.0 ** -16 * y_ref.abs().max()
+    _wkv_check(cuda, _wkv_args(gen, B, S, H, D, dtype))
+
+
+@pytest.mark.parametrize("decay", list(WKV_DECAYS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [63, 64, 65, 200, 4097])
+def test_wkv6_kernel_chunked(cuda, S, dtype, decay):
+    """S around the chunk (63 stays sequential), ragged chunks and a long
+    walk at D 64, at the three decay ranges, the strongest included:
+    finite, y and state within 2^-16 of their largest magnitudes."""
+    gen = torch.Generator().manual_seed(S + 7 * list(WKV_DECAYS).index(decay))
+    args = _wkv_args(gen, 2, S, 3, 64, dtype, WKV_DECAYS[decay])
+    reset_launch_counts()
+    _wkv_check(cuda, args)
+    assert wkv6.route_launches[wkv6_route(S, 64)] == 1
 
 
 def test_recurrent_kernels_count_their_launches(cuda):
@@ -717,6 +756,14 @@ def test_recurrent_kernels_count_their_launches(cuda):
     torch.cuda.synchronize()
     counts = launch_counts()
     assert counts["linear_scan"] == counts["wkv6"] == 1
+    assert wkv6.route_launches == {"sequential": 1, "chunked": 0}
+    wkv6(*[torch.ones(1, 64, 2, 64, device=cuda)] * 4,
+         torch.ones(2, 64, device=cuda), torch.ones(1, 2, 64, 64, device=cuda))
+    torch.cuda.synchronize()
+    assert launch_counts()["wkv6"] == 2
+    assert wkv6.route_launches == {"sequential": 1, "chunked": 1}
+    reset_launch_counts()
+    assert wkv6.route_launches == {"sequential": 0, "chunked": 0}
     with pytest.raises(ValueError, match="head size"):
         wkv6(*[torch.ones(1, 3, 2, 12, device=cuda)] * 4,
              torch.ones(2, 12, device=cuda),

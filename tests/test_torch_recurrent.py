@@ -241,6 +241,100 @@ def test_wkv_decode_continues_the_sequence():
     np.testing.assert_allclose(state.numpy(), s_full.numpy(), **F32)
 
 
+def wkv6_chunk_algebra(r, k, v, lw, u, state0, C=64, T=16):
+    """A torch transcription of ``csrc/wkv6.cu``'s chunked kernel, in
+    float32: chunks of C positions (the last zero-filled: r = k = v = 0,
+    lw = 0), sub-chunks of T; every decay factor a product of the step
+    decays w = exp(lw) (<= 1).  Within sub-chunk I: the exclusive prefix
+    H and suffix G products and the total T_I (a product down the chunk,
+    and up it for suf); Q = r H, K~ = k G; pre_I, suf_J, decay across
+    sub-chunks; y = (Q pre) S_prev + A V with A's
+    off-diagonal sub-blocks Q (K~ g_IJ), g_IJ = prod_{J<M<I} T_M, its
+    diagonal sub-blocks by a running product down each row j, A_ii = r_i
+    . (u k_i); S = decay S_prev + (K~ suf)^T V."""
+    Bn, Sn, H, D = r.shape
+    n = -(-Sn // C) * C
+    NS = C // T
+
+    def pad(x):
+        return torch.cat([x.float(), x.new_zeros(Bn, n - Sn, H, D).float()],
+                         1)
+    rf, kf, vf, w = pad(r), pad(k), pad(v), torch.exp(pad(lw))
+    state, ys = state0.clone(), []
+    for c0 in range(0, n, C):
+        rc, kc, vc, wc = (x[:, c0:c0 + C].reshape(Bn, NS, T, H, D)
+                          for x in (rf, kf, vf, w))
+        hp, g = torch.ones_like(wc), torch.ones_like(wc)
+        for t in range(1, T):
+            hp[:, :, t] = hp[:, :, t - 1] * wc[:, :, t - 1]
+        for t in range(T - 2, -1, -1):
+            g[:, :, t] = g[:, :, t + 1] * wc[:, :, t + 1]
+        # each sub-chunk's product, down (tot) and up (tot_up) the chunk
+        tot = hp[:, :, -1] * wc[:, :, -1]                  # (B, NS, H, D)
+        tot_up = g[:, :, 0] * wc[:, :, 0]
+        one = torch.ones_like(tot[:, 0])
+        pre, suf = [one], [one] * NS
+        for i in range(1, NS):
+            pre.append(pre[-1] * tot[:, i - 1])
+        for j in range(NS - 2, -1, -1):
+            suf[j] = suf[j + 1] * tot_up[:, j + 1]
+        decay = pre[-1] * tot[:, -1]
+        q, kt = rc * hp, kc * g
+        rt = torch.cat([q[:, i] * pre[i][:, None] for i in range(NS)], 1)
+        kh = torch.cat([kt[:, j] * suf[j][:, None] for j in range(NS)], 1)
+        A = torch.zeros(Bn, H, C, C)
+        for i in range(NS):
+            rows = slice(i * T, (i + 1) * T)
+            for j in range(i):
+                gij = one
+                for m in range(j + 1, i):
+                    gij = gij * tot[:, m]
+                A[:, :, rows, j * T:(j + 1) * T] = torch.einsum(
+                    "bihk,bjhk->bhij", q[:, i], kt[:, j] * gij[:, None])
+            for j in range(T):
+                kp = kc[:, i, j]
+                A[:, :, i * T + j, i * T + j] = torch.einsum(
+                    "bhk,bhk->bh", rc[:, i, j], u[None] * kc[:, i, j])
+                for ii in range(j + 1, T):
+                    if ii > j + 1:
+                        kp = kp * wc[:, i, ii - 1]
+                    A[:, :, i * T + ii, i * T + j] = torch.einsum(
+                        "bhk,bhk->bh", rc[:, i, ii], kp)
+        V = vc.reshape(Bn, C, H, D)
+        ys.append(torch.einsum("bchk,bhkv->bchv", rt, state)
+                  + torch.einsum("bhij,bjhv->bihv", A, V))
+        state = decay[..., None] * state + torch.einsum("bchk,bchv->bhkv",
+                                                        kh, V)
+    return torch.cat(ys, 1)[:, :Sn], state
+
+
+WKV_CHUNKED_REL = 2.0 ** -16     # the chunked kernel's limit on y, state
+
+
+@pytest.mark.parametrize("name", list(DECAYS))
+def test_wkv_chunk_algebra(name):
+    """The chunked kernel's algebra (``wkv6_chunk_algebra``) at D 64 and
+    each decay range: finite (no overflow at the strongest); y and state
+    within 2^-16 of their largest magnitudes of the plain wkv6 over 200
+    positions (three chunks and a ragged one); at EXTREME of the
+    reference's ``wkv_chunked`` (chunk 32) over 192."""
+    lo, hi = DECAYS[name]
+    ins = [torch.from_numpy(a) for a in _wkv_inputs(
+        2000 + list(DECAYS).index(name), Bn=1, Sn=200, H=2, D=64,
+        decay_lo=lo, decay_hi=hi)]
+    y, st = wkv6_chunk_algebra(*ins)
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    y_ref, st_ref = wkv6(*ins)
+    assert (y - y_ref).abs().max() <= WKV_CHUNKED_REL * y_ref.abs().max()
+    assert (st - st_ref).abs().max() <= WKV_CHUNKED_REL * st_ref.abs().max()
+    head = [x[:, :192] for x in ins[:4]] + ins[4:]
+    y, st = wkv6_chunk_algebra(*head)
+    y2, f2 = JRWKV.wkv_chunked(*(jnp.asarray(x.numpy()) for x in head),
+                               chunk=32)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y2), **EXTREME)
+    np.testing.assert_allclose(st.numpy(), np.asarray(f2), **EXTREME)
+
+
 # ------------------------------------------------------------------ blocks
 
 @functools.lru_cache(maxsize=None)

@@ -14,8 +14,9 @@ farm, the DNN pipeline), and checks what comes out:
               that bounds the integer kernels.
 2. build    — nvcc build of every kernel, its wall time and registers,
               and the tensor-core instructions of each kernel's SASS
-              (cuobjdump): every instantiation of the bf16 flash kernel
-              must hold HGMMA, of the float32 flash kernel TF32 HGMMA,
+              (cuobjdump): every instantiation of the bf16 flash kernels
+              (D <= 128 and D 256) must hold HGMMA, of the float32 flash
+              kernels TF32 HGMMA,
               and of mac_gemm's and mac_conv2d's tensor-core kernels (each
               signedness pairing, and each tile N of mac_conv) IGMMA; and
               the SASS instructions per element of fx_log's and fx_exp's
@@ -605,7 +606,8 @@ CONV_BATCH = 32                 # mac_conv2d's second check: VGG conv3 x 32
 # the reference's int32 matmul keeps the low 32 bits
 WRAP_K = 40000
 WRAP_VALUE = (WRAP_K * 255 * 255 + 2**31) % 2**32 - 2**31
-# attention: GLM-4-9B's head layout (32 query heads of 128, KV expanded)
+# attention: GLM-4-9B's head layout (32 query heads of 128, K and V
+# expanded to them; the LM rows take the model's own K and V heads)
 ATTN_S, ATTN_H, ATTN_D, ATTN_F32_S = 4096, 32, 128, 1024
 # bf16: one bf16 rounding of the output (rtol 2^-7 is one ulp) plus a
 # small atol, far below the prefill's typical |o| of 0.03; f32: the
@@ -628,7 +630,7 @@ KERNEL_SYMBOLS = {"lif_step": r"\blif_step_kernel\b",
                   "fx_log": r"\bfx_log_kernel\b",
                   "mac_conv2d": r"\bmac_conv(_igmma)?_kernel\b",
                   "flash_attention_kernel":
-                      r"\bflash_attn_(wgmma|tf32|f32_simt)_kernel\b",
+                      r"\bflash_attn_(wgmma|tf32)(_d256)?_kernel\b",
                   "linear_scan": r"\blinear_scan_kernel\b",
                   "wkv6": r"\bwkv6(_chunked)?_kernel\b"}
 PASS_SYMBOLS = {"mac_gemm": r"\bimma_pack_kernel\b",
@@ -638,8 +640,10 @@ PASS_SYMBOLS = {"mac_gemm": r"\bimma_pack_kernel\b",
 # mangled name: instantiations) whose every instantiation must hold the
 # instruction named
 TENSOR_CORE_OPS = ("HGMMA", "IGMMA", "HMMA", "IMMA")
-TENSOR_CORE_KERNELS = {"flash_attn_wgmma_kernel": (12, "HGMMA"),
+TENSOR_CORE_KERNELS = {"flash_attn_wgmma_kernel": (8, "HGMMA"),
+                       "flash_attn_wgmma_d256_kernel": (4, "HGMMA"),
                        "flash_attn_tf32_kernel": (4, "HGMMA.TF32"),
+                       "flash_attn_tf32_d256_kernel": (2, "HGMMA.TF32"),
                        "mac_gemm_kernel": (4, "IGMMA"),
                        "mac_conv_igmma_kernel": (12, "IGMMA")}
 # kernels whose SASS instructions per element phase 2 counts
@@ -3085,10 +3089,9 @@ def prompts(reqs, dev) -> dict:
 
 
 def layer0_attention(cfg, model, batch) -> tuple:
-    """Layer 0's flash-kernel inputs for ``batch``: q, and k and v
-    expanded to every query head, (B, S, H, D)."""
+    """Layer 0's flash-kernel inputs for ``batch`` as the prefill hands
+    them over: q (B, S, H, D), k and v (B, S, H_kv, D)."""
     L = lm_layers
-    G = cfg.num_heads // cfg.num_kv_heads
     with torch.no_grad():
         S = lm.seq_len(batch)
         qpos = torch.arange(S, device=model["embed"]["table"].device)
@@ -3098,7 +3101,7 @@ def layer0_attention(cfg, model, batch) -> tuple:
                              lm.layer_kinds(cfg)[0])
     B = q.shape[0]
     return (q.reshape(B, S, cfg.num_heads, cfg.head_dim).contiguous(),
-            k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2))
+            k.contiguous(), v.contiguous())
 
 
 def phase_lm_serve(dev) -> tuple[dict, tuple]:
@@ -3681,8 +3684,12 @@ def attention_inputs(dev, s, dtype, seed):
 
 
 def attention_plain(q, k, v, causal=True, window=0):
-    """The plain version on the op's (B, S, H, D) layout."""
+    """The plain version on the op's layout: q (B, S, H, D), k and v
+    (B, S, H_kv, D), expanded to the H query heads first."""
     B, S, H, D = q.shape
+    if k.shape[2] != H:
+        k = k.repeat_interleave(H // k.shape[2], dim=2)
+        v = v.repeat_interleave(H // v.shape[2], dim=2)
     fold = lambda t: t.transpose(1, 2).reshape(B * H, S, D)
     return flash_attention_ref(fold(q), fold(k), fold(v), causal=causal,
                                window=window
@@ -3839,17 +3846,20 @@ def phase_accel_kernels(dev, log: tuple, attn: dict, lm_attn: tuple,
 
     # flash attention at the GLM-4-9B prefill (bf16), then float32 S=1024;
     # library: scaled_dot_product_attention on the (B, H, S, D) views,
-    # causal, or with the window's band as a boolean attn_mask
+    # causal, or with the window's band as a boolean attn_mask, with its
+    # own grouping of the query heads over fewer K and V heads
     def sdpa(q, k, v, mask=None):
         return torch.nn.functional.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            attn_mask=mask, is_causal=mask is None).transpose(1, 2)
+            attn_mask=mask, is_causal=mask is None,
+            enable_gqa=k.shape[2] != q.shape[2]).transpose(1, 2)
 
     def attn_row(rows, entry, ops_per_s, iters, tol=None, window=0,
                  **extra):
         """The flash row on ``entry``'s inputs; the bound counts the
-        scores the band keeps (two products of 2 D operations a
-        score)."""
+        scores the band keeps (two products of 2 D operations a score)
+        and the bytes of q, k and v at their own head counts and of the
+        output."""
         (q, k, v), got, want = entry
         B, S, H, D = q.shape
         mask = None
@@ -3865,7 +3875,7 @@ def phase_accel_kernels(dev, log: tuple, attn: dict, lm_attn: tuple,
             "src/repro/kernels/flash_attn/flash_attn.py:32",
             lambda: flash_attention_kernel(q, k, v, window=window),
             lambda: attention_plain(q, k, v, window=window), got, want,
-            4 * q.numel() * q.element_size(),
+            (2 * q.numel() + k.numel() + v.numel()) * q.element_size(),
             4 * band_pairs(S, window) * D * H * B, iters,
             3, library=lib, ops_per_s=ops_per_s,
             tol=tol or ATTN_TOL[q.dtype], prof_iters=5, shape=list(q.shape),
@@ -3925,11 +3935,17 @@ def phase_accel_kernels(dev, log: tuple, attn: dict, lm_attn: tuple,
         qkv, window = zoo_attn[key]
         zoo_rows.append(model_row([], qkv, window, shape_tag=what))
     # RecurrentGemma-2B's first local layer (layer 2) in lm_recurrent's
-    # prefill of stream b: D 256, 10 query heads over 1 KV head, window
-    # 2048; bf16 (the wgmma kernel with Q from shared memory) and the same
-    # input in float32 (the CUDA-core kernel)
-    rg_window = lm_configs.get_arch("recurrentgemma-2b").window_size
+    # prefill of stream b: D 256, 10 query heads over 1 KV head (K and V
+    # as the prefill hands them over, unexpanded), window 2048; bf16 (the
+    # warp-specialised TMA kernel) and the same input in float32 (the
+    # 3xTF32 wgmma kernel; bound also at the three TF32 products)
+    rg_cfg = lm_configs.get_arch("recurrentgemma-2b")
+    rg_window = rg_cfg.window_size
     rq, rk, rv = rec_in.pop("flash")
+    check(rk.shape[2] == rv.shape[2] == rg_cfg.num_kv_heads
+          < rq.shape[2] == rg_cfg.num_heads,
+          f"lm_recurrent: flash got K and V at {rk.shape[2]} heads, not "
+          f"the model's {rg_cfg.num_kv_heads} KV heads")
     zoo_rows.append(model_row(
         [], (rq, rk, rv), rg_window,
         shape_tag="lm_recurrent prefill (RecurrentGemma-2B layer 2, local, "
@@ -3938,9 +3954,14 @@ def phase_accel_kernels(dev, log: tuple, attn: dict, lm_attn: tuple,
     del rq, rk, rv
     got32 = flash_attention_kernel(*qkv32, window=rg_window)
     want32 = attention_plain(*qkv32, window=rg_window)
+    B, S, H, D = qkv32[0].shape
     zoo_rows.append(attn_row(
         [], (qkv32, got32, want32), CUDA_CORE_OPS_PER_S, 3, window=rg_window,
-        shape_tag="the same in float32 (flash_attn_f32_simt_kernel): row "
+        bound_ms_3xtf32=bound_ms(
+            (2 * qkv32[0].numel() + qkv32[1].numel() + qkv32[2].numel()) * 4,
+            3 * 4 * band_pairs(S, rg_window) * D * H * B,
+            TF32_TENSOR_OPS_PER_S)[0],
+        shape_tag="the same in float32 (flash_attn_tf32_d256_kernel): row "
                   "8r'"))
     del qkv32, got32, want32
     torch.cuda.empty_cache()

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
 // (mac_gemm.cu through imma.cuh, flash_attn.cu): 16-byte cp.async with
 // zero fill, the 128-byte swizzled shared-memory layout that wgmma reads,
-// its matrix descriptor, and wgmma's fence / commit / wait.
+// its matrix descriptor, wgmma's fence / commit / wait, and for the
+// warp-specialised kernels mbarriers, TMA tile loads and setmaxnreg.
 //
 // Layout.  A tile is stored as rows of 128 bytes (128 int8 or 64 bf16
 // values along the row), 16-byte chunk c of row r at r * 128 +
@@ -90,6 +91,65 @@ template <int N>
 __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// mbarrier at shared address bar: a phase completes once ``count``
+// arrivals (and the bytes announced by expect_tx) have landed
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+// the initialised barriers visible to TMA (then __syncthreads)
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// arrive, and expect ``bytes`` of TMA transfers to complete this phase
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+// wait until the phase of parity ``parity`` (0 for the first) completes
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// TMA: the box of a 4-d tensor map (a __grid_constant__ kernel parameter)
+// at coordinates c0..c3 (innermost first) into shared memory at dst,
+// completing on barrier bar; elements outside the tensor land as zeros
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
+                                            int c0, int c1, int c2, int c3,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+// move this warpgroup's registers a thread to N (producers give theirs up,
+// consumers take them)
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 }  // namespace sm90

@@ -207,16 +207,15 @@ def attention_prefill(q, k, v, window=0):
 
     q: (B,S,KH,G,D), k,v: (B,S,KH,D) -> (B,S,KH,G,D).  Query head
     ``h = kh*G + g`` meets KV head ``kh`` (the reference's
-    ``bqhgd,bkhd`` einsum), so K and V are expanded with
-    ``repeat_interleave(G)`` over the head axis.  The bf16 kernel rounds
-    the probabilities to bf16 for the PV product, as the reference does;
-    its plain version (CPU tensors) keeps them in float32."""
+    ``bqhgd,bkhd`` einsum), which is the kernel's own grouping: K and V
+    go to it at their KH heads, with no copy to every query head.  The
+    bf16 kernel rounds the probabilities to bf16 for the PV product, as
+    the reference does; its plain version (CPU tensors) keeps them in
+    float32."""
     B, S, KH, G, D = q.shape
     qh = q.reshape(B, S, KH * G, D)
-    kh = k.repeat_interleave(G, dim=2) if G > 1 else k.contiguous()
-    vh = v.repeat_interleave(G, dim=2) if G > 1 else v.contiguous()
-    o = flash_attention_kernel(qh.contiguous(), kh, vh, causal=True,
-                               window=window)
+    o = flash_attention_kernel(qh.contiguous(), k.contiguous(),
+                               v.contiguous(), causal=True, window=window)
     return o.reshape(B, S, KH, G, D)
 
 

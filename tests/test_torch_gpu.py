@@ -641,30 +641,85 @@ def test_flash_attention_kernel_window(cuda, s, d, window, dtype, tol):
                                atol=tol[0], rtol=tol[1])
 
 
-# head_dim 129-256: bf16 on the wgmma kernel with Q from shared memory
-# (D zero-filled to 256), float32 on the CUDA-core kernel; S across the
-# 64-row tiles, causal, full and banded (RecurrentGemma's window 2048)
+def _expand_kv(q, k, v):
+    """k and v repeated to q's head count (query head h meets KV head
+    h // G, the reference's grouping)."""
+    G = q.shape[2] // k.shape[2]
+    return k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)
+
+
+# head_dim 129-256: bf16 on the warp-specialised kernel (two consumers of
+# the same 64 rows of a head pair for G even, 128 rows of one head for G
+# odd; D zero-filled to 256), float32 on the 3xTF32 wgmma kernel; H over
+# H_kv heads, S across the 64- and 128-row query tiles and the 2-stage
+# K/V ring, causal, full and banded (RecurrentGemma's window 2048)
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, (2e-5, 1e-4)),
                                        (torch.bfloat16, (4e-3, 2 ** -7))])
 @pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 64),
                                            (True, 2048)])
-@pytest.mark.parametrize("s,d", [(1, 256), (65, 256), (300, 136),
-                                 (1000, 200), (2200, 256)])
-def test_flash_attention_kernel_head_dim_256(cuda, s, d, causal, window,
-                                             dtype, tol):
-    shape = (1, s, 2, d)
-    gen = torch.Generator().manual_seed(s * 1000 + d + window)
-    q, k, v = (torch.randn(shape, generator=gen).to(dtype)
-               for _ in range(3))
+@pytest.mark.parametrize("h,hkv", [(2, 2), (10, 1), (4, 2), (3, 1)])
+@pytest.mark.parametrize("s,d", [(1, 256), (65, 256), (129, 200),
+                                 (300, 136), (1000, 200), (2200, 256)])
+def test_flash_attention_kernel_head_dim_256(cuda, s, d, h, hkv, causal,
+                                             window, dtype, tol):
+    gen = torch.Generator().manual_seed(s * 1000 + d + window + h)
+    q = torch.randn(1, s, h, d, generator=gen).to(dtype)
+    k, v = (torch.randn(1, s, hkv, d, generator=gen).to(dtype)
+            for _ in range(2))
     got = flash_attention_kernel(q.to(cuda), k.to(cuda), v.to(cuda),
                                  causal=causal, window=window)
-    fold = lambda t: t.transpose(1, 2).reshape(2, s, d)
-    want = flash_attention_ref(fold(q), fold(k), fold(v), causal=causal,
+    ke, ve = _expand_kv(q, k, v)
+    fold = lambda t: t.transpose(1, 2).reshape(h, s, d)
+    want = flash_attention_ref(fold(q), fold(ke), fold(ve), causal=causal,
                                window=window)
-    want = want.reshape(1, 2, s, d).transpose(1, 2)
+    want = want.reshape(1, h, s, d).transpose(1, 2)
     assert got.dtype == dtype
     torch.testing.assert_close(got.cpu().float(), want.float(),
                                atol=tol[0], rtol=tol[1])
+
+
+# every route with K and V at H_kv < H heads against the same K and V
+# expanded to H: bf16 D 40 (one column block), 100 (plain loads), 128,
+# 196 (D 256 kernel, plain loads) and 256 (TMA); float32 D 40, 100,
+# 128, 198 (element loads) and 256; G even (head pairs) and odd
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 64])
+@pytest.mark.parametrize("h,hkv", [(4, 2), (6, 2), (3, 1), (10, 1)])
+@pytest.mark.parametrize("d", [40, 100, 128, 196, 198, 256])
+def test_flash_attention_kv_heads_equal_the_expanded_call(cuda, d, h, hkv,
+                                                          window, dtype):
+    """The kernel reads KV head h // G in place: bit for bit the result
+    of the call with K and V expanded to every query head."""
+    s = 300
+    gen = torch.Generator().manual_seed(d * 100 + h + window)
+    q = torch.randn(2, s, h, d, generator=gen).to(dtype).to(cuda)
+    k, v = (torch.randn(2, s, hkv, d, generator=gen).to(dtype).to(cuda)
+            for _ in range(2))
+    got = flash_attention_kernel(q, k, v, window=window)
+    ke, ve = _expand_kv(q, k, v)
+    want = flash_attention_kernel(q, ke.contiguous(), ve.contiguous(),
+                                  window=window)
+    assert torch.equal(got, want)
+
+
+def _watch_flash_kv(monkeypatch):
+    """Record the K heads of every flash call the model layers make, and
+    count ``Tensor.repeat_interleave`` calls (the K/V expansion)."""
+    from repro_torch.models import layers as L
+    seen = {"kv_heads": [], "q_heads": [], "repeats": 0}
+    flash, repeat = L.flash_attention_kernel, torch.Tensor.repeat_interleave
+
+    def recording(q, k, v, **kw):
+        seen["q_heads"].append(q.shape[2])
+        seen["kv_heads"].append(k.shape[2])
+        return flash(q, k, v, **kw)
+
+    def counting(self, *args, **kw):
+        seen["repeats"] += 1
+        return repeat(self, *args, **kw)
+    monkeypatch.setattr(L, "flash_attention_kernel", recording)
+    monkeypatch.setattr(torch.Tensor, "repeat_interleave", counting)
+    return seen
 
 
 # S across the 32-position tiles and the 6-stage ring (192), W across the
@@ -939,10 +994,12 @@ def test_card_probes_match_cpu(cuda):
                                    rtol=1e-5, atol=1e-12)
 
 
-def test_lm_prefill_launches_flash_once_a_layer(cuda):
+def test_lm_prefill_launches_flash_once_a_layer(cuda, monkeypatch):
     """A smoke-width GLM-4-9B prefill on the card: the flash kernel once a
-    layer, logits and caches within the CPU's (the plain version) at one
-    bf16 step of their magnitude (2^-7 relative: two steps)."""
+    layer, handed K and V at the model's KV heads with no
+    ``repeat_interleave`` copy, logits and caches within the CPU's (the
+    plain version) at one bf16 step of their magnitude (2^-7 relative:
+    two steps)."""
     from repro_torch import configs
     from repro_torch.models import transformer as T
     cfg = configs.get_arch("glm4-9b").smoke()
@@ -954,13 +1011,41 @@ def test_lm_prefill_launches_flash_once_a_layer(cuda):
     with torch.inference_mode():
         want, wc = T.prefill(cfg, cpu, {"tokens": toks}, 48)
         before = flash_attention_kernel.launches
+        seen = _watch_flash_kv(monkeypatch)
         got, gc = T.prefill(cfg, card, {"tokens": toks.to(cuda)}, 48)
         torch.cuda.synchronize()
+        monkeypatch.undo()
     assert flash_attention_kernel.launches == before + cfg.num_layers
+    assert seen["kv_heads"] == [cfg.num_kv_heads] * cfg.num_layers
+    assert cfg.num_kv_heads < cfg.num_heads and seen["repeats"] == 0
     for g, w in [(got, want)] + [(a[k], b[k]) for a, b in zip(gc, wc)
                                  for k in ("k", "v")]:
         g, w = g.float().cpu(), w.float()
         assert (g - w).abs().max() <= 2.0 ** -7 * w.abs().max()
+
+
+def test_recurrentgemma_prefill_hands_flash_its_kv_heads(cuda, monkeypatch):
+    """A smoke-width RecurrentGemma prefill on the card (4 query heads
+    over 1 KV head): the flash kernel once a local layer, handed K and V
+    at the model's one KV head with no ``repeat_interleave`` copy."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    cfg = configs.get_arch("recurrentgemma-2b").smoke()
+    card = T.init_params(cfg, dtype=torch.bfloat16, device="cpu", seed=1)
+    card = card.to(cuda)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 20))).to(cuda)
+    n_local = T.layer_kinds(cfg).count("local")
+    with torch.inference_mode():
+        before = flash_attention_kernel.launches
+        seen = _watch_flash_kv(monkeypatch)
+        T.prefill(cfg, card, {"tokens": toks}, 24)
+        torch.cuda.synchronize()
+        monkeypatch.undo()
+    assert n_local > 0 and flash_attention_kernel.launches == before + n_local
+    assert seen["kv_heads"] == [cfg.num_kv_heads] * n_local
+    assert seen["q_heads"] == [cfg.num_heads] * n_local
+    assert cfg.num_kv_heads < cfg.num_heads and seen["repeats"] == 0
 
 
 def test_lm_bf16_decode_on_the_card_matches_the_cpu(cuda):

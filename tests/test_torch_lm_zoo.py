@@ -34,6 +34,16 @@ from repro.models import transformer as JT
 from repro_torch import configs
 from repro_torch.models import transformer as T
 
+import lm_weights
+
+
+# the reference's init_params seeds each leaf with hash(path), randomised
+# per process: crc32 of the path instead, for the whole module
+# (tests/lm_weights.py)
+@pytest.fixture(scope="module", autouse=True)
+def _stable_weights():
+    yield from lm_weights.stable_weights()
+
 ARCHS = ["phi3.5-moe-42b-a6.6b", "olmoe-1b-7b", "gemma3-27b",
          "nemotron-4-15b", "chameleon-34b", "musicgen-large"]
 MOE_ARCHS = ARCHS[:2]

@@ -27,8 +27,18 @@ from repro_torch.models import layers as L
 from repro_torch.models import registry as R
 from repro_torch.models import transformer as T
 
+import lm_weights
+
 from test_torch_lm_zoo import (CACHE_RTOL, DECODE_REL, LOGIT_RTOL,
                                assert_rel, f32, layer_caches)
+
+
+# the reference's init_params seeds each leaf with hash(path), randomised
+# per process: crc32 of the path instead, for the whole module
+# (tests/lm_weights.py)
+@pytest.fixture(scope="module", autouse=True)
+def _stable_weights():
+    yield from lm_weights.stable_weights()
 
 
 def gemma(num_layers=None):

@@ -28,6 +28,16 @@ from repro_torch import configs
 from repro_torch.models import moe as MOE
 from repro_torch.models import transformer as T
 
+import lm_weights
+
+
+# the reference's init_params seeds each leaf with hash(path), randomised
+# per process: crc32 of the path instead, for the whole module
+# (tests/lm_weights.py)
+@pytest.fixture(scope="module", autouse=True)
+def _stable_weights():
+    yield from lm_weights.stable_weights()
+
 CAPACITY_FACTORS = (64.0, 1.25, 1.0, 0.5)
 OUT_ATOL, AUX_RTOL = 1e-5, 1e-5
 MLPS = ("swiglu", "geglu", "relu2", "gelu")

@@ -49,6 +49,16 @@ from repro_torch.models import rglru as RG
 from repro_torch.models import rwkv6 as RWKV
 from repro_torch.models import transformer as T
 
+import lm_weights
+
+
+# the reference's init_params seeds each leaf with hash(path), randomised
+# per process: crc32 of the path instead, for the whole module
+# (tests/lm_weights.py)
+@pytest.fixture(scope="module", autouse=True)
+def _stable_weights():
+    yield from lm_weights.stable_weights()
+
 ARCHS = ["recurrentgemma-2b", "rwkv6-1.6b"]
 DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 F32 = dict(atol=1e-5, rtol=1e-5)

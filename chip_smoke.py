@@ -256,6 +256,38 @@ farm, the DNN pipeline), and checks what comes out:
               ring's wrap at 2048, by the ring slot one late; the float32
               twin (RecurrentGemma's first rglru and local layers;
               RWKV-6's first two), card against CPU.
+20. lm_train — training on the card.  Qwen1.5-4B at its published
+              widths and full depth (40 layers, d_model 2560, 20 x 128
+              heads, d_ff 6912, vocab 151936; 3.95 B float32 parameters
+              drawn on the card, their gradients and AdamW's two moments:
+              63.2 GB) through ``launch/train.py``'s ``main`` at the
+              reference launcher's defaults (batch 8, seq 128, lr 1e-3,
+              remat "full", ce_chunk 128), 8 steps, ``--ckpt-every`` past
+              the last one; then 2 steps at batch 1 x 4096.  Each shape:
+              the loss at every step (all finite; the 8 steps' last three
+              below their first three), ms a step and tokens a second
+              (host clock ending in a synchronize), the peak memory, flash
+              launches a step (40 forward and 40 recomputed under remat,
+              3 x 40 backward kernels, no other hand kernel), one more
+              step split into forward, backward and optimiser, and one
+              under the profiler (device busy ms, idle share, top
+              kernels).  The gradient gate at full width, depth 2, batch 1
+              x 4096: ``train_loss``'s gradients with the kernels against
+              the same call with flash through its plain version on the
+              card, bf16 leaf by leaf within 1.5 times the plain bf16
+              run's own distance from the plain float32 run (at least
+              2^-8 of the leaf's largest magnitude), float32
+              within 2^-12 of each leaf's largest magnitude; a backward
+              without the delta term and one taking dK from P in place of
+              dS must fail it in both dtypes.  OLMoE-1B-7B at full width,
+              4 of 16 layers: 4 steps with the load-balance and router
+              z-losses in the loss, each MoE layer's routing in the first
+              step's forward equal to the CPU's on the same input.  The
+              reference's training tests at smoke widths: the loss falling
+              over 120 steps (qwen1.5-4b, lr 3e-3: last ten below the
+              first ten by 0.15), microbatch 4 against 1 (glm4-9b: loss
+              within 5e-3, weights within 5e-4), and the fault-tolerant
+              loop's resume (bitwise) and retry in a temp directory.
     The kernel rows of these paths (mac_conv2d at VGG-16 conv3, at
     batch 32 of it, at ResNet-50's 3x3 and MobileNetV2's 1x1 layers,
     fx_log at 2^20 values, flash_attention_kernel at the LM prefill's
@@ -274,13 +306,26 @@ farm, the DNN pipeline), and checks what comes out:
     element by element: 2^-8 (sum_k p_k |v_k| + |got|) + 2^-7 |want|, the
     kernel's bf16 p and the two outputs' roundings); each second shape
     is a kernel_check line of its own, nested in its kernel's entry of
-    the kernels line.  mac_conv2d's rows also time the kernel that the
+    the kernels line.  flash_attention_bwd's row (its three kernels,
+    ``ms`` a call) is held against ``flash_attention_bwd_ref`` at 2^-6
+    (bf16) and 2^-14 (float32) of each gradient's largest magnitude, on
+    the arguments of the first flash backward (the last layer's) in
+    lm_train's 1 x 4096 step (bwd-b) and, nested, GLM-4-9B's 32 over 2
+    heads (bwd-g), Gemma-3's window 1024 (bwd-w), MusicGen's D 64
+    (bwd-m) and float32 at S 1024 (bwd-f); its bound is the five
+    products of the backward at the bf16 rate (float32: CUDA cores, and
+    three TF32 products beside), its library time SDPA's backward: one
+    SDPA forward and backward less the forward alone (CUDA events).
+    Row 8 (batch 1) also gives its ``lse`` case: the forward with the
+    log-sum-exp written, its lse against the plain version's, and its
+    cold time with and without lse.  mac_conv2d's rows also time the
+    kernel that the
     shape's route does not take, and a ``conv_routes`` line times both
     kernels on every Fig. 22/23 conv layer; the flash rows name the
     device kernels of the SDPA call they are compared with.
 
 Launch counters are zeroed just before each path's run (phases 3-8 and
-11-19, and each learning path, the probed run, each serving row and
+11-20, and each learning path, the probed run, each serving row and
 each route_opt row; lm_serve's and lm_moe's two streams are one path
 each, lm_zoo's five prefill-and-decode runs are summed into one, as
 are lm_recurrent's two archs' streams; the
@@ -328,7 +373,8 @@ from repro_torch.core.dvfs import DVFSController  # noqa: E402
 from repro_torch.core.energy import PEEnergyModel  # noqa: E402
 from repro_torch.core.quant import quantize_per_axis  # noqa: E402
 from repro_torch.kernels import (_build, compact_lanes,  # noqa: E402
-                                 event_link_loads, flash_attention_kernel,
+                                 event_link_loads, flash_attention_bwd,
+                                 flash_attention_kernel,
                                  fx_exp, fx_log, launch_counts, lif_step,
                                  linear_scan, mac_conv2d, mac_gemm,
                                  noc_link_loads, reset_launch_counts,
@@ -344,8 +390,9 @@ from repro_torch.kernels.explog.ops import (  # noqa: E402
     fx_exp_mantissa_launch, fx_log_float, to_fx)
 from repro_torch.kernels.explog.ref import (FX_ONE, LN2,  # noqa: E402
                                             fx_exp_ref, fx_log_ref)
+from repro_torch.kernels.flash_attn import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attn.ref import (  # noqa: E402
-    flash_attention_ref)
+    flash_attention_bwd_ref, flash_attention_ref, keep_mask)
 from repro_torch.kernels.lif.ref import lif_step_ref  # noqa: E402
 from repro_torch.kernels.linear_scan.ref import (  # noqa: E402
     linear_scan_ref)
@@ -379,6 +426,15 @@ from repro_torch.models import rwkv6 as lm_rwkv  # noqa: E402
 from repro_torch.models import transformer as lm  # noqa: E402
 from repro_torch.routeopt import check_delivery, optimize_routes  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
+from repro_torch.data.pipeline import (PipelineConfig,  # noqa: E402
+                                       SyntheticTokenPipeline)
+from repro_torch.ft.loop import FaultTolerantLoop, LoopConfig  # noqa: E402
+from repro_torch.ckpt.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.launch.train import main as train_main  # noqa: E402
+from repro_torch.optim import (AdamWConfig, adamw_init,  # noqa: E402
+                               adamw_update)
+from repro_torch.optim.adamw import named_leaves  # noqa: E402
+from repro_torch.train.step import make_train_step  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA datasheet): HBM bandwidth, the
 # float32 rate outside the tensor cores and the dense int8, bf16 and TF32
@@ -528,6 +584,30 @@ LM_PROFILE_STEPS = 5
 # intermediates, through two products, and the output's own rounding
 MOE_ARCH, MOE_FAULTS = "olmoe-1b-7b", ("gate_norm", "cache_slot")
 MOE_CPU_TOKENS, MOE_OUT_REL = 256, 2.0 ** -6
+# lm_train: launch/train.py at the reference launcher's defaults, then
+# batch 1 x 4096 (shape: batch, seq, steps)
+TRAIN_ARCH, TRAIN_SEED, TRAIN_LR = "qwen1.5-4b", 0, 1e-3
+TRAIN_SHAPES = {"b8_s128": (8, 128, 8), "b1_s4096": (1, 4096, 2)}
+# the gradient gate: full width, depth cut to 2, batch 1 x 4096; bf16
+# leaf by leaf within GATE_BF16 x the plain bf16 run's distance from the
+# plain float32 one (the kernel adds the bf16 roundings of P and dS, a
+# few of the many that bf16 activations make), and never below
+# GATE_BF16_ULP of the leaf's largest magnitude (a weight's gradient
+# leaves a bf16 product: one rounding at its own scale); float32 within
+# GATE_F32 of the leaf's largest magnitude (3xTF32 products, ~2^-21 each)
+GATE_LAYERS, GATE_SEQ, GATE_BF16, GATE_F32 = 2, 4096, 1.5, 2.0 ** -12
+GATE_BF16_ULP = 2.0 ** -8
+TRAIN_FAULTS = ("no_delta", "dk_from_p")
+MOE_TRAIN = ("olmoe-1b-7b", 4, 4)         # arch, layers of 16, steps
+# flash_attention_bwd's rows: (B, S, H, H_kv, D), dtype, window; bwd-b is
+# lm_train's own layer-0 input.  The limit, of each gradient's largest
+# magnitude: bf16 rounds P and dS for their products, float32 is 3xTF32
+BWD_ROWS = {"bwd-g": ((1, 4096, 32, 2, 128), torch.bfloat16, 0),
+            "bwd-w": ((1, 4096, 32, 16, 128), torch.bfloat16, 1024),
+            "bwd-m": ((1, 4096, 32, 32, 64), torch.bfloat16, 0),
+            "bwd-f": ((1, 1024, 20, 20, 128), torch.float32, 0)}
+BWD_TOL = {torch.bfloat16: 2.0 ** -6, torch.float32: 2.0 ** -14}
+LSE_TOL = 1e-4                 # natural-log units, |lse - plain|
 # lm_zoo: each other attention arch at its published widths, depth cut to
 # fit one card beside the rest of the run (layers kept of the published
 # count): Phi-3.5-MoE 4 of 32 (41.9 B parameters do not fit whole),
@@ -632,7 +712,9 @@ KERNEL_SYMBOLS = {"lif_step": r"\blif_step_kernel\b",
                   "flash_attention_kernel":
                       r"\bflash_attn_(wgmma|tf32)(_d256)?_kernel\b",
                   "linear_scan": r"\blinear_scan_kernel\b",
-                  "wkv6": r"\bwkv6(_chunked)?_kernel\b"}
+                  "wkv6": r"\bwkv6(_chunked)?_kernel\b",
+                  "flash_attention_bwd":
+                      r"\bflash_bwd_(delta|dkdv|dq)_kernel\b"}
 PASS_SYMBOLS = {"mac_gemm": r"\bimma_pack_kernel\b",
                 "mac_conv2d": r"\bimma_pack_kernel\b"}
 # tensor-core SASS: wgmma is HGMMA (bf16, and TF32 as HGMMA.*TF32) /
@@ -641,9 +723,9 @@ PASS_SYMBOLS = {"mac_gemm": r"\bimma_pack_kernel\b",
 # instruction named
 TENSOR_CORE_OPS = ("HGMMA", "IGMMA", "HMMA", "IMMA")
 TENSOR_CORE_KERNELS = {"flash_attn_wgmma_kernel": (8, "HGMMA"),
-                       "flash_attn_wgmma_d256_kernel": (4, "HGMMA"),
+                       "flash_attn_wgmma_d256_kernel": (8, "HGMMA"),
                        "flash_attn_tf32_kernel": (4, "HGMMA.TF32"),
-                       "flash_attn_tf32_d256_kernel": (2, "HGMMA.TF32"),
+                       "flash_attn_tf32_d256_kernel": (4, "HGMMA.TF32"),
                        "mac_gemm_kernel": (4, "IGMMA"),
                        "mac_conv_igmma_kernel": (12, "IGMMA")}
 # kernels whose SASS instructions per element phase 2 counts
@@ -816,7 +898,8 @@ def kernel_row(rows: list, flush, name, source, replaces, call, plain, got,
                want, nbytes, nops, iters, plain_iters, library=None,
                main_bound_ms=None, in_tick=None,
                ops_per_s=CUDA_CORE_OPS_PER_S, tol=None, prof_iters=20,
-               cold_call=None, **extra) -> None:
+               cold_call=None, per_call=1, library_ms=None,
+               **extra) -> None:
     """Hold ``name``'s kernel against its plain version (bitwise, or at
     ``tol`` = (atol, rtol): |got - want| <= atol + rtol |want| element by
     element, atol a number or a tensor of want's shape) on
@@ -825,7 +908,10 @@ def kernel_row(rows: list, flush, name, source, replaces, call, plain, got,
     function), and append and print its kernel_check row.  ``cold_call``,
     where given, takes ``call``'s place in the cold timing (``prof_iters``
     + 1 calls): for a kernel whose loads keep lines in L2 past the flush,
-    a call on inputs that no launch has read yet."""
+    a call on inputs that no launch has read yet.  ``per_call``: kernels
+    a call launches (``ms`` and ``warm_ms`` are a call's, their sum);
+    ``library_ms``: the library's time measured by the caller, in place
+    of timing ``library``."""
     err = max_abs_err(got, want)
     if tol is None:
         check(torch.equal(got, want), f"{name}: kernel != plain version")
@@ -841,17 +927,20 @@ def kernel_row(rows: list, flush, name, source, replaces, call, plain, got,
     b_bytes, b_ops = bound_parts(nbytes, nops, ops_per_s)
     cold_fn = cold_call or call
     cold = device_kernels(lambda: (flush(), cold_fn()), prof_iters)[0]
-    ms = per_launch_ms(cold, name)[1] or cuda_ms(call, iters, flush)
+    ms = per_launch_ms(cold, name)[1]
+    ms = ms * per_call if ms else cuda_ms(call, iters, flush)
+    warm = kernel_device_ms(name, call, prof_iters)
     in_tick = in_tick or {}
     rows.append(dict(
         name=name, route="cuda", source=source, replaces=replaces,
         max_abs_err=err, ms=ms,
-        warm_ms=kernel_device_ms(name, call, prof_iters),
+        warm_ms=warm * per_call if warm else None,
         call_ms=cuda_ms(call, iters),
         plain_ms=cuda_ms(plain, plain_iters, flush),
         bound_ms=b_ms, bound_by=b_by, bound_bytes_ms=b_bytes,
         bound_ops_ms=b_ops, ops_per_s=ops_per_s,
-        library_ms=(cuda_ms(library, max(plain_iters, 20), flush)
+        library_ms=(library_ms if library_ms is not None else
+                    cuda_ms(library, max(plain_iters, 20), flush)
                     if library else None),
         main_path_ms=in_tick.get("ms"),
         main_path_launches_per_tick=in_tick.get("launches_per_tick"),
@@ -3738,6 +3827,28 @@ def phase_attention(dev) -> tuple[dict, dict]:
     return counts, {dt: (ins[dt], outs[dt], wants[dt]) for dt in ins}
 
 
+def lse_case(flush, qkv) -> dict:
+    """The forward writing its log-sum-exp (as training calls it) on
+    ``qkv``: the lse against the plain version's, the output bit for bit
+    the call's without lse, and the cold device time with and without."""
+    q, k, v = qkv
+    B, S, H, D = q.shape
+    out, lse = flash_ops._forward(q, k, v, True, 0, True)
+    fold = lambda t: t.transpose(1, 2).reshape(B * H, S, D)
+    _, want = flash_attention_ref(fold(q), fold(k), fold(v), return_lse=True)
+    err = max_abs_err(lse.reshape(B * H, S), want)
+    check(err <= LSE_TOL, f"flash lse: max abs err {err} > {LSE_TOL}")
+    check(torch.equal(out, flash_attention_kernel(q, k, v)),
+          "flash: the output with lse differs from the call without")
+    del want, out, lse
+    return dict(max_abs_err=err, tolerance=LSE_TOL, dtype=str(q.dtype),
+                ms_with_lse=cuda_ms(
+                    lambda: flash_ops._forward(q, k, v, True, 0, True), 10,
+                    flush),
+                ms_without_lse=cuda_ms(
+                    lambda: flash_attention_kernel(q, k, v), 10, flush))
+
+
 def phase_accel_kernels(dev, log: tuple, attn: dict, lm_attn: tuple,
                         zoo_attn: dict, rec_in: dict) -> list:
     """The kernel rows of phases 12-14 at their paths' shapes: mac_conv2d
@@ -3897,7 +4008,8 @@ def phase_accel_kernels(dev, log: tuple, attn: dict, lm_attn: tuple,
                           4 * q32.numel() * 4, 3 * 2 * S * S * D * H * B,
                           TF32_TENSOR_OPS_PER_S)[0])
     at_b1 = attn_row([], attn[torch.bfloat16], BF16_TENSOR_OPS_PER_S, 5,
-                     shape_tag="attention phase (batch 1)")
+                     shape_tag="attention phase (batch 1)",
+                     lse_case=lse_case(flush, attn[torch.bfloat16][0]))
     # the LM path's own input: layer 0 of stream (b)'s prefill.  The
     # kernel rounds p to bf16 before P V (as the reference's model
     # attention; l sums the float32 p) where the plain version keeps it
@@ -4041,6 +4153,513 @@ def phase_accel_kernels(dev, log: tuple, attn: dict, lm_attn: tuple,
     return rows
 
 
+# ------------------------------------------------------------- lm_train
+
+@contextlib.contextmanager
+def patched(module, name: str, fn):
+    """``module.name`` replaced by ``fn`` inside the block."""
+    orig = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield orig
+    finally:
+        setattr(module, name, orig)
+
+
+def free_card() -> None:
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def plain_flash(q, k, v, *, causal=True, window=0, **_):
+    """flash_attention_kernel's plain version on card tensors, autograd
+    through it: the gradient gate's truth."""
+    return attention_plain(q, k, v, causal, window)
+
+
+def bwd_dk_from_p(q, k, v, o, lse, do, *, causal=True, window=0):
+    """A faulty backward: ``flash_attention_bwd_ref`` with dK taken from P
+    (P^T Q) in place of dS."""
+    B, S, H, D = q.shape
+    G = H // k.shape[2]
+    dq, _, dv = flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                        window=window)
+    qf = q.float().transpose(1, 2)
+    kf = k.float().transpose(1, 2).repeat_interleave(G, dim=1)
+    s = qf @ kf.transpose(-1, -2) / float(np.sqrt(D))
+    p = torch.where(keep_mask(S, causal, window, q.device),
+                    torch.exp(s - lse[..., None]), 0.0)
+    dk = (p.transpose(-1, -2) @ qf).reshape(B, H // G, G, S, D).sum(2)
+    return dq, dk.transpose(1, 2).to(k.dtype), dv
+
+
+def train_faults(fault: str):
+    """The backward that ``fault`` puts in flash_attention_bwd's place:
+    the kernels with O zeroed (delta = 0: no delta term), or dK from P."""
+    if fault == "no_delta":
+        return lambda q, k, v, o, lse, do, **kw: flash_attention_bwd(
+            q, k, v, torch.zeros_like(o), lse, do, **kw)
+    return bwd_dk_from_p
+
+
+def flash_backward(bwd):
+    """FlashAttention's backward running ``bwd(q, k, v, o, lse, do,
+    causal=, window=)`` in place of flash_attention_bwd, inside the
+    block."""
+    def backward(ctx, do):
+        return (*bwd(*ctx.saved_tensors, do.contiguous(), causal=ctx.causal,
+                     window=ctx.window), None, None)
+    return patched(flash_ops.FlashAttention, "backward",
+                   staticmethod(backward))
+
+
+def train_split(cfg, params, opt, batch, dtype, ce_chunk: int) -> dict:
+    """One more step in its three parts, each ending in a synchronize:
+    the forward (``train_loss``), the backward and the AdamW update."""
+    torch.cuda.synchronize()
+    t = [time.perf_counter()]
+    loss, _ = lm.train_loss(cfg, params, batch, remat="full",
+                            ce_chunk=ce_chunk, dtype=dtype)
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    loss.backward()
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    adamw_update(None, opt, params, AdamWConfig(lr=TRAIN_LR), lr=TRAIN_LR)
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    for p in named_leaves(params).values():
+        p.grad = None
+    ms = [(b - a) * 1e3 for a, b in zip(t, t[1:])]
+    return dict(forward_ms=ms[0], backward_ms=ms[1], optimizer_ms=ms[2],
+                step_ms=sum(ms))
+
+
+def step_profile(fn) -> dict:
+    """One call of ``fn`` (a train step) under the profiler: device busy
+    ms, the idle share of its wall time (which the profiler slows), and
+    the kernels that take the time."""
+    kernels, wall_us = device_kernels(fn, 1)
+    busy_us = sum(us for _, us in kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
+    flash = {name: sum(us for k, (_, us) in kernels.items()
+                       if re.search(KERNEL_SYMBOLS[name], k)) / 1e3
+             for name in ("flash_attention_kernel", "flash_attention_bwd")}
+    return dict(launches=sum(n for n, _ in kernels.values()),
+                busy_ms=busy_us / 1e3, wall_ms=wall_us / 1e3,
+                idle_share=1.0 - busy_us / wall_us, flash_ms=flash,
+                top_kernels=[dict(name=k[:120], launches=n, ms=us / 1e3)
+                             for k, (n, us) in top])
+
+
+def train_shape(cfg, dev, what: str, tmp: str) -> tuple[dict, tuple]:
+    """``launch/train.py``'s main at ``TRAIN_SHAPES[what]`` on the card,
+    then one split step and one profiled step on its final state.
+    Returns the shape's record and the first flash backward's arguments
+    (layer 0's, the last layer's gradient)."""
+    batch, seq, steps = TRAIN_SHAPES[what]
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    with first_bwd() as seen:
+        t0 = time.perf_counter()
+        out = train_main([
+            "--arch", TRAIN_ARCH, "--steps", str(steps), "--batch",
+            str(batch), "--seq", str(seq), "--lr", str(TRAIN_LR),
+            "--ckpt-dir", f"{tmp}/{what}", "--ckpt-every", str(steps + 1),
+            "--seed", str(TRAIN_SEED), "--log-every", "1"])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    counts = launch_counts()
+    max_mem = torch.cuda.max_memory_allocated()
+    log = out["log"]
+    losses = [r["loss"] for r in log]
+    check(len(losses) == steps and all(np.isfinite(losses)),
+          f"lm_train {what}: losses {losses}")
+    L = cfg.num_layers
+    check(counts["flash_attention_kernel"] == 2 * L * steps
+          and counts["flash_attention_bwd"] == 3 * L * steps,
+          f"lm_train {what}: flash launches {counts}")
+    check(all(n == 0 for k, n in counts.items()
+              if k not in ("flash_attention_kernel", "flash_attention_bwd")),
+          f"lm_train {what}: other kernels launched {counts}")
+    params, opt = out["state"]["params"], out["state"]["opt"]
+    del out
+    n_params = sum(p.numel() for p in params.parameters())
+    check(n_params == cfg.param_count(),
+          f"lm_train: {n_params} parameters, config {cfg.param_count()}")
+    pipe = SyntheticTokenPipeline(PipelineConfig(
+        vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch,
+        seed=TRAIN_SEED), device=dev)
+    ce_chunk = min(seq, 512)
+    split = train_split(cfg, params, opt, pipe.batch(steps), torch.bfloat16,
+                        ce_chunk)
+    step_fn = make_train_step(cfg, opt=AdamWConfig(lr=TRAIN_LR),
+                              ce_chunk=ce_chunk, total_steps=steps,
+                              warmup_steps=10)
+    prof_batch = pipe.batch(steps + 1)
+    prof = step_profile(lambda: float(step_fn(params, opt, prof_batch,
+                                              steps)[2]["loss"]))
+    del params, opt, step_fn
+    free_card()
+    dts = [r["dt"] for r in log]
+    steady = dts[1:] or dts
+    return dict(batch=batch, seq=seq, steps=steps, losses=losses,
+                step_ms=[d * 1e3 for d in dts],
+                steady_step_ms=float(np.median(steady)) * 1e3,
+                tokens_per_s=batch * seq / float(np.median(steady)),
+                run_s=run_s, max_memory_allocated=max_mem,
+                flash_forward_launches_per_step=(
+                    counts["flash_attention_kernel"] / steps),
+                flash_bwd_launches_per_step=(
+                    counts["flash_attention_bwd"] / steps),
+                split_step=split, profile=prof, launches=counts,
+                params=n_params), seen.get("args")
+
+
+@contextlib.contextmanager
+def first_bwd():
+    """Record (clones of) the first flash backward's arguments and
+    keywords, as ``seen["args"]``, while the block runs."""
+    seen = {}
+
+    def recording(*args, **kw):
+        if "args" not in seen:
+            seen["args"] = (tuple(a.detach().clone() for a in args), kw)
+        return flash_attention_bwd(*args, **kw)
+    with flash_backward(recording):
+        yield seen
+
+
+def grads_of(cfg, model, batch, dtype) -> dict:
+    """{leaf: gradient} of ``train_loss`` (remat "none")."""
+    for p in model.parameters():
+        p.grad = None
+    loss, _ = lm.train_loss(cfg, model, batch, remat="none", ce_chunk=128,
+                            dtype=dtype)
+    loss.backward()
+    out = {n: p.grad for n, p in model.named_parameters()}
+    for p in model.parameters():
+        p.grad = None
+    return out
+
+
+def gradient_gate(dev) -> dict:
+    """Qwen1.5-4B at full width, depth GATE_LAYERS, batch 1 x GATE_SEQ:
+    the gradients with the kernels against flash's plain version on the
+    card (the gate of GATE_BF16 / GATE_F32), and each fault of
+    TRAIN_FAULTS failing it."""
+    cfg = dataclasses.replace(lm_configs.get_arch(TRAIN_ARCH),
+                              num_layers=GATE_LAYERS)
+    model = lm.init_params(cfg, device=dev, seed=TRAIN_SEED + 1,
+                           requires_grad=True)
+    batch = SyntheticTokenPipeline(PipelineConfig(
+        vocab_size=cfg.vocab_size, seq_len=GATE_SEQ, global_batch=1,
+        seed=TRAIN_SEED + 1), device=dev).batch(0)
+    plain = {}
+    with patched(lm_layers, "flash_attention_kernel", plain_flash):
+        for dt in (torch.bfloat16, torch.float32):
+            plain[dt] = grads_of(cfg, model, batch, dt)
+    # the plain bf16 run's distance from the plain float32 run, a leaf
+    dist = {n: float((g - plain[torch.float32][n]).abs().max())
+            for n, g in plain[torch.bfloat16].items()}
+    limit = {torch.bfloat16: {
+                 n: max(GATE_BF16 * d, GATE_BF16_ULP * float(
+                     plain[torch.bfloat16][n].abs().max()))
+                 for n, d in dist.items()},
+             torch.float32: {n: GATE_F32 * float(g.abs().max())
+                             for n, g in plain[torch.float32].items()}}
+
+    def share(got, dt):
+        """The worst leaf's error over its limit, and the leaf."""
+        s = {n: float((g - plain[dt][n]).abs().max()) / limit[dt][n]
+             for n, g in got.items()}
+        worst = max(s, key=s.get)
+        return s[worst], worst
+
+    out = {"layers": GATE_LAYERS, "seq": GATE_SEQ,
+           "bf16_limit": f"max({GATE_BF16} x |plain bf16 - plain f32|, "
+                         f"{GATE_BF16_ULP} x max |leaf|), a leaf",
+           "f32_limit": f"{GATE_F32} x max |leaf|"}
+    for dt in (torch.bfloat16, torch.float32):
+        key = str(dt).removeprefix("torch.")
+        reset_launch_counts()
+        sh, leaf = share(grads_of(cfg, model, batch, dt), dt)
+        counts = launch_counts()
+        check(counts["flash_attention_bwd"] == 3 * GATE_LAYERS,
+              f"gradient gate {key}: launches {counts}")
+        check(sh <= 1.0, f"gradient gate {key}: {leaf} at {sh} of its limit")
+        faults = {}
+        for fault in TRAIN_FAULTS:
+            with flash_backward(train_faults(fault)):
+                fsh, fleaf = share(grads_of(cfg, model, batch, dt), dt)
+            check(fsh > 1.0, f"gradient gate {key}: fault {fault} passed "
+                  f"({fleaf} at {fsh})")
+            faults[fault] = dict(share=fsh, leaf=fleaf)
+        out[key] = dict(share=sh, worst_leaf=leaf, faults=faults)
+    del model, plain
+    free_card()
+    return out
+
+
+def moe_train(dev) -> dict:
+    """OLMoE-1B-7B at full width, MOE_TRAIN's layers, its steps at batch
+    8 x 128: finite losses with the auxiliary losses in them, and each
+    MoE layer's routing in the first step's forward equal to the CPU's
+    on the same input."""
+    arch, layers, steps = MOE_TRAIN
+    cfg = dataclasses.replace(lm_configs.get_arch(arch), num_layers=layers)
+    model = lm.init_params(cfg, device=dev, seed=TRAIN_SEED,
+                           requires_grad=True)
+    opt = adamw_init(model)
+    pipe = SyntheticTokenPipeline(PipelineConfig(
+        vocab_size=cfg.vocab_size, seq_len=128, global_batch=8,
+        seed=TRAIN_SEED), device=dev)
+    step = make_train_step(cfg, opt=AdamWConfig(lr=TRAIN_LR), ce_chunk=128,
+                           total_steps=steps, warmup_steps=10)
+    calls = []
+    orig = lm_moe.dispatch
+
+    def recording(cfg_, p, xt, **kw):
+        r = orig(cfg_, p, xt, **kw)
+        if len(calls) < layers:          # the first step's forward
+            calls.append(({"router": p["router"].detach().to(
+                "cpu", copy=True)}, xt.detach().to("cpu", copy=True), r))
+        return r
+    metrics = []
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with patched(lm_moe, "dispatch", recording):
+        for s in range(steps):
+            model, opt, m = step(model, opt, pipe.batch(s), s)
+            metrics.append({k: float(v) for k, v in m.items()})
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = launch_counts()
+    check(all(np.isfinite(list(m.values())).all() for m in metrics),
+          f"lm_train moe: metrics {metrics}")
+    check(all(m["lb_loss"] > 0 and m["z_loss"] > 0 for m in metrics),
+          f"lm_train moe: auxiliary losses {metrics}")
+    check(counts["flash_attention_bwd"] == 3 * layers * steps,
+          f"lm_train moe: launches {counts}")
+    with torch.no_grad():
+        cpu = [orig(cfg, p, xt) for p, xt, _ in calls]
+    same_dispatch([r for _, _, r in calls], cpu,
+                  f"{arch} first training step routing")
+    del model, opt
+    free_card()
+    return dict(arch=arch, layers=layers, of_layers=lm_configs.get_arch(
+        arch).num_layers, steps=steps, batch=8, seq=128, metrics=metrics,
+        run_s=run_s, launches=counts, routing_equal_cpu=True,
+        dropped_share=[1.0 - float(r["keep"].float().mean())
+                       for _, _, r in calls])
+
+
+def smoke_training(dev, tmp: str) -> dict:
+    """The reference's training tests at their smoke widths, on the card:
+    the loss falling (tests/test_integration_train.py:16), microbatching
+    (:34), and the fault-tolerant loop's resume and retry
+    (tests/test_ckpt_ft.py:62,84)."""
+    def model(arch, seed=0):
+        cfg = lm_configs.get_arch(arch).smoke()
+        return cfg, lm.init_params(cfg, device=dev, seed=seed,
+                                   requires_grad=True)
+
+    def pipe(cfg, seq, batch, seed=0):
+        return SyntheticTokenPipeline(PipelineConfig(
+            vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch,
+            seed=seed), device=dev)
+
+    # loss decreases: qwen1.5-4b smoke, 120 steps, lr 3e-3
+    cfg, params = model("qwen1.5-4b")
+    opt, p = adamw_init(params), pipe(cfg, 64, 8, seed=1)
+    step = make_train_step(cfg, opt=AdamWConfig(lr=3e-3), ce_chunk=32,
+                           moe_dense=True, total_steps=120, warmup_steps=10)
+    t0 = time.perf_counter()
+    losses = []
+    for s in range(120):
+        params, opt, m = step(params, opt, p.batch(s), s)
+        losses.append(float(m["loss"]))
+    loss_s = time.perf_counter() - t0
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    check(last < first - 0.15, f"smoke loss {first} -> {last}")
+    # microbatch 4 against 1: glm4-9b smoke
+    cfg, p1 = model("glm4-9b")
+    _, p2 = model("glm4-9b")
+    batch = pipe(cfg, 32, 8).batch(0)
+    p1, _, m1 = make_train_step(cfg, microbatch=1, ce_chunk=16,
+                                remat="none")(p1, adamw_init(p1), batch, 0)
+    p2, _, m2 = make_train_step(cfg, microbatch=4, ce_chunk=16,
+                                remat="none")(p2, adamw_init(p2), batch, 0)
+    dloss = abs(float(m1["loss"]) - float(m2["loss"]))
+    dparam = max(float((a - b).abs().max()) for a, b in
+                 zip(p1.state_dict().values(), p2.state_dict().values()))
+    check(dloss < 5e-3 and dparam < 5e-4,
+          f"microbatch: loss {dloss}, params {dparam}")
+    # resume: 30 steps straight against 20, a checkpoint, a restore into
+    # other weights and 10 more; retry: a failure injected at step 12
+    cfg, pa = model("qwen1.5-4b")
+    tp = pipe(cfg, 32, 4)
+    step = make_train_step(cfg, opt=AdamWConfig(lr=1e-3), ce_chunk=16,
+                           moe_dense=True)
+    oa = adamw_init(pa)
+    for s in range(30):
+        pa, oa, _ = step(pa, oa, tp.batch(s), s)
+    _, pb = model("qwen1.5-4b")
+    ob = adamw_init(pb)
+    for s in range(20):
+        pb, ob, _ = step(pb, ob, tp.batch(s), s)
+    loop = FaultTolerantLoop(
+        LoopConfig(total_steps=30, ckpt_every=100),
+        CheckpointManager(f"{tmp}/resume", async_save=False), step, tp)
+    loop._checkpoint(19, {"params": pb, "opt": ob})
+    _, pc = model("qwen1.5-4b", seed=9)
+    state, log = loop.run(pc, adamw_init(pc))
+    resumed = state["params"].state_dict().values()
+    check([r["step"] for r in log] == list(range(20, 30))
+          and all(torch.equal(a, b) for a, b in zip(
+              pa.state_dict().values(), resumed)),
+          "fault-tolerant loop: resume is not bitwise")
+    fails = {12}
+
+    def injector(s):
+        if s in fails:
+            fails.discard(s)
+            return True
+        return False
+    _, pr = model("qwen1.5-4b")
+    loop = FaultTolerantLoop(
+        LoopConfig(total_steps=25, ckpt_every=5),
+        CheckpointManager(f"{tmp}/retry", async_save=False), step, tp)
+    _, rlog = loop.run(pr, adamw_init(pr), fail_injector=injector)
+    check(rlog[-1]["step"] == 24 and all(np.isfinite(r["loss"])
+                                         for r in rlog),
+          "fault-tolerant loop: retry")
+    free_card()
+    return dict(loss_decreases=dict(first10=first, last10=last, steps=120,
+                                    run_s=loss_s, losses=losses[::10]),
+                microbatch=dict(loss_diff=dloss, param_diff=dparam),
+                resume_bitwise=True, retry_steps=len(rlog))
+
+
+def phase_lm_train(dev) -> tuple[dict, tuple]:
+    """Training on the card (see the module docstring, phase 20).
+    Returns the 8-step run's launch counts and the 1 x 4096 run's first
+    flash backward arguments (bwd-b's row)."""
+    t_phase = time.perf_counter()
+    cfg = lm_configs.get_arch(TRAIN_ARCH)
+    shapes, bwd_in = {}, None
+    with tempfile.TemporaryDirectory() as tmp:
+        for what in TRAIN_SHAPES:
+            shapes[what], args = train_shape(cfg, dev, what, tmp)
+            bwd_in = args
+        gate = gradient_gate(dev)
+        moe = moe_train(dev)
+        smoke = smoke_training(dev, tmp)
+    losses = shapes["b8_s128"]["losses"]
+    check(np.mean(losses[-3:]) < np.mean(losses[:3]),
+          f"lm_train: loss not falling {losses}")
+    emit("lm_train", arch=TRAIN_ARCH, layers=cfg.num_layers,
+         d_model=cfg.d_model, heads=[cfg.num_heads, cfg.head_dim],
+         d_ff=cfg.d_ff, vocab=cfg.vocab_size, shapes=shapes,
+         gradient_gate=gate, moe=moe, smoke=smoke,
+         card=torch.cuda.get_device_name(0),
+         phase_s=time.perf_counter() - t_phase)
+    return shapes["b8_s128"]["launches"], bwd_in
+
+
+def bwd_rows(dev, bwd_in) -> list:
+    """flash_attention_bwd's row on lm_train's layer-0 arguments (bwd-b)
+    with BWD_ROWS nested, each against flash_attention_bwd_ref."""
+    flush = l2_flusher(dev)
+
+    def row(rows, args, window, iters, **extra):
+        q, k, v, o, lse, do = args
+        B, S, H, D = q.shape
+        dtype = q.dtype
+        call = lambda: flash_attention_bwd(q, k, v, o, lse, do,
+                                           window=window)
+        plain = lambda: flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                                window=window)
+        got, want = call(), plain()
+        flat = lambda ts: torch.cat([t.flatten() for t in ts])
+        atol = torch.cat([torch.full((t.numel(),), BWD_TOL[dtype] * float(
+            t.float().abs().max()), device=dev) for t in want])
+        # the library: SDPA's backward, the time of one forward and
+        # backward less that of the forward alone (CUDA events, L2
+        # flushed), and the device kernels the backward ran, by name
+        leaf = lambda t: t.transpose(1, 2).detach().requires_grad_()
+        lq, lk, lv = leaf(q), leaf(k), leaf(v)
+        mask = None if not window else keep_mask(S, True, window, dev)
+        dot = do.transpose(1, 2)
+        fwd = lambda: torch.nn.functional.scaled_dot_product_attention(
+            lq, lk, lv, attn_mask=mask, is_causal=mask is None,
+            enable_gqa=k.shape[2] != H)
+        fwd_bwd = lambda: torch.autograd.grad(fwd(), (lq, lk, lv), dot)
+        lib_fwd_bwd_ms = cuda_ms(fwd_bwd, 3, flush)
+        lib_fwd_ms = cuda_ms(fwd, 3, flush)
+        lib = device_kernels(fwd_bwd, 2)[0]
+        lib_bwd = [n for n in sorted(lib, key=lambda n: -lib[n][1])
+                   if re.search(r"bwd|backward|bprop|dgrad|cutlassB", n,
+                                re.I)]
+        del lq, lk, lv
+        pairs = band_pairs(S, window)
+        nbytes = (2 * q.numel() * 2 + 2 * k.numel() * 2) * q.element_size() \
+            + lse.numel() * 4
+        nops = 5 * 2 * pairs * D * H * B
+        rate = (BF16_TENSOR_OPS_PER_S if dtype == torch.bfloat16
+                else CUDA_CORE_OPS_PER_S)
+        more = {}
+        if dtype == torch.float32:
+            more["bound_ms_3xtf32"] = bound_ms(nbytes, 3 * nops,
+                                               TF32_TENSOR_OPS_PER_S)[0]
+        kernel_row(
+            rows, flush, "flash_attention_bwd",
+            "src/repro_torch/csrc/flash_attn_bwd.cu",
+            "src/repro/models/layers.py:298 _flash_bwd (plain jnp "
+            "custom_vjp; no Pallas kernel)", call, plain, flat(got),
+            flat(want), nbytes, nops, iters, 2, ops_per_s=rate,
+            tol=(atol, 0.0), prof_iters=3, per_call=3,
+            library_ms=lib_fwd_bwd_ms - lib_fwd_ms,
+            library_fwd_bwd_ms=lib_fwd_bwd_ms, library_fwd_ms=lib_fwd_ms,
+            shape=[B, S, H, k.shape[2], D],
+            dtype=str(dtype).removeprefix("torch."), causal=True,
+            window=window,
+            tolerance_atol=f"{BWD_TOL[dtype]} x max |grad|, each of dq, "
+                           f"dk, dv",
+            library_call="scaled_dot_product_attention: forward + backward "
+                         "less the forward",
+            library_kernels=lib_bwd[:3],
+            **more, **extra)
+        return rows[-1]
+
+    others = []
+    for tag, (shape, dtype, window) in BWD_ROWS.items():
+        B, S, H, Hkv, D = shape
+        gen = torch.Generator(device=dev).manual_seed(S + H + D + window)
+        rnd = lambda h: torch.randn(B, S, h, D, generator=gen,
+                                    device=dev).to(dtype)
+        q, k, v, do = rnd(H), rnd(Hkv), rnd(Hkv), rnd(H)
+        o, lse = flash_ops._forward(q, k, v, True, window, True)
+        others.append(row([], (q, k, v, o, lse, do), window,
+                          5 if dtype == torch.bfloat16 else 10,
+                          shape_tag=tag))
+        del q, k, v, do, o, lse
+        free_card()
+    (args, kw) = bwd_in
+    cfg = lm_configs.get_arch(TRAIN_ARCH)
+    check(args[0].shape == (1, TRAIN_SHAPES["b1_s4096"][1], cfg.num_heads,
+                            cfg.head_dim)
+          and args[0].dtype == torch.bfloat16 and not kw.get("window"),
+          f"bwd-b: layer input {tuple(args[0].shape)} {args[0].dtype}")
+    rows = []
+    row(rows, args, 0, 5, shape_tag="bwd-b",
+        main_path="lm_train 1 x 4096 step (Qwen1.5-4B, the backward of "
+                  "the last layer's attention)", other_shapes=others)
+    return rows
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--sass"]:
         # any build's fx_exp / fx_log kernels, whatever their names
@@ -4091,19 +4710,23 @@ def main() -> int:
     rows = phase_kernels(dev, sim, prog, main, main_event, farm_rows,
                          farm_links, farm_main, farm_noc, encode_ops, sass)
     rows += phase_accel_kernels(dev, log, attn, lm_attn, zoo_attn, rec_in)
-    del log, attn, lm_attn, zoo_attn, rec_in
+    del log, attn, lm_attn, zoo_attn, rec_in, sim, ev_sim, prog
+    free_card()
+    paths["lm_train"], bwd_in = phase_lm_train(dev)
+    rows += bwd_rows(dev, bwd_in)
+    del bwd_in
+    free_card()
     # each kernel's launches on the path it was checked at
     home = {"event_link_loads": "hybrid_farm_4096pe", "mac_gemm": "hybrid",
             "compact_lanes": "event_ring_4096pe",
             "mac_conv2d": "dnn_layers", "fx_log": "elementary",
             "flash_attention_kernel": "lm_serve",
-            "linear_scan": "lm_recurrent", "wkv6": "lm_recurrent"}
+            "linear_scan": "lm_recurrent", "wkv6": "lm_recurrent",
+            "flash_attention_bwd": "lm_train"}
     for row in rows:
         name = row["name"]
         row["launches"] = paths[home.get(name, "board_ring_4096pe")][name]
         row["launches_by_path"] = {p: c[name] for p, c in paths.items()}
-    del sim, ev_sim, prog
-    torch.cuda.empty_cache()
     phase_parity(dev)
     emit("script", seconds=time.perf_counter() - t_script)
     print(smi)

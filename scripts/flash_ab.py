@@ -24,7 +24,12 @@ pair in the other order from the last:
         for t in parent change change parent; do
             PYTHONPATH=$t/src python3 scripts/flash_ab.py --label $t
         done
-    done
+    done > ab.log
+
+``--summary ab.log`` reads such a log back (no card needed): for each
+row, the median over the runs of each label's median, the parent's
+quartiles (the spread of its own runs), and in how many of the pairs
+(lines 1-2, 3-4, ...) the change was faster.
 """
 from __future__ import annotations
 
@@ -64,13 +69,43 @@ def cold_ms(fn, iters: int, flush) -> list:
     return times
 
 
+def summary(path: str, base: str = "parent") -> dict:
+    """Per row: each label's median of medians, the base label's
+    quartiles, and the pairs in which the other label was faster."""
+    runs = [json.loads(line) for line in open(path)
+            if line.startswith('{"label"')]
+    out = {}
+    for row in runs[0]["rows"]:
+        by = {}
+        for r in runs:
+            by.setdefault(r["label"], []).append(r["rows"][row]["median_ms"])
+        pairs = [(a, b) for a, b in zip(runs[::2], runs[1::2])
+                 if {a["label"], b["label"]} == set(by)]
+        other = next(label for label in by if label != base)
+        faster = sum(
+            (a if a["label"] == other else b)["rows"][row]["median_ms"]
+            < (b if a["label"] == other else a)["rows"][row]["median_ms"]
+            for a, b in pairs)
+        q = statistics.quantiles(by[base], n=4)
+        out[row] = dict(median_ms={k: statistics.median(v)
+                                   for k, v in by.items()},
+                        base_quartiles_ms=[q[0], q[2]],
+                        faster=f"{other} in {faster} of {len(pairs)} pairs")
+    return {"card": runs[0]["card"], "runs": len(runs), "rows": out}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--summary", metavar="LOG",
+                    help="summarise a log of this script's lines")
     ap.add_argument("--label", default="")
     ap.add_argument("--iters", type=int, default=30)
     ap.add_argument("--rows", nargs="+", choices=list(SHAPES),
                     default=list(SHAPES), help="rows to time (all)")
     args = ap.parse_args(argv)
+    if args.summary:
+        print(json.dumps(summary(args.summary)))
+        return 0
     if not torch.cuda.is_available():
         raise SystemExit("flash_ab: no CUDA device")
     from repro_torch.kernels import flash_attention_kernel

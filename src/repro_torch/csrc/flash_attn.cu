@@ -28,6 +28,14 @@
 // to every query head with jnp.repeat first; reading the KV head in place
 // computes the same function without the copy).  No transpose.
 //
+// The log-sum-exp.  Training's forward (flash_attn/ops.py, under grad)
+// also stores each row's log-sum-exp of its scaled, masked scores, m +
+// log(l) in natural-log units (m is kept in log2 units, so (m + log2 l)
+// ln 2), as (B, H, S) float32, where each kernel finalises l; the
+// backward (flash_attn_bwd.cu) recomputes P from it.  Serving passes no
+// lse buffer: the D <= 128 kernels then skip the store on a branch, the D
+// 256 kernels are instantiated without it.
+//
 // Bound: operations.  A causal prefill at S = 4096, 32 heads of 128 is
 // 4 S^2 D H / 2 = 137 GFLOP, 139 us at the bf16 tensor-core rate, against
 // 134 MB of bytes (40 us).  float32 at S = 1024 is 8.6 GFLOP: 128 us at
@@ -168,6 +176,7 @@ using bf16 = __nv_bfloat16;
 // one warpgroup of 64 query rows a block, two blocks an SM
 constexpr int TQ = 64, TK = 64, TC_THREADS = 128, KV_STAGES = 3;
 constexpr float kNegInf = -__builtin_huge_valf();
+constexpr float kLn2 = 0.6931471805599453f;
 
 // named barrier id (0 is __syncthreads' own) over COUNT threads: wait, or
 // arrive without waiting
@@ -312,6 +321,12 @@ __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(~0u, x, 1));
   return fmaxf(x, __shfl_xor_sync(~0u, x, 2));
 }
+// the row's log-sum-exp of the scaled, masked scores in natural-log
+// units, from m (log2 units) and the quad's l
+__device__ __forceinline__ float row_lse(float m, float l_safe) {
+  return (m + log2f(l_safe)) * kLn2;
+}
+
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(~0u, x, 1);
   return x + __shfl_xor_sync(~0u, x, 2);
@@ -445,7 +460,7 @@ __global__ void __launch_bounds__(TC_THREADS, 2)
                             const bf16* __restrict__ k,
                             const bf16* __restrict__ v, bf16* __restrict__ o,
                             int S, int H, int Hkv, int D, float scale_log2,
-                            int causal, int window) {
+                            int causal, int window, float* __restrict__ lse) {
   using L = TcSmem<NCH>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sq =
@@ -601,6 +616,10 @@ __global__ void __launch_bounds__(TC_THREADS, 2)
     const int row = row0 + 8 * hh;
     const float l_safe = fmaxf(quad_sum(l[hh]), 1e-30f);
     if (row >= S) continue;
+    if (lse != nullptr && col0 == 0) {
+      lse[(static_cast<int64_t>(b) * H + h) * S + row] =
+          row_lse(m[hh], l_safe);
+    }
     bf16* out = o + base + static_cast<int64_t>(row) * rs;
 #pragma unroll
     for (int c = 0; c < NCH; ++c) {
@@ -654,7 +673,7 @@ constexpr int kProducerRegs = 24, kConsumerRegs = 240;
 // holds S and O in the accumulator layout of the D <= 128 kernel: element
 // 4 j + 2 h + i at row 16 (t / 32) + (t % 32) / 4 + 8 h, column 8 j +
 // 2 (t % 4) + i.
-template <bool VEC, bool WIN>
+template <bool VEC, bool WIN, bool LSE>
 __global__ void __launch_bounds__(WS_THREADS, 1)
     flash_attn_wgmma_d256_kernel(const __grid_constant__ CUtensorMap tq,
                                  const __grid_constant__ CUtensorMap tk,
@@ -664,7 +683,8 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
                                  const bf16* __restrict__ v,
                                  bf16* __restrict__ o, int S, int H, int Hkv,
                                  int D, float scale_log2, int causal,
-                                 int window, int pair) {
+                                 int window, int pair,
+                                 float* __restrict__ lse) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm =
       smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023);
@@ -918,6 +938,10 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
       const int row = row0 + 8 * hh;
       const float l_safe = fmaxf(quad_sum(l[hh]), 1e-30f);
       if (row >= S) continue;
+      if (LSE && col0 == 0) {
+        lse[(static_cast<int64_t>(b) * H + hc) * S + row] =
+            row_lse(m[hh], l_safe);
+      }
       bf16* out =
           o + ((static_cast<int64_t>(b) * S + row) * H + hc) * D;
 #pragma unroll
@@ -1253,7 +1277,8 @@ __global__ void __launch_bounds__(F_THREADS, 1)
                            const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ o,
                            int S, int H, int Hkv, int D, float scale_log2,
-                           int causal, int window, int vec) {
+                           int causal, int window, int vec,
+                           float* __restrict__ lse) {
   using L = F32Smem<NCH>;
   constexpr int DN = 32 * NCH;       // O's columns: D zero-filled to DN
   extern __shared__ uint8_t smem_raw[];
@@ -1435,6 +1460,10 @@ __global__ void __launch_bounds__(F_THREADS, 1)
     const int row = row0 + 8 * hh;
     const float l_safe = fmaxf(quad_sum(l[hh]), 1e-30f);
     if (row >= S) continue;
+    if (lse != nullptr && col0 == 0) {
+      lse[(static_cast<int64_t>(b) * H + h) * S + row] =
+          row_lse(m[hh], l_safe);
+    }
     float* out = o + base + static_cast<int64_t>(row) * rs;
 #pragma unroll
     for (int jb = 0; jb < DN / 8; ++jb) {
@@ -1480,14 +1509,15 @@ struct F2Smem {
 // float32 rows: a0 (r, 8 ks + q), a1 (r + 8, 8 ks + q), a2 (r, 8 ks + q +
 // 4), a3 (r + 8, 8 ks + q + 4) with r = 16 (t / 32) + (t % 32) / 4, q = t
 // % 4, then split into hi and lo.
-template <bool WIN>
+template <bool WIN, bool LSE>
 __global__ void __launch_bounds__(F2_THREADS, 1)
     flash_attn_tf32_d256_kernel(const float* __restrict__ q,
                                 const float* __restrict__ k,
                                 const float* __restrict__ v,
                                 float* __restrict__ o, int S, int H, int Hkv,
                                 int D, float scale_log2, int causal,
-                                int window, int vec) {
+                                int window, int vec,
+                                float* __restrict__ lse) {
   using L = F2Smem;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* kt_s =
@@ -1700,6 +1730,10 @@ __global__ void __launch_bounds__(F2_THREADS, 1)
     const int row = row0 + 8 * hh;
     const float l_safe = fmaxf(quad_sum(l[hh]), 1e-30f);
     if (row >= S) continue;
+    if (LSE && col0 == 0) {
+      lse[(static_cast<int64_t>(b) * H + h) * S + row] =
+          row_lse(m[hh], l_safe);
+    }
     float* out = o + base + static_cast<int64_t>(row) * rs;
 #pragma unroll
     for (int jb = 0; jb < 32; ++jb) {
@@ -1775,7 +1809,7 @@ bool bf16_tile_map(CUtensorMap* map, const void* t, int B, int S, int heads,
 template <int NCH, bool WIN>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
                int S, int H, int Hkv, int D, float scale, int causal,
-               int window, int vec, cudaStream_t st) {
+               int window, int vec, float* lse, cudaStream_t st) {
   auto kernel = flash_attn_tf32_kernel<NCH, WIN>;
   constexpr int smem = F32Smem<NCH>::kBytes;
   static bool configured = false;
@@ -1785,15 +1819,20 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
   kernel<<<grid, F_THREADS, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), S, H, Hkv, D,
-      scale * kLog2e, causal, window, vec);
+      scale * kLog2e, causal, window, vec, lse);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool WIN>
-int launch_f32_d256(const void* q, const void* k, const void* v, void* o,
-                    int B, int S, int H, int Hkv, int D, float scale,
-                    int causal, int window, int vec, cudaStream_t st) {
-  auto kernel = flash_attn_tf32_d256_kernel<WIN>;
+// The D 256 kernels take the lse output as a template parameter: a
+// runtime branch in their epilogues cost them 2-5 % with lse null (the
+// warp-specialised consumers run at their register limits); the D <= 128
+// kernels showed no cost and branch on the pointer
+template <bool WIN, bool LSE>
+int launch_f32_d256_impl(const void* q, const void* k, const void* v,
+                         void* o, int B, int S, int H, int Hkv, int D,
+                         float scale, int causal, int window, int vec,
+                         float* lse, cudaStream_t st) {
+  auto kernel = flash_attn_tf32_d256_kernel<WIN, LSE>;
   constexpr int smem = F2Smem::kBytes;
   static bool configured = false;
   const cudaError_t err = allow_smem(kernel, smem, configured);
@@ -1802,14 +1841,27 @@ int launch_f32_d256(const void* q, const void* k, const void* v, void* o,
   kernel<<<grid, F2_THREADS, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), S, H, Hkv, D,
-      scale * kLog2e, causal, window, vec);
+      scale * kLog2e, causal, window, vec, lse);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool WIN>
+int launch_f32_d256(const void* q, const void* k, const void* v, void* o,
+                    int B, int S, int H, int Hkv, int D, float scale,
+                    int causal, int window, int vec, float* lse,
+                    cudaStream_t st) {
+  return lse ? launch_f32_d256_impl<WIN, true>(q, k, v, o, B, S, H, Hkv, D,
+                                               scale, causal, window, vec,
+                                               lse, st)
+             : launch_f32_d256_impl<WIN, false>(q, k, v, o, B, S, H, Hkv, D,
+                                                scale, causal, window, vec,
+                                                lse, st);
 }
 
 template <int NCH, bool VEC, bool WIN>
 int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
               int S, int H, int Hkv, int D, float scale, int causal,
-              int window, cudaStream_t st) {
+              int window, float* lse, cudaStream_t st) {
   auto kernel = flash_attn_wgmma_kernel<NCH, VEC, WIN>;
   constexpr int smem = TcSmem<NCH>::kBytes;
   static bool configured = false;
@@ -1819,17 +1871,17 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
   kernel<<<grid, TC_THREADS, smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), S, H, Hkv, D,
-      scale * kLog2e, causal, window);
+      scale * kLog2e, causal, window, lse);
   return static_cast<int>(cudaGetLastError());
 }
 
 // G = H / H_kv even: a block takes 64 rows of a head pair, else 128 rows of
 // one head
-template <bool VEC, bool WIN>
-int launch_d256(const void* q, const void* k, const void* v, void* o, int B,
-                int S, int H, int Hkv, int D, float scale, int causal,
-                int window, cudaStream_t st) {
-  auto kernel = flash_attn_wgmma_d256_kernel<VEC, WIN>;
+template <bool VEC, bool WIN, bool LSE>
+int launch_d256_impl(const void* q, const void* k, const void* v, void* o,
+                     int B, int S, int H, int Hkv, int D, float scale,
+                     int causal, int window, float* lse, cudaStream_t st) {
+  auto kernel = flash_attn_wgmma_d256_kernel<VEC, WIN, LSE>;
   static bool configured = false;
   const cudaError_t err = allow_smem(kernel, kWsBytes, configured);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1846,8 +1898,20 @@ int launch_d256(const void* q, const void* k, const void* v, void* o, int B,
       maps[0], maps[1], maps[2], static_cast<const bf16*>(q),
       static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(o), S, H, Hkv, D, scale * kLog2e, causal, window,
-      pair);
+      pair, lse);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool VEC, bool WIN>
+int launch_d256(const void* q, const void* k, const void* v, void* o, int B,
+                int S, int H, int Hkv, int D, float scale, int causal,
+                int window, float* lse, cudaStream_t st) {
+  return lse ? launch_d256_impl<VEC, WIN, true>(q, k, v, o, B, S, H, Hkv, D,
+                                                scale, causal, window, lse,
+                                                st)
+             : launch_d256_impl<VEC, WIN, false>(q, k, v, o, B, S, H, Hkv, D,
+                                                 scale, causal, window, lse,
+                                                 st);
 }
 
 }  // namespace
@@ -1856,12 +1920,16 @@ int launch_d256(const void* q, const void* k, const void* v, void* o, int B,
 // 256; window > 0: query i sees keys j > i - window only; bf16 != 0
 // selects bfloat16, else float32.  Routes by dtype and D: bfloat16
 // flash_attn_wgmma_kernel (D <= 128) or flash_attn_wgmma_d256_kernel,
-// float32 flash_attn_tf32_kernel (D <= 128) or flash_attn_tf32_d256_kernel
+// float32 flash_attn_tf32_kernel (D <= 128) or flash_attn_tf32_d256_kernel.
+// lse_out, where not null, takes each row's float32 log-sum-exp of its
+// scaled, masked scores, (B, H, S), natural log (the backward's input);
+// null leaves every kernel as it runs for serving
 extern "C" int repro_flash_attn(const void* q, const void* k, const void* v,
                                 void* o, int32_t B, int32_t S, int32_t H,
                                 int32_t Hkv, int32_t D, float scale,
                                 int32_t causal, int32_t window, int32_t bf16,
-                                void* stream) {
+                                void* lse_out, void* stream) {
+  float* lse = static_cast<float*>(lse_out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool aligned = ((reinterpret_cast<uintptr_t>(q) |
                          reinterpret_cast<uintptr_t>(k) |
@@ -1874,54 +1942,54 @@ extern "C" int repro_flash_attn(const void* q, const void* k, const void* v,
     const int vec = D % 4 == 0 && aligned;
     if (D > 128) {
       return win ? launch_f32_d256<true>(q, k, v, o, B, S, H, Hkv, D, scale,
-                                         causal, window, vec, st)
+                                         causal, window, vec, lse, st)
                  : launch_f32_d256<false>(q, k, v, o, B, S, H, Hkv, D, scale,
-                                          causal, window, vec, st);
+                                          causal, window, vec, lse, st);
     }
     if (D <= 64) {
       return win ? launch_f32<2, true>(q, k, v, o, B, S, H, Hkv, D, scale,
-                                       causal, window, vec, st)
+                                       causal, window, vec, lse, st)
                  : launch_f32<2, false>(q, k, v, o, B, S, H, Hkv, D, scale,
-                                        causal, window, vec, st);
+                                        causal, window, vec, lse, st);
     }
     return win ? launch_f32<4, true>(q, k, v, o, B, S, H, Hkv, D, scale,
-                                     causal, window, vec, st)
+                                     causal, window, vec, lse, st)
                : launch_f32<4, false>(q, k, v, o, B, S, H, Hkv, D, scale,
-                                      causal, window, vec, st);
+                                      causal, window, vec, lse, st);
   }
   const bool vec = D % 8 == 0 && aligned;
   if (D > 128) {
     if (vec) {
       return win ? launch_d256<true, true>(q, k, v, o, B, S, H, Hkv, D, scale,
-                                           causal, window, st)
+                                           causal, window, lse, st)
                  : launch_d256<true, false>(q, k, v, o, B, S, H, Hkv, D,
-                                            scale, causal, window, st);
+                                            scale, causal, window, lse, st);
     }
     return win ? launch_d256<false, true>(q, k, v, o, B, S, H, Hkv, D, scale,
-                                          causal, window, st)
+                                          causal, window, lse, st)
                : launch_d256<false, false>(q, k, v, o, B, S, H, Hkv, D, scale,
-                                           causal, window, st);
+                                           causal, window, lse, st);
   }
   if (D <= 64) {
     if (vec) {
       return win ? launch_tc<1, true, true>(q, k, v, o, B, S, H, Hkv, D,
-                                            scale, causal, window, st)
+                                            scale, causal, window, lse, st)
                  : launch_tc<1, true, false>(q, k, v, o, B, S, H, Hkv, D,
-                                             scale, causal, window, st);
+                                             scale, causal, window, lse, st);
     }
     return win ? launch_tc<1, false, true>(q, k, v, o, B, S, H, Hkv, D, scale,
-                                           causal, window, st)
+                                           causal, window, lse, st)
                : launch_tc<1, false, false>(q, k, v, o, B, S, H, Hkv, D,
-                                            scale, causal, window, st);
+                                            scale, causal, window, lse, st);
   }
   if (vec) {
     return win ? launch_tc<2, true, true>(q, k, v, o, B, S, H, Hkv, D, scale,
-                                          causal, window, st)
+                                          causal, window, lse, st)
                : launch_tc<2, true, false>(q, k, v, o, B, S, H, Hkv, D, scale,
-                                           causal, window, st);
+                                           causal, window, lse, st);
   }
   return win ? launch_tc<2, false, true>(q, k, v, o, B, S, H, Hkv, D, scale,
-                                         causal, window, st)
+                                         causal, window, lse, st)
              : launch_tc<2, false, false>(q, k, v, o, B, S, H, Hkv, D, scale,
-                                          causal, window, st);
+                                          causal, window, lse, st);
 }

@@ -10,7 +10,8 @@ from __future__ import annotations
 from repro_torch.kernels.event_gather.ops import (compact_lanes,
                                                   event_link_loads)
 from repro_torch.kernels.explog.ops import fx_exp, fx_log
-from repro_torch.kernels.flash_attn.ops import flash_attention_kernel
+from repro_torch.kernels.flash_attn.ops import (flash_attention_bwd,
+                                                flash_attention_kernel)
 from repro_torch.kernels.lif.ops import lif_step
 from repro_torch.kernels.linear_scan.ops import linear_scan
 from repro_torch.kernels.link_load.ops import link_loads_csc, noc_link_loads
@@ -25,6 +26,7 @@ WRAPPERS = {"fx_exp": fx_exp, "lif_step": lif_step,
             "event_link_loads": event_link_loads, "mac_gemm": mac_gemm,
             "fx_log": fx_log, "mac_conv2d": mac_conv2d,
             "flash_attention_kernel": flash_attention_kernel,
+            "flash_attention_bwd": flash_attention_bwd,
             "compact_lanes": compact_lanes, "linear_scan": linear_scan,
             "wkv6": wkv6}
 

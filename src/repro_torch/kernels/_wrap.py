@@ -25,6 +25,16 @@ def on_cpu(name: str, *tensors: torch.Tensor) -> bool:
     return False
 
 
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise for a CUDA call that autograd would have to differentiate:
+    the kernel has no backward yet, and its output would carry no
+    gradient to its inputs."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name}: the CUDA kernel has no backward yet (ROADMAP queue "
+            f"A, slice 17); train on the CPU or call it without grad")
+
+
 def expect_dtype(name: str, dtype: torch.dtype, **tensors) -> None:
     for arg, t in tensors.items():
         if t.dtype != dtype:

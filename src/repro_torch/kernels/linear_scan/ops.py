@@ -8,7 +8,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._wrap import expect_dtype, on_cpu
+from repro_torch.kernels._wrap import expect_dtype, on_cpu, refuse_grad
 from repro_torch.kernels.linear_scan.ref import linear_scan_ref
 
 _ARGS = (ctypes.c_void_p,) * 7 + (ctypes.c_int32,) * 3 + (ctypes.c_void_p,)
@@ -34,6 +34,7 @@ def linear_scan(xi, xa, u, lam, h0):
                          f"{tuple(h0.shape)} for u {tuple(u.shape)}")
     if on_cpu("linear_scan", xi, xa, u, lam, h0):
         return linear_scan_ref(xi, xa, u, lam, h0)
+    refuse_grad("linear_scan", xi, xa, u, lam, h0)
     if B > _MAX_BATCH:
         raise ValueError(f"linear_scan: batch {B} > {_MAX_BATCH}")
     y = torch.empty_like(u)

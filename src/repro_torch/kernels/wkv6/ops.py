@@ -16,7 +16,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._wrap import expect_dtype, on_cpu
+from repro_torch.kernels._wrap import expect_dtype, on_cpu, refuse_grad
 from repro_torch.kernels.wkv6.ref import wkv6_ref
 
 _ARGS = (ctypes.c_void_p,) * 8 + (ctypes.c_int32,) * 5 + (ctypes.c_void_p,)
@@ -50,6 +50,7 @@ def wkv6(r, k, v, lw, u, state0):
                          f"{tuple(state0.shape)} for r {tuple(r.shape)}")
     if on_cpu("wkv6", r, k, v, lw, u, state0):
         return wkv6_ref(r, k, v, lw, u, state0)
+    refuse_grad("wkv6", r, k, v, lw, u, state0)
     if D not in HEAD_SIZES:
         raise ValueError(f"wkv6: head size {D} not one of {HEAD_SIZES}")
     y = torch.empty(r.shape, dtype=torch.float32, device=r.device)

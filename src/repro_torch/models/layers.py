@@ -8,10 +8,12 @@ or the ``nn.Module`` of ``models.transformer``, which is indexed the same
 way.
 
 All matmuls run in the activation dtype (bf16 by default) with float32
-accumulation; norms, softmax and rope run in float32.  Prefill attention
-is ``kernels.flash_attention_kernel`` (causal, with the sliding window of
-a ``"local"`` layer): the hand-written kernel on a CUDA tensor, its plain
-version on a CPU tensor.  Decode attention over the cache is
+accumulation; norms, softmax and rope run in float32.  Every
+full-sequence attention, a prefill's and a training forward's alike, is
+``kernels.flash_attention_kernel`` (causal, with the sliding window of a
+``"local"`` layer): the hand-written kernel on a CUDA tensor, its plain
+version on a CPU tensor; under grad its backward is
+``kernels.flash_attention_bwd``.  Decode attention over the cache is
 ``attention_dense``, as in the reference; a local layer's cache is a ring
 of ``window_size`` slots once the sequence can outgrow it.
 """
@@ -203,7 +205,8 @@ def attention_dense(q, k, v, qpos, kpos, *, window=0, kv_len=None):
 
 def attention_prefill(q, k, v, window=0):
     """Causal full-sequence attention through the flash kernel, banded to
-    ``window`` keys when it is set.
+    ``window`` keys when it is set; differentiable in q, k and v (the
+    reshapes below carry the gradients to the kernel's backward).
 
     q: (B,S,KH,G,D), k,v: (B,S,KH,D) -> (B,S,KH,G,D).  Query head
     ``h = kh*G + g`` meets KV head ``kh`` (the reference's

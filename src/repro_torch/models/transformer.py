@@ -17,18 +17,27 @@ points keep their names as module-level functions over it:
 ``prefill`` (last-position logits and the caches; attention through the
 flash kernel, the recurrences through the linear_scan and wkv6 kernels)
 and ``decode_step`` (one token or frame against the caches: an attention
-layer's k and v, a recurrent layer's state, O(1) in the sequence).
+layer's k and v, a recurrent layer's state, O(1) in the sequence), and
+for training ``train_loss`` (teacher forcing, the chunked cross-entropy
+``chunked_ce``, the MoE's auxiliary losses) with ``remat`` "none", "full"
+(each layer checkpointed) or "dots" (only matmul outputs kept).
 Inputs are ``{"tokens": (B, S)}`` or, for the encodec frontend
 (MusicGen), ``{"frames": (B, S, d_model)}`` (precomputed frame
 embeddings, as the reference's stub); several codebooks give (B, S, K, V)
-logits.  Layers run in a Python loop; there is no mesh and no
-rematerialisation on one card.
+logits.  Layers run in a Python loop; there is no mesh on one card.
+A model's floating leaves take gradients once the trainer calls
+``requires_grad_(True)`` on it (or it is built with ``requires_grad=True``);
+serving builds it without and runs under ``torch.inference_mode()``.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import resolve_device
 from repro_torch.models import layers as L
@@ -90,9 +99,13 @@ def model_pspecs(cfg):
     return p
 
 
-def _params(tree: dict) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
-                             for k, v in tree.items()})
+def _params(tree: dict, requires_grad=False) -> nn.ParameterDict:
+    """The leaves as parameters; only floating leaves can take
+    gradients."""
+    return nn.ParameterDict({
+        k: nn.Parameter(v, requires_grad=requires_grad
+                        and v.is_floating_point())
+        for k, v in tree.items()})
 
 
 class Block(nn.ModuleDict):
@@ -100,21 +113,23 @@ class Block(nn.ModuleDict):
     MoE's ``router`` and (E, ...) expert weights); a recurrent layer's
     ``rec`` (RG-LRU) or ``tmix`` and ``cmix`` (RWKV-6) in their place."""
 
-    def __init__(self, tree: dict):
-        super().__init__({k: _params(v) for k, v in tree.items()})
+    def __init__(self, tree: dict, requires_grad=False):
+        super().__init__({k: _params(v, requires_grad)
+                          for k, v in tree.items()})
 
 
 class Transformer(nn.ModuleDict):
     """The model's parameters under the reference's keys; ``forward``
     is the full-sequence forward to logits."""
 
-    def __init__(self, cfg, tree: dict):
+    def __init__(self, cfg, tree: dict, requires_grad=False):
         check_supported(cfg)
+        rg = requires_grad
         super().__init__({
-            "embed": _params(tree["embed"]),
-            "final_norm": _params(tree["final_norm"]),
-            **({"ln0": _params(tree["ln0"])} if "ln0" in tree else {}),
-            "blocks": nn.ModuleList(Block(b) for b in tree["blocks"])})
+            "embed": _params(tree["embed"], rg),
+            "final_norm": _params(tree["final_norm"], rg),
+            **({"ln0": _params(tree["ln0"], rg)} if "ln0" in tree else {}),
+            "blocks": nn.ModuleList(Block(b, rg) for b in tree["blocks"])})
         if len(self["blocks"]) != cfg.num_layers:
             raise ValueError(f"{cfg.name}: {len(self['blocks'])} blocks for "
                              f"{cfg.num_layers} layers")
@@ -131,17 +146,19 @@ class Transformer(nn.ModuleDict):
 
 
 def init_params(cfg, generator: torch.Generator | None = None, *,
-                dtype=torch.float32, device=None, seed: int = 0):
+                dtype=torch.float32, device=None, seed: int = 0,
+                requires_grad=False):
     """A ``Transformer`` with the reference's initialisation scheme drawn
     leaf by leaf on ``device`` from ``generator`` (None: a generator on
-    that device seeded with ``seed``), stored in ``dtype``."""
+    that device seeded with ``seed``), stored in ``dtype``; its floating
+    leaves require grad with ``requires_grad``."""
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(seed)
     depth_scale = 1.0 / np.sqrt(2.0 * max(cfg.num_layers, 1))
     tree = L.init_params(model_pspecs(cfg), generator, depth_scale,
                          dtype=dtype, device=device)
-    return Transformer(cfg, tree)
+    return Transformer(cfg, tree, requires_grad)
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -152,7 +169,8 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def params_from_numpy(cfg, tree: dict, device=None) -> Transformer:
+def params_from_numpy(cfg, tree: dict, device=None,
+                      requires_grad=False) -> Transformer:
     """A ``Transformer`` holding the reference's parameter tree (numpy
     arrays, any float dtype, bfloat16 included), dtype kept: the scanned
     ``blocks`` (one stack per pattern position, layers along the leading
@@ -174,7 +192,8 @@ def params_from_numpy(cfg, tree: dict, device=None) -> Transformer:
             blocks.append(tree["rem_blocks"][layer - groups * plen])
     top = {k: conv(tree[k]) for k in ("embed", "final_norm", "ln0")
            if k in tree}
-    return Transformer(cfg, {**top, "blocks": [conv(b) for b in blocks]})
+    return Transformer(cfg, {**top, "blocks": [conv(b) for b in blocks]},
+                       requires_grad)
 
 
 # ---------------------------------------------------------------------------
@@ -312,11 +331,42 @@ def embed_input(cfg, params, batch, qpos, dtype=torch.bfloat16):
     return x
 
 
+# aten ops whose outputs remat="dots" keeps (the reference's
+# checkpoint_dots: matmuls and einsums, which lower to these)
+_DOTS = frozenset((torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                   torch.ops.aten.addmm.default,
+                   torch.ops.aten.baddbmm.default))
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, remat: str):
+    """``fn`` as the layer loop runs it: as it is ("none"), recomputed in
+    the backward ("full", nothing kept), or recomputed but for its matmul
+    outputs ("dots")."""
+    if remat == "none":
+        return fn
+    if remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _dots_policy))
+    raise ValueError(f"remat {remat!r}: 'none', 'full' or 'dots'")
+
+
 def forward_hidden(cfg, params, x, qpos, *, caches=None, kv_len=None,
-                   build_cache_len=None, moe_dense=False, aux=True):
+                   build_cache_len=None, moe_dense=False, aux=True,
+                   remat="none"):
     """Run all layers.  Returns (hidden, new_caches, aux): ``aux`` holds
     the MoE layers' summed ``lb_loss`` and ``z_loss``, float32 scalars
-    (zeros for a dense model; None with ``aux=False``, which skips them)."""
+    (zeros for a dense model; None with ``aux=False``, which skips them).
+    ``remat`` ("none", "full", "dots") checkpoints each layer for the
+    backward (``torch.utils.checkpoint``, non-reentrant)."""
     keep = caches is not None or build_cache_len is not None
     kinds = layer_kinds(cfg)
     new_caches = []
@@ -324,8 +374,9 @@ def forward_hidden(cfg, params, x, qpos, *, caches=None, kv_len=None,
     if aux:
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
         total = {"lb_loss": zero, "z_loss": zero}
+    layer = _remat(block_apply, remat)
     for i, bp in enumerate(params["blocks"]):
-        x, nc, losses = block_apply(
+        x, nc, losses = layer(
             cfg, kinds[i], bp, x, qpos,
             cache=caches[i] if caches is not None else None, kv_len=kv_len,
             build_cache_len=build_cache_len, moe_dense=moe_dense, aux=aux)
@@ -343,6 +394,72 @@ def logits_fn(cfg, params, hidden):
     if cfg.num_codebooks > 1:
         return torch.einsum("bsd,kdv->bskv", hidden, head)
     return hidden @ head
+
+
+# ---------------------------------------------------------------------------
+# Losses (chunked over the sequence)
+# ---------------------------------------------------------------------------
+
+def _ce_chunk(cfg, head, h, labels):
+    """h: (B, C, d); labels: (B, C) or (B, C, K).  Returns (summed CE,
+    summed squared log-sum-exp), float32; the head cast to h's dtype
+    inside, so each chunk's gradient reaches the float32 head in float32."""
+    head = head.to(h.dtype)
+    if cfg.num_codebooks > 1:
+        logits = torch.einsum("bcd,kdv->bckv", h, head)
+    else:
+        logits = h @ head
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.sum(lse - ll), torch.sum(torch.square(lse))
+
+
+def chunked_ce(cfg, params, hidden, labels, ce_chunk=512):
+    """Mean cross-entropy and mean squared log-sum-exp (the z-loss of the
+    logits) over chunks of ``ce_chunk`` positions (the largest divisor of
+    S not above it), each chunk checkpointed so that the (B, S, V) logits
+    never exist whole: a chunk's logits are recomputed in the backward."""
+    B, S, _ = hidden.shape
+    C = min(ce_chunk, S)
+    while S % C:
+        C -= 1
+    head = L.head_matrix(cfg, params["embed"])
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    zsq = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, S, C):
+        ce, z = checkpoint(_ce_chunk, cfg, head, hidden[:, c0:c0 + C],
+                           labels[:, c0:c0 + C], use_reentrant=False)
+        tot, zsq = tot + ce, zsq + z
+    denom = float(B * S * (cfg.num_codebooks if labels.dim() == 3 else 1))
+    return tot / denom, zsq / denom
+
+
+def train_loss(cfg, params, batch, *, moe_dense=False, remat="full",
+               ce_chunk=512, lb_coef=0.01, z_coef=1e-4,
+               dtype=torch.bfloat16):
+    """Teacher-forced loss of ``batch``: {"tokens": (B, S + 1)} (inputs
+    tokens[:, :-1], labels tokens[:, 1:]) or {"frames": (B, S, d),
+    "labels": (B, S, K)}.  loss = ce + lb_coef lb_loss + z_coef (z_loss +
+    the logits' z-loss), the reference's; returns (loss, {"loss", "ce",
+    "lb_loss", "z_loss"}).  Activations in ``dtype`` (the reference's
+    bf16).  The reference's ``train_gather_bf16`` (a cast ahead of an
+    FSDP gather) has no counterpart on one card; no config sets it."""
+    if "frames" in batch:
+        inputs = {"frames": batch["frames"]}
+        labels = batch["labels"]
+    else:
+        # int64 indices: the embedding's backward scatters by them
+        inputs = {"tokens": batch["tokens"][:, :-1].long()}
+        labels = batch["tokens"][:, 1:]
+    qpos = torch.arange(seq_len(inputs), device=batch_device(inputs))
+    x = embed_input(cfg, params, inputs, qpos, dtype)
+    hidden, _, aux = forward_hidden(cfg, params, x, qpos,
+                                    moe_dense=moe_dense, remat=remat)
+    ce, z_ce = chunked_ce(cfg, params, hidden, labels, ce_chunk)
+    loss = ce + lb_coef * aux["lb_loss"] + z_coef * (aux["z_loss"] + z_ce)
+    return loss, {"loss": loss, "ce": ce, "lb_loss": aux["lb_loss"],
+                  "z_loss": aux["z_loss"] + z_ce}
 
 
 # ---------------------------------------------------------------------------

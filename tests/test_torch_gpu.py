@@ -19,7 +19,7 @@ from repro_torch.chip.workloads import (adaptive_control_workload,
                                         hybrid_workload, stdp_pair_workload,
                                         synfire_graph)
 from repro_torch.kernels import (compact_lanes, event_link_loads,
-                                 flash_attention_kernel,
+                                 flash_attention_bwd, flash_attention_kernel,
                                  fx_exp, fx_log, launch_counts, lif_step,
                                  linear_scan, link_loads_csc, mac_conv2d,
                                  mac_gemm, noc_link_loads,
@@ -29,7 +29,9 @@ from repro_torch.kernels.event_gather.ref import (compact_lanes_ref,
                                                   event_link_loads_ref)
 from repro_torch.kernels.explog.ops import exp_table, fx_exp_launch
 from repro_torch.kernels.explog.ref import FX_ONE, LN2, fx_exp_ref, fx_log_ref
-from repro_torch.kernels.flash_attn.ref import flash_attention_ref
+from repro_torch.kernels.flash_attn.ops import _forward as flash_forward
+from repro_torch.kernels.flash_attn.ref import (flash_attention_bwd_ref,
+                                                flash_attention_ref)
 from repro_torch.kernels.lif.ref import lif_step_ref
 from repro_torch.kernels.linear_scan.ref import linear_scan_ref
 from repro_torch.kernels.link_load.ref import (link_loads_csc_ref,
@@ -1220,3 +1222,172 @@ def test_optimize_routes_on_the_card_matches_the_cpu(cuda):
             for r in a.trajectory] == \
         [{k: v for k, v in r.items() if k not in drop} for r in b.trajectory]
     assert a.route == b.route
+
+
+# ------------------------------------------------ flash attention backward
+
+# chip_smoke.py's flash_attention_bwd rows: (B, S, H, H_kv, D), dtype,
+# window; the backward's limit, of each gradient's largest magnitude
+# (bf16: P and dS are rounded to bf16 for their products; float32: 3xTF32)
+BWD_ROWS = {"bwd-b": ((1, 4096, 20, 20, 128), torch.bfloat16, 0),
+            "bwd-g": ((1, 4096, 32, 2, 128), torch.bfloat16, 0),
+            "bwd-w": ((1, 4096, 32, 16, 128), torch.bfloat16, 1024),
+            "bwd-m": ((1, 4096, 32, 32, 64), torch.bfloat16, 0),
+            "bwd-f": ((1, 1024, 20, 20, 128), torch.float32, 0)}
+BWD_TOL = {torch.bfloat16: 2.0 ** -6, torch.float32: 2.0 ** -14}
+
+
+def _bwd_case(cuda, shape, dtype, causal, window, seed):
+    """Inputs on the card, the kernels' gradients and the plain
+    version's (on the card), with the forward's own output and lse."""
+    B, S, H, Hkv, D = shape
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    rnd = lambda h: torch.randn(B, S, h, D, generator=gen,
+                                device=cuda).to(dtype)
+    q, k, v, do = rnd(H), rnd(Hkv), rnd(Hkv), rnd(H)
+    o, lse = flash_forward(q, k, v, causal, window, True)
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                              window=window)
+    want = flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                   window=window)
+    return got, want
+
+
+def _assert_bwd_close(got, want, dtype):
+    """Each gradient within BWD_TOL of the larger of its own largest
+    magnitude and dV's.  dQ and dK vanish where every query meets one key
+    (S 1, window 1: P is one-hot and dP - delta is 0 in exact
+    arithmetic); there both versions give the float32 rounding of that
+    cancellation, at the scale of the products, which dV (P^T dO)
+    carries."""
+    scale = float(want[2].float().abs().max())
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == w.dtype == dtype and g.shape == w.shape
+        assert bool(torch.isfinite(g).all()), name
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= BWD_TOL[dtype] * max(float(w.float().abs().max()),
+                                           scale), (name, err)
+
+
+@pytest.mark.parametrize("row", sorted(BWD_ROWS))
+def test_flash_attention_bwd_kernel_rows(cuda, row):
+    shape, dtype, window = BWD_ROWS[row]
+    got, want = _bwd_case(cuda, shape, dtype, True, window, 0)
+    _assert_bwd_close(got, want, dtype)
+
+
+# S across the 64-row tiles (1, one short, one over, ragged), windows from
+# the diagonal alone to past S, G 1-4, D padded to 64 or 128 (8 and 40:
+# plain loads, not multiples of 16 bytes in float32), causal and full
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 1),
+                                           (True, 64), (True, 100),
+                                           (False, 33)])
+@pytest.mark.parametrize("h,hkv", [(2, 2), (4, 2), (4, 1)])
+@pytest.mark.parametrize("s,d", [(1, 64), (63, 128), (65, 40), (200, 8),
+                                 (1000, 128)])
+def test_flash_attention_bwd_kernel_sweep(cuda, s, d, h, hkv, causal,
+                                          window, dtype):
+    got, want = _bwd_case(cuda, (2, s, h, hkv, d), dtype, causal, window,
+                          s + d + h + window)
+    _assert_bwd_close(got, want, dtype)
+
+
+def test_flash_attention_bwd_is_bitwise_reproducible(cuda):
+    """No atomics: two calls give the same bits."""
+    a, _ = _bwd_case(cuda, (1, 700, 8, 2, 128), torch.bfloat16, True, 0, 3)
+    b, _ = _bwd_case(cuda, (1, 700, 8, 2, 128), torch.bfloat16, True, 0, 3)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d,window", [(64, 0), (128, 100), (200, 0),
+                                      (256, 2048)])
+@pytest.mark.parametrize("s", [1, 129, 1000])
+def test_flash_attention_lse_output(cuda, s, d, window, dtype):
+    """Every forward route writes the log-sum-exp of the plain version,
+    and its output is bit for bit the call's without lse."""
+    gen = torch.Generator(device=cuda).manual_seed(s + d)
+    q = torch.randn(1, s, 4, d, generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn(1, s, 2, d, generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    o, lse = flash_forward(q, k, v, True, window, True)
+    assert torch.equal(o, flash_forward(q, k, v, True, window, False)[0])
+    ke, ve = _expand_kv(q, k, v)
+    fold = lambda t: t.transpose(1, 2).reshape(4, s, d)
+    _, want = flash_attention_ref(fold(q), fold(ke), fold(ve),
+                                  window=window, return_lse=True)
+    assert lse.shape == (1, 4, s) and lse.dtype == torch.float32
+    torch.testing.assert_close(lse.reshape(4, s), want, atol=1e-4,
+                               rtol=1e-5)
+
+
+def test_flash_backward_counts_its_launches(cuda):
+    """Autograd through flash_attention_kernel on the card: one forward
+    launch (with lse) and the backward's three kernels."""
+    q, k, v = (torch.randn(1, 100, 4, 64, device=cuda,
+                           dtype=torch.bfloat16).requires_grad_()
+               for _ in range(3))
+    reset_launch_counts()
+    out = flash_attention_kernel(q, k, v)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["flash_attention_kernel"] == 1
+    assert counts["flash_attention_bwd"] == 3
+    assert all(t.grad is not None and bool(torch.isfinite(t.grad).all())
+               for t in (q, k, v))
+
+
+def test_cuda_training_without_a_backward_kernel_raises(cuda):
+    """No fallback: head_dim 256 and the recurrent kernels refuse grad on
+    the card, and the launcher refuses the recurrent archs there."""
+    from repro_torch.launch import train as train_launcher
+    q = torch.ones(1, 8, 2, 256, device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="slice 17"):
+        flash_attention_kernel(q, q.detach(), q.detach())
+    with pytest.raises(NotImplementedError, match="slice 17"):
+        linear_scan(*[torch.ones(1, 3, 4, device=cuda,
+                                 requires_grad=True)] * 3,
+                    torch.ones(4, device=cuda), torch.ones(1, 4, device=cuda))
+    with pytest.raises(NotImplementedError, match="slice 17"):
+        wkv6(*[torch.ones(1, 3, 2, 64, device=cuda,
+                          requires_grad=True)] * 4,
+             torch.ones(2, 64, device=cuda),
+             torch.ones(1, 2, 64, 64, device=cuda))
+    with pytest.raises(SystemExit):
+        train_launcher.main(["--arch", "recurrentgemma-2b", "--smoke",
+                             "--steps", "1"])
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-4b", "olmoe-1b-7b", "gemma3-27b"])
+def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """Three steps of the smoke model in float32 on the card (flash and
+    its backward) and on the CPU (plain versions): losses and weights."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import (PipelineConfig,
+                                           SyntheticTokenPipeline)
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.step import make_train_step
+    cfg = configs.get_arch(arch).smoke()
+    runs = {}
+    for dev in ("cpu", cuda):
+        params = T.init_params(cfg, device="cpu", seed=0).to(dev)
+        params.requires_grad_(True)
+        opt = adamw_init(params)
+        pipe = SyntheticTokenPipeline(PipelineConfig(
+            vocab_size=cfg.vocab_size, seq_len=64, global_batch=4),
+            device=dev)
+        step = make_train_step(cfg, ce_chunk=32, dtype=torch.float32)
+        losses = []
+        for s in range(3):
+            params, opt, m = step(params, opt, pipe.batch(s), s)
+            losses.append(float(m["loss"]))
+        runs[str(dev)] = losses, {k: v.float().cpu() for k, v in
+                                  params.state_dict().items()}
+    (lc, pc), (lg, pg) = runs["cpu"], runs[str(cuda)]
+    np.testing.assert_allclose(lg, lc, rtol=1e-4)
+    for name, w in pc.items():
+        assert float((pg[name] - w).abs().max()) <= \
+            1e-3 * float(w.abs().max()), name

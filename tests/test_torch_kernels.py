@@ -30,6 +30,7 @@ from repro_torch.core import snn
 from repro_torch.core.dvfs import DVFSController
 from repro_torch.core.energy import PEEnergyModel
 from repro_torch.kernels import (compact_lanes, event_link_loads,
+                                 flash_attention_bwd,
                                  flash_attention_kernel, fx_exp, fx_log,
                                  launch_counts, lif_step, linear_scan,
                                  link_loads_csc, mac_conv2d, mac_gemm,
@@ -233,6 +234,8 @@ def test_plain_versions_do_not_count_launches():
     mac_conv2d(torch.ones(1, 3, 3, 2, dtype=torch.int8),
                torch.ones(2, 2, 2, 4, dtype=torch.uint8))
     flash_attention_kernel(*[torch.ones(1, 4, 2, 8)] * 3)
+    flash_attention_bwd(*[torch.ones(1, 4, 2, 8)] * 4,
+                        torch.zeros(1, 2, 4), torch.ones(1, 4, 2, 8))
     compact_lanes(torch.ones(5, dtype=torch.bool), 3)
     noc_link_loads(torch.ones(3), torch.ones(3),
                    torch.zeros(1, 4, dtype=torch.int32), n_links=4)
@@ -245,6 +248,7 @@ def test_plain_versions_do_not_count_launches():
                                "event_link_loads": 0, "mac_gemm": 0,
                                "fx_log": 0, "mac_conv2d": 0,
                                "flash_attention_kernel": 0,
+                               "flash_attention_bwd": 0,
                                "compact_lanes": 0, "linear_scan": 0,
                                "wkv6": 0}
 

@@ -66,7 +66,14 @@ def test_port_imports_without_jax():
             "repro_torch.kernels.linear_scan.ops",
             "repro_torch.kernels.linear_scan.ref",
             "repro_torch.kernels.wkv6", "repro_torch.kernels.wkv6.ops",
-            "repro_torch.kernels.wkv6.ref"} <= set(_port_modules())
+            "repro_torch.kernels.wkv6.ref", "repro_torch.optim",
+            "repro_torch.optim.adamw", "repro_torch.optim.compress",
+            "repro_torch.optim.schedule", "repro_torch.data",
+            "repro_torch.data.pipeline", "repro_torch.train",
+            "repro_torch.train.step", "repro_torch.ft",
+            "repro_torch.ft.loop", "repro_torch.launch.train",
+            "repro_torch.kernels.flash_attn.ops",
+            "repro_torch.kernels.flash_attn.ref"} <= set(_port_modules())
 
 
 def test_port_sources_do_not_name_the_reference():

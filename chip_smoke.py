@@ -306,8 +306,10 @@ farm, the DNN pipeline), and checks what comes out:
     element by element: 2^-8 (sum_k p_k |v_k| + |got|) + 2^-7 |want|, the
     kernel's bf16 p and the two outputs' roundings); each second shape
     is a kernel_check line of its own, nested in its kernel's entry of
-    the kernels line.  flash_attention_bwd's row (its three kernels,
-    ``ms`` a call) is held against ``flash_attention_bwd_ref`` at 2^-6
+    the kernels line.  flash_attention_bwd's row (the kernels of a call,
+    ``ms`` their sum; bf16 rows on the wgmma route, float32 on mma.sync,
+    each row with its route and the kernels the profiler saw launched)
+    is held against ``flash_attention_bwd_ref`` at 2^-6
     (bf16) and 2^-14 (float32) of each gradient's largest magnitude, on
     the arguments of the first flash backward (the last layer's) in
     lm_train's 1 x 4096 step (bwd-b) and, nested, GLM-4-9B's 32 over 2
@@ -714,7 +716,8 @@ KERNEL_SYMBOLS = {"lif_step": r"\blif_step_kernel\b",
                   "linear_scan": r"\blinear_scan_kernel\b",
                   "wkv6": r"\bwkv6(_chunked)?_kernel\b",
                   "flash_attention_bwd":
-                      r"\bflash_bwd_(delta|dkdv|dq)_kernel\b"}
+                      r"\bflash_bwd_(delta|prep|dkdv|dq|reduce)"
+                      r"(_wgmma)?_kernel\b"}
 PASS_SYMBOLS = {"mac_gemm": r"\bimma_pack_kernel\b",
                 "mac_conv2d": r"\bimma_pack_kernel\b"}
 # tensor-core SASS: wgmma is HGMMA (bf16, and TF32 as HGMMA.*TF32) /
@@ -727,7 +730,12 @@ TENSOR_CORE_KERNELS = {"flash_attn_wgmma_kernel": (8, "HGMMA"),
                        "flash_attn_tf32_kernel": (4, "HGMMA.TF32"),
                        "flash_attn_tf32_d256_kernel": (4, "HGMMA.TF32"),
                        "mac_gemm_kernel": (4, "IGMMA"),
-                       "mac_conv_igmma_kernel": (12, "IGMMA")}
+                       "mac_conv_igmma_kernel": (12, "IGMMA"),
+                       "flash_bwd_dkdv_wgmma_kernel": (4, "HGMMA"),
+                       "flash_bwd_dq_wgmma_kernel": (2, "HGMMA")}
+# kernels whose ptxas notes that serialise wgmma (C7510-C7515: a full
+# wait after every wgmma) phase_build reports
+WGMMA_NOTE_KERNELS = r"flash_bwd_\w+_wgmma_kernel"
 # kernels whose SASS instructions per element phase 2 counts
 SASS_LOOP_KERNELS = ("fx_log_kernel", "fx_exp_table_kernel",
                      "fx_exp_ladder_kernel", "fx_exp_mantissa_kernel",
@@ -1050,6 +1058,26 @@ def sass_loop_costs(fns: dict) -> dict:
             for name, ins in fns.items() if sym in name}
 
 
+def wgmma_notes(log: str) -> dict:
+    """{kernel matching WGMMA_NOTE_KERNELS: ptxas's notes (C7510-C7515)
+    that serialise its wgmma}; empty where none is left."""
+    out = {}
+    for line in log.splitlines():
+        m = re.search(r"\((C751[0-5])\)[^']*'(\w+)'", line)
+        if m and re.search(WGMMA_NOTE_KERNELS, m.group(2)):
+            out.setdefault(m.group(2), []).append(
+                line.split(m.group(1), 1)[-1].strip(" )"))
+    return out
+
+
+def bwd_call_launches(cfg, dtype) -> int:
+    """flash_attention_bwd's launches a call in a layer of ``cfg`` at
+    ``dtype`` (``bwd_launches`` on the layer's head shapes)."""
+    q = torch.empty(1, 1, cfg.num_heads, cfg.head_dim, dtype=dtype)
+    k = torch.empty(1, 1, cfg.num_kv_heads, cfg.head_dim, dtype=dtype)
+    return flash_ops.bwd_launches(q, k, k, q, q)
+
+
 def phase_build() -> dict:
     t0 = time.perf_counter()
     _build.library()
@@ -1069,7 +1097,8 @@ def phase_build() -> dict:
           f"build: no element loop found in {loops}")
     emit("build", seconds=time.perf_counter() - t0,
          nvcc_seconds=_build.build_seconds, ptxas=regs,
-         tensor_core_sass=tc, sass_per_element=loops)
+         tensor_core_sass=tc, sass_per_element=loops,
+         wgmma_serialised=wgmma_notes(_build.build_log))
     return loops
 
 
@@ -4278,8 +4307,9 @@ def train_shape(cfg, dev, what: str, tmp: str) -> tuple[dict, tuple]:
     check(len(losses) == steps and all(np.isfinite(losses)),
           f"lm_train {what}: losses {losses}")
     L = cfg.num_layers
+    per_call = bwd_call_launches(cfg, torch.bfloat16)
     check(counts["flash_attention_kernel"] == 2 * L * steps
-          and counts["flash_attention_bwd"] == 3 * L * steps,
+          and counts["flash_attention_bwd"] == per_call * L * steps,
           f"lm_train {what}: flash launches {counts}")
     check(all(n == 0 for k, n in counts.items()
               if k not in ("flash_attention_kernel", "flash_attention_bwd")),
@@ -4387,7 +4417,8 @@ def gradient_gate(dev) -> dict:
         reset_launch_counts()
         sh, leaf = share(grads_of(cfg, model, batch, dt), dt)
         counts = launch_counts()
-        check(counts["flash_attention_bwd"] == 3 * GATE_LAYERS,
+        check(counts["flash_attention_bwd"] ==
+              bwd_call_launches(cfg, dt) * GATE_LAYERS,
               f"gradient gate {key}: launches {counts}")
         check(sh <= 1.0, f"gradient gate {key}: {leaf} at {sh} of its limit")
         faults = {}
@@ -4441,7 +4472,8 @@ def moe_train(dev) -> dict:
           f"lm_train moe: metrics {metrics}")
     check(all(m["lb_loss"] > 0 and m["z_loss"] > 0 for m in metrics),
           f"lm_train moe: auxiliary losses {metrics}")
-    check(counts["flash_attention_bwd"] == 3 * layers * steps,
+    check(counts["flash_attention_bwd"] ==
+          bwd_call_launches(cfg, torch.bfloat16) * layers * steps,
           f"lm_train moe: launches {counts}")
     with torch.no_grad():
         cpu = [orig(cfg, p, xt) for p, xt, _ in calls]
@@ -4583,6 +4615,26 @@ def bwd_rows(dev, bwd_in) -> list:
         plain = lambda: flash_attention_bwd_ref(q, k, v, o, lse, do,
                                                 window=window)
         got, want = call(), plain()
+        # the route (bf16 rows: the wgmma kernels, float32: mma.sync),
+        # a call's launches by the wrapper's count, and the kernels the
+        # profiler saw three calls launch (late in the run it has been
+        # seen to record none: then only the count is checked)
+        route = flash_ops.bwd_route(q, k, v, o, do)
+        before = flash_attention_bwd.launches
+        call()
+        launched = flash_attention_bwd.launches - before
+        sym = KERNEL_SYMBOLS["flash_attention_bwd"]
+        seen = sorted({re.search(sym, n).group(0)
+                       for n in device_kernels(call, 3)[0]
+                       if re.search(sym, n)})
+        want_route = "wgmma" if dtype == torch.bfloat16 else "mma"
+        tag = "_wgmma" if want_route == "wgmma" else ""
+        check(route == want_route
+              and launched == flash_ops.bwd_launches(q, k, v, o, do)
+              and (not seen or {f"flash_bwd_dkdv{tag}_kernel",
+                                f"flash_bwd_dq{tag}_kernel"} <= set(seen)),
+              f"flash_attention_bwd {extra.get('shape_tag')}: route "
+              f"{route}, {launched} launches, kernels {seen}")
         flat = lambda ts: torch.cat([t.flatten() for t in ts])
         atol = torch.cat([torch.full((t.numel(),), BWD_TOL[dtype] * float(
             t.float().abs().max()), device=dev) for t in want])
@@ -4620,7 +4672,8 @@ def bwd_rows(dev, bwd_in) -> list:
             "src/repro/models/layers.py:298 _flash_bwd (plain jnp "
             "custom_vjp; no Pallas kernel)", call, plain, flat(got),
             flat(want), nbytes, nops, iters, 2, ops_per_s=rate,
-            tol=(atol, 0.0), prof_iters=3, per_call=3,
+            tol=(atol, 0.0), prof_iters=3,
+            per_call=flash_ops.bwd_launches(q, k, v, o, do),
             library_ms=lib_fwd_bwd_ms - lib_fwd_ms,
             library_fwd_bwd_ms=lib_fwd_bwd_ms, library_fwd_ms=lib_fwd_ms,
             shape=[B, S, H, k.shape[2], D],
@@ -4630,8 +4683,9 @@ def bwd_rows(dev, bwd_in) -> list:
                            f"dk, dv",
             library_call="scaled_dot_product_attention: forward + backward "
                          "less the forward",
-            library_kernels=lib_bwd[:3],
-            **more, **extra)
+            library_kernels=lib_bwd[:3], bwd_route=route,
+            bwd_launches_a_call=launched,
+            bwd_kernels=seen or "not recorded (profiler)", **more, **extra)
         return rows[-1]
 
     others = []

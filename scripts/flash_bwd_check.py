@@ -5,17 +5,24 @@
     PYTHONPATH=src python3 scripts/flash_bwd_check.py
 
 Builds the kernel library, prints the backward kernels' registers and
-spills from the build's ``-Xptxas -v``, then for a few shapes (bf16 and
-float32, D 40-128, causal, full and windows, H over H_kv 1-4, ragged S)
-holds ``flash_attention_bwd`` against ``flash_attention_bwd_ref`` on the
-card (each gradient's largest error over its largest magnitude, below
-2^-6 in bf16 and 1e-5 in float32), the forward's lse against the plain
-version's, the forward's output with lse bit for bit the call's without,
-and two backward calls bit for bit the same.  Last, Qwen1.5-4B's layer
-at batch 1 x 4096 (20 heads of 128, bf16, causal): the backward's mean
-ms a call over 10 warm calls (CUDA events) beside one PyTorch
-``scaled_dot_product_attention`` forward and backward.  One JSON line a
-shape, then ``OK`` or ``FAIL``.
+spills from the build's ``-Xptxas -v`` and any ptxas note (C7510-C7515)
+that serialises a kernel's wgmma, then for a few shapes (bf16 and
+float32, D 40-128, causal, full and windows, H over H_kv 1-16, S at and
+around the 128-row blocks of the wgmma route, ragged S, an unaligned
+bf16 view) holds ``flash_attention_bwd`` against
+``flash_attention_bwd_ref`` on the card (each gradient's largest error
+over the larger of its own and dV's largest magnitude, below 2^-6 in
+bf16 and 1e-5 in float32), the
+forward's lse against the plain version's, the forward's output with lse
+bit for bit the call's without, and two backward calls bit for bit the
+same, each line with its route (``bwd_route``) and launches.  Last,
+Qwen1.5-4B's layer at batch 1 x 4096 (20 heads of 128, bf16, causal):
+the backward's mean ms a call over 10 warm calls (CUDA events) beside
+one PyTorch ``scaled_dot_product_attention`` forward and backward; and
+at chip_smoke.py's backward rows (bwd-b, bwd-g, bwd-w, bwd-m, bwd-f)
+each kernel's mean device µs a call, the L2 cache flushed before each
+of 10 calls (torch.profiler).  One JSON line a shape, then ``OK`` or
+``FAIL``.
 """
 from __future__ import annotations
 
@@ -25,23 +32,39 @@ import sys
 import time
 
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.kernels import _build, flash_attention_bwd
-from repro_torch.kernels.flash_attn.ops import _forward
+from repro_torch.kernels.flash_attn.ops import _forward, bwd_route
 from repro_torch.kernels.flash_attn.ref import (flash_attention_bwd_ref,
                                                 flash_attention_ref)
 
-# (B, S, H, H_kv, D), dtype, causal, window
-CASES = [((1, 128, 4, 4, 128), torch.bfloat16, True, 0),
-         ((2, 100, 4, 2, 64), torch.bfloat16, True, 0),
-         ((1, 257, 6, 2, 128), torch.float32, True, 0),
-         ((1, 200, 4, 1, 64), torch.float32, False, 0),
-         ((1, 300, 4, 4, 128), torch.bfloat16, True, 70),
-         ((1, 300, 4, 2, 72), torch.bfloat16, False, 0),
-         ((1, 190, 2, 2, 40), torch.float32, True, 33),
-         ((2, 64, 3, 1, 128), torch.bfloat16, False, 17),
-         ((1, 4096, 20, 20, 128), torch.bfloat16, True, 0)]
+# (B, S, H, H_kv, D), dtype, causal, window, q's offset in elements (4:
+# off a 16-byte boundary, which TMA cannot read: the mma route)
+CASES = [((1, 128, 4, 4, 128), torch.bfloat16, True, 0, 0),
+         ((2, 100, 4, 2, 64), torch.bfloat16, True, 0, 0),
+         ((1, 257, 6, 2, 128), torch.float32, True, 0, 0),
+         ((1, 200, 4, 1, 64), torch.float32, False, 0, 0),
+         ((1, 300, 4, 4, 128), torch.bfloat16, True, 70, 0),
+         ((1, 300, 4, 2, 72), torch.bfloat16, False, 0, 0),
+         ((1, 300, 4, 2, 72), torch.bfloat16, False, 0, 4),
+         ((1, 190, 2, 2, 40), torch.float32, True, 33, 0),
+         ((2, 64, 3, 1, 128), torch.bfloat16, False, 17, 0),
+         ((1, 127, 2, 2, 128), torch.bfloat16, True, 0, 0),
+         ((1, 128, 4, 2, 64), torch.bfloat16, True, 0, 0),
+         ((1, 129, 4, 4, 128), torch.bfloat16, False, 0, 0),
+         ((1, 1, 2, 1, 64), torch.bfloat16, True, 0, 0),
+         ((1, 640, 32, 2, 128), torch.bfloat16, True, 0, 0),
+         ((1, 500, 16, 2, 64), torch.bfloat16, True, 100, 0),
+         ((1, 4096, 20, 20, 128), torch.bfloat16, True, 0, 0)]
 LIMIT = {torch.bfloat16: 2.0 ** -6, torch.float32: 1e-5}
+# chip_smoke.py's backward rows: (B, S, H, H_kv, D), dtype, window
+ROWS = {"bwd-b": ((1, 4096, 20, 20, 128), torch.bfloat16, 0),
+        "bwd-g": ((1, 4096, 32, 2, 128), torch.bfloat16, 0),
+        "bwd-w": ((1, 4096, 32, 16, 128), torch.bfloat16, 1024),
+        "bwd-m": ((1, 4096, 32, 32, 64), torch.bfloat16, 0),
+        "bwd-f": ((1, 1024, 20, 20, 128), torch.float32, 0)}
+FLUSH_BYTES = 256 << 20           # five times the H100's 50 MB L2
 
 
 def plain_forward(q, k, v, causal, window):
@@ -56,12 +79,16 @@ def plain_forward(q, k, v, causal, window):
 
 
 def registers(log: str) -> dict:
-    """{backward kernel: ptxas's registers and spill line}."""
+    """{backward kernel: ptxas's registers and spill lines, and its notes
+    that serialise wgmma (C7510-C7515)}."""
     out, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             cur = m.group(1)
+        note = re.search(r"\(C751[0-5]\).*'(\w+)'", line)
+        if note and "flash_bwd" in note.group(1):
+            out.setdefault(note.group(1), []).append(line.strip())
         elif cur and "flash_bwd" in cur and ("registers" in line
                                               or "spill" in line):
             out.setdefault(cur, []).append(line.split(":", 1)[-1].strip())
@@ -81,6 +108,36 @@ def events_ms(fn, iters: int = 10) -> float:
     return a.elapsed_time(b) / iters
 
 
+def kernel_split(dev) -> dict:
+    """{row: {kernel: mean device µs a call}} over 10 cold calls."""
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32,
+                        device=dev).zero_
+    gen = torch.Generator(device=dev).manual_seed(1)
+    out = {}
+    for name, ((B, S, H, Hkv, D), dt, window) in ROWS.items():
+        q, do = (torch.randn(B, S, H, D, generator=gen, device=dev).to(dt)
+                 for _ in range(2))
+        k, v = (torch.randn(B, S, Hkv, D, generator=gen, device=dev).to(dt)
+                for _ in range(2))
+        o, lse = _forward(q, k, v, True, window, True)
+        call = lambda: flash_attention_bwd(q, k, v, o, lse, do,
+                                           window=window)
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                flush()
+                call()
+            torch.cuda.synchronize()
+        out[name] = {
+            re.search(r"flash_bwd_\w+", e.key).group(0):
+                getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0.0)) / 10
+            for e in prof.key_averages() if "flash_bwd" in e.key}
+        del q, k, v, do, o, lse
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("flash_bwd_check: no CUDA device")
@@ -91,25 +148,35 @@ def main() -> int:
     print(json.dumps({"build_s": time.perf_counter() - t0,
                       "registers": registers(_build.build_log)}))
     ok = True
-    for (B, S, H, Hkv, D), dt, causal, window in CASES:
+    for (B, S, H, Hkv, D), dt, causal, window, offset in CASES:
         gen = torch.Generator(device=dev).manual_seed(S + H)
         rnd = lambda h: torch.randn(B, S, h, D, generator=gen,
                                     device=dev).to(dt)
         q, k, v = rnd(H), rnd(Hkv), rnd(Hkv)
         do = rnd(H)
+        if offset:
+            q = torch.cat([q.flatten()[:offset], q.flatten()])[offset:].view(
+                q.shape)
         o, lse = _forward(q, k, v, causal, window, True)
         _, lse_want = plain_forward(q, k, v, causal, window)
         same_out = torch.equal(o, _forward(q, k, v, causal, window,
                                            False)[0])
+        before = flash_attention_bwd.launches
         got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
                                   window=window)
+        launches = flash_attention_bwd.launches - before
         want = flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
                                        window=window)
         again = flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
                                     window=window)
         torch.cuda.synchronize()
+        # each error over the larger of its gradient's largest magnitude
+        # and dV's: dQ and dK vanish where every query meets one key (S
+        # 1, window 1) and keep only the rounding of that cancellation
+        scale = want[2].float().abs().max()
         rel = [float((a.float() - b.float()).abs().max()
-                     / b.float().abs().max().clamp_min(1e-30))
+                     / torch.maximum(b.float().abs().max(), scale)
+                     .clamp_min(1e-30))
                for a, b in zip(got, want)]
         lse_err = float((lse - lse_want).abs().max())
         bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
@@ -118,7 +185,9 @@ def main() -> int:
                 and all(bool(torch.isfinite(a).all()) for a in got))
         ok &= good
         print(json.dumps(dict(shape=[B, S, H, Hkv, D], dtype=str(dt),
-                              causal=causal, window=window, lse_err=lse_err,
+                              causal=causal, window=window, offset=offset,
+                              route=bwd_route(q, k, v, o, do),
+                              launches=launches, lse_err=lse_err,
                               out_same_without_lse=same_out,
                               rel_errs_dq_dk_dv=rel, reproducible=bitwise,
                               good=good)))
@@ -139,6 +208,9 @@ def main() -> int:
     print(json.dumps({"shape": [1, 4096, 20, 128], "bwd_ms": bwd_ms,
                       "sdpa_forward_backward_ms": events_ms(sdpa),
                       "card": torch.cuda.get_device_name(0)}))
+    del q, k, v, do, o, lse, lq, lk, lv
+    torch.cuda.empty_cache()
+    print(json.dumps({"kernel_us_a_call_cold": kernel_split(dev)}))
     print("OK" if ok else "FAIL")
     return 0 if ok else 1
 

@@ -177,6 +177,10 @@ using bf16 = __nv_bfloat16;
 constexpr int TQ = 64, TK = 64, TC_THREADS = 128, KV_STAGES = 3;
 constexpr float kNegInf = -__builtin_huge_valf();
 constexpr float kLn2 = 0.6931471805599453f;
+using sm90::fast_exp2;
+using sm90::pack_bf16;
+using sm90::wgmma_rs_m64n64k16;
+using sm90::wgmma_ss_m64n64k16;
 
 // named barrier id (0 is __syncthreads' own) over COUNT threads: wait, or
 // arrive without waiting
@@ -247,54 +251,6 @@ __device__ __forceinline__ void stage_tc(uint8_t* tile, const bf16* src,
   }
 }
 
-// d (64 x 64, f32) (+)= A (64 x 16 bf16, registers a[0-3] in the
-// accumulator's row / column order) * B (16 x 64 at descriptor db:
-// K-major, or MN-major read transposed with TB); scale_d = 0 overwrites d
-template <bool TB>
-__device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32],
-                                                   const uint32_t* a,
-                                                   uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
-        "n"(TB ? 1 : 0));
-}
-
-// d (64 x 64, f32) (+)= A (64 x 16 at descriptor da, K-major) * B (16 x
-// 64 at descriptor db, K-major), both from shared memory; scale_d = 0
-// overwrites d
-__device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32],
-                                                   uint64_t da, uint64_t db,
-                                                   int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
 // four 8 x 8 bf16 matrices from shared memory, lane l giving the row
 // address of matrix l / 8: the register operand of a 16 x 16 tile
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
@@ -302,18 +258,6 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
-}
-
-// 2^x in one MUFU.EX2 (relative error about 2^-22; 2^-inf = 0)
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // max / sum over the 4 threads of a quad, which share two score rows
@@ -1753,6 +1697,7 @@ __global__ void __launch_bounds__(F2_THREADS, 1)
 namespace {
 
 constexpr float kLog2e = 1.4426950408889634f;
+using sm90::bf16_tile_map;
 
 // above 48 KB of dynamic shared memory only when allowed, once a kernel
 template <typename Kernel>
@@ -1762,48 +1707,6 @@ cudaError_t allow_smem(Kernel kernel, int bytes, bool& configured) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   configured = err == cudaSuccess;
   return err;
-}
-
-// the driver's cuTensorMapEncodeTiled, found once through the runtime, so
-// that the library does not link libcuda
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const bool ok = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault,
-                                            &found) == cudaSuccess &&
-                    found == cudaDriverEntryPointSuccess;
-    return ok ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
-
-// a (B, S, heads, D) bf16 tensor as the 4-d map (D, heads, S, B) with
-// boxes of 64 values by 1 head by 64 rows, 128-byte swizzled, zeros
-// outside the tensor; needs 16-byte aligned rows (D % 8 == 0)
-bool bf16_tile_map(CUtensorMap* map, const void* t, int B, int S, int heads,
-                   int D) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t row = static_cast<cuuint64_t>(D) * sizeof(bf16);
-  const cuuint64_t strides[3] = {row, row * heads, row * heads * S};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(TK), 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(t),
-            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int NCH, bool WIN>

@@ -13,10 +13,11 @@ reads K and V at their own head count.
 When q, k or v requires grad (under grad mode), the call goes through
 ``FlashAttention``, a ``torch.autograd.Function``: its forward also
 writes each row's log-sum-exp and saves (q, k, v, o, lse), its backward
-is ``flash_attention_bwd`` (three kernels on CUDA tensors, D <= 128;
-``flash_attention_bwd_ref`` on CPU tensors), the reference model
-attention's recompute-from-lse backward.  Otherwise nothing is saved and
-no lse is written: serving runs the kernels as they were."""
+is ``flash_attention_bwd`` (kernels on CUDA tensors, D <= 128, routed by
+``bwd_route``; ``flash_attention_bwd_ref`` on CPU tensors), the
+reference model attention's recompute-from-lse backward.  Otherwise
+nothing is saved and no lse is written: serving runs the kernels as they
+were."""
 from __future__ import annotations
 
 import ctypes
@@ -37,7 +38,15 @@ _DELTA_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int32,) * 5 + (
 _BWD_ARGS = lambda n_ptrs: (ctypes.c_void_p,) * n_ptrs + (
     ctypes.c_int32,) * 5 + (ctypes.c_float, ctypes.c_int32, ctypes.c_int32,
                             ctypes.c_int32, ctypes.c_void_p)
+_PREP_ARGS = (ctypes.c_void_p,) * 5 + (ctypes.c_int32,) * 5 + (
+    ctypes.c_void_p,)
+_WB_ARGS = lambda n_ptrs: (ctypes.c_void_p,) * n_ptrs + (
+    ctypes.c_int32,) * 6 + (ctypes.c_float, ctypes.c_int32, ctypes.c_int32,
+                            ctypes.c_void_p)
+_REDUCE_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int32,) * 6 + (
+    ctypes.c_void_p,)
 _DTYPES = (torch.float32, torch.bfloat16)
+_WB_BLOCK = 128                    # rows of a wgmma backward block
 MAX_HEAD_DIM = 256
 MAX_BWD_HEAD_DIM = 128
 _MAX_HEADS = 65535                 # gridDim.y: one row of blocks per (b, h)
@@ -151,14 +160,65 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+def bwd_route(q, k, v, o, do) -> str:
+    """The backward's route on the card, by dtype, head size and layout
+    alone: "wgmma" (``flash_bwd_dkdv_wgmma_kernel`` and
+    ``flash_bwd_dq_wgmma_kernel``, their tiles brought in by TMA) for
+    bfloat16 with D % 8 == 0 and D <= 128, every tensor contiguous and its
+    base 16-byte aligned: TMA reads rows of D values, which must fill
+    whole 16-byte chunks, from aligned bases; every LM path (D 64 and 128,
+    contiguous (B, S, H, D)) takes it.  "mma" otherwise (float32, a head
+    size that is not a multiple of 8, an unaligned view): the
+    ``mma.sync`` kernels ``flash_bwd_dkdv_kernel`` and
+    ``flash_bwd_dq_kernel``.  Not a fallback: a kernel of either route
+    that fails to build or launch raises."""
+    D = q.shape[3]
+    if q.dtype != torch.bfloat16 or D % 8 or D > MAX_BWD_HEAD_DIM:
+        return "mma"
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
+               for t in (q, k, v, o, do)):
+        return "mma"
+    return "wgmma"
+
+
+def bwd_launches(q, k, v, o, do) -> int:
+    """Kernels one ``flash_attention_bwd`` call launches on the card: the
+    row pass (delta, or on the wgmma route lse and delta), dK and dV, dQ,
+    and with H_kv < H on the wgmma route or in float32 the pass that sums
+    the query heads' partial dK and dV (``_split_group``)."""
+    return 3 + int(_split_group(q, k, bwd_route(q, k, v, o, do)))
+
+
+def _split_group(q, k, route) -> bool:
+    """dK and dV a query head at a time, summed after: at H_kv < H on the
+    wgmma route (the group across blocks) and in float32 (the tensor
+    cores' float32 accumulation truncates; one accumulator over a group's
+    G S / 8 k steps passes float32's limit at G 8)."""
+    return q.shape[2] != k.shape[2] and (route == "wgmma"
+                                         or q.dtype == torch.float32)
+
+
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0):
     """The backward of ``flash_attention_kernel``: q, o, do (B, S, H, D),
     k, v (B, S, H_kv, D), lse (B, H, S) float32 (the forward's) -> dq, dk,
     dv in the inputs' dtype, float32 inside.  CPU tensors: the plain
-    version ``flash_attention_bwd_ref``; CUDA tensors: three kernels
-    (``csrc/flash_attn_bwd.cu``: delta = rowsum(dO o O), then dK and dV a
-    KV head's kv tile at a time, then dQ a query tile at a time), each
-    counted in ``launches``; D in (128, 256] raises."""
+    version ``flash_attention_bwd_ref``; CUDA tensors: the kernels of
+    ``csrc/flash_attn_bwd.cu`` on ``bwd_route``'s route, each launch
+    counted in ``launches`` (``bwd_launches`` a call); D in (128, 256]
+    raises.
+
+    "wgmma": ``flash_bwd_prep_kernel`` (each row's lse log2(e) and delta
+    = rowsum(dO o O), padded to 128 rows), ``flash_bwd_dkdv_wgmma_kernel``
+    (a block per (batch, query head, 128 kv rows): S^T, dP^T, dV += P^T
+    dO and dK += dS^T Q on wgmma, the query tiles streamed by TMA), with
+    H_kv < H ``flash_bwd_reduce_kernel`` (each query head's float32
+    partial dK and dV summed in head order, rounded once: the same bits
+    every call), then ``flash_bwd_dq_wgmma_kernel`` (a block per (batch,
+    head, 128 query rows), the kv tiles streamed).  "mma": delta, then
+    dK and dV a KV head's kv tile at a time (float32 with H_kv < H: a
+    query head's, summed by ``flash_bwd_reduce_kernel``), then dQ a query
+    tile at a time.  Bound: the five products, 5 x 2 D per (query, key)
+    pair the mask keeps, at the bf16 tensor-core rate."""
     _check(q, k, v)
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
             or do.dtype != q.dtype:
@@ -167,7 +227,6 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0):
                          f"{tuple(o.shape)} {o.dtype}, {tuple(do.shape)} "
                          f"{do.dtype}")
     B, S, H, D = q.shape
-    Hkv = k.shape[2]
     if lse.shape != (B, H, S) or lse.dtype != torch.float32:
         raise ValueError(f"flash_attention_bwd: lse must be (B, H, S) = "
                          f"{(B, H, S)} float32, got {tuple(lse.shape)} "
@@ -186,6 +245,24 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0):
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if not q.numel():
         return dq, dk, dv
+    route = bwd_route(q, k, v, o, do)
+    # with the group split, each query head's float32 dK and dV, summed
+    # after by flash_bwd_reduce_kernel
+    part = (torch.empty((2, B, S, H, D), dtype=torch.float32,
+                        device=q.device)
+            if _split_group(q, k, route) else None)
+    if route == "wgmma":
+        _bwd_wgmma(q, k, v, o, lse, do, dq, dk, dv, part, causal, window)
+    else:
+        _bwd_mma(q, k, v, o, lse, do, dq, dk, dv, part, causal, window)
+    return dq, dk, dv
+
+
+def _bwd_mma(q, k, v, o, lse, do, dq, dk, dv, part, causal, window):
+    """The mma.sync route's launches into dq, dk and dv (see
+    ``flash_attention_bwd``)."""
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     bf16 = int(q.dtype == torch.bfloat16)
     stream = _build.stream_ptr(q.device)
@@ -198,15 +275,60 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0):
               bf16, stream)
     ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
            lse.data_ptr(), delta.data_ptr())
-    rc = _build.launcher("repro_flash_bwd_dkdv", _BWD_ARGS(8))(
-        *ins, dk.data_ptr(), dv.data_ptr(), *common)
+    rc = _build.launcher("repro_flash_bwd_dkdv", _BWD_ARGS(9))(
+        *ins, dk.data_ptr(), dv.data_ptr(),
+        part.data_ptr() if part is not None else None, *common)
     _build.check(rc, "flash_attention_bwd (dk, dv)")
     flash_attention_bwd.launches += 1
+    _reduce(part, dk, dv, bf16, stream)
     rc = _build.launcher("repro_flash_bwd_dq", _BWD_ARGS(7))(
         *ins, dq.data_ptr(), *common)
     _build.check(rc, "flash_attention_bwd (dq)")
     flash_attention_bwd.launches += 1
-    return dq, dk, dv
+
+
+def _reduce(part, dk, dv, bf16, stream):
+    """dk and dv = part's query heads summed in head order (nothing
+    without ``part``)."""
+    if part is None:
+        return
+    _, B, S, H, D = part.shape
+    rc = _build.launcher("repro_flash_bwd_reduce", _REDUCE_ARGS)(
+        part.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, H, dk.shape[2],
+        D, bf16, stream)
+    _build.check(rc, "flash_attention_bwd (dk, dv sums)")
+    flash_attention_bwd.launches += 1
+
+
+def _bwd_wgmma(q, k, v, o, lse, do, dq, dk, dv, part, causal, window):
+    """The wgmma route's launches into dq, dk and dv (see
+    ``flash_attention_bwd``)."""
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    S_pad = -(-S // _WB_BLOCK) * _WB_BLOCK
+    rows = torch.empty((2, B, H, S_pad), dtype=torch.float32,
+                       device=q.device)
+    lse2, delta = rows[0], rows[1]
+    stream = _build.stream_ptr(q.device)
+    rc = _build.launcher("repro_flash_bwd_prep", _PREP_ARGS)(
+        o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        lse2.data_ptr(), delta.data_ptr(), B, S, S_pad, H, D, stream)
+    _build.check(rc, "flash_attention_bwd (lse, delta)")
+    flash_attention_bwd.launches += 1
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+           lse2.data_ptr(), delta.data_ptr())
+    common = (B, S, S_pad, H, Hkv, D, 1.0 / math.sqrt(D), int(causal),
+              window, stream)
+    rc = _build.launcher("repro_flash_bwd_dkdv_wgmma", _WB_ARGS(9))(
+        *ins, dk.data_ptr(), dv.data_ptr(),
+        part.data_ptr() if part is not None else None, *common)
+    _build.check(rc, "flash_attention_bwd (dk, dv)")
+    flash_attention_bwd.launches += 1
+    _reduce(part, dk, dv, 1, stream)
+    rc = _build.launcher("repro_flash_bwd_dq_wgmma", _WB_ARGS(7))(
+        *ins, dq.data_ptr(), *common)
+    _build.check(rc, "flash_attention_bwd (dq)")
+    flash_attention_bwd.launches += 1
 
 
 flash_attention_kernel.launches = 0

@@ -1276,15 +1276,19 @@ def test_flash_attention_bwd_kernel_rows(cuda, row):
     _assert_bwd_close(got, want, dtype)
 
 
-# S across the 64-row tiles (1, one short, one over, ragged), windows from
-# the diagonal alone to past S, G 1-4, D padded to 64 or 128 (8 and 40:
-# plain loads, not multiples of 16 bytes in float32), causal and full
+# S across the 64-row tiles and the wgmma route's 128-row blocks (1, one
+# short, one over, at and around 128, ragged), windows from the diagonal
+# alone to past S, G 1-16 (8 and 16: the group split across blocks), D
+# padded to 64 or 128 (8 and 40: plain loads, not multiples of 16 bytes
+# in float32), causal and full
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 1),
                                            (True, 64), (True, 100),
                                            (False, 33)])
-@pytest.mark.parametrize("h,hkv", [(2, 2), (4, 2), (4, 1)])
-@pytest.mark.parametrize("s,d", [(1, 64), (63, 128), (65, 40), (200, 8),
+@pytest.mark.parametrize("h,hkv", [(2, 2), (4, 2), (4, 1), (16, 2),
+                                   (32, 2)])
+@pytest.mark.parametrize("s,d", [(1, 64), (63, 128), (65, 40), (127, 128),
+                                 (128, 64), (129, 128), (200, 8),
                                  (1000, 128)])
 def test_flash_attention_bwd_kernel_sweep(cuda, s, d, h, hkv, causal,
                                           window, dtype):
@@ -1293,11 +1297,76 @@ def test_flash_attention_bwd_kernel_sweep(cuda, s, d, h, hkv, causal,
     _assert_bwd_close(got, want, dtype)
 
 
-def test_flash_attention_bwd_is_bitwise_reproducible(cuda):
-    """No atomics: two calls give the same bits."""
-    a, _ = _bwd_case(cuda, (1, 700, 8, 2, 128), torch.bfloat16, True, 0, 3)
-    b, _ = _bwd_case(cuda, (1, 700, 8, 2, 128), torch.bfloat16, True, 0, 3)
+@pytest.mark.parametrize("shape", [(1, 700, 8, 2, 128),
+                                   BWD_ROWS["bwd-b"][0],
+                                   BWD_ROWS["bwd-g"][0]])
+def test_flash_attention_bwd_is_bitwise_reproducible(cuda, shape):
+    """No atomics: two calls give the same bits, at G 1 and where the
+    wgmma route splits the group across blocks (bwd-g: 16 query heads
+    a KV head, summed in head order)."""
+    a, _ = _bwd_case(cuda, shape, torch.bfloat16, True, 0, 3)
+    b, _ = _bwd_case(cuda, shape, torch.bfloat16, True, 0, 3)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _bwd_kernel_names(call):
+    """The flash_bwd kernels the profiler saw three calls of ``call``
+    launch (it has been seen to drop a call's records)."""
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+    return {e.key.split("(")[0].split("<")[0].removeprefix("void ")
+            for e in prof.key_averages() if "flash_bwd" in e.key}
+
+
+# (B, S, H, H_kv, D), dtype, q's offset in elements -> the kernels
+BWD_ROUTES = [((1, 256, 20, 20, 128), torch.bfloat16, 0, "wgmma"),
+              ((1, 256, 32, 2, 128), torch.bfloat16, 0, "wgmma"),
+              ((1, 256, 8, 8, 64), torch.bfloat16, 0, "wgmma"),
+              ((1, 256, 4, 2, 128), torch.bfloat16, 4, "mma"),
+              ((1, 256, 4, 2, 100), torch.bfloat16, 0, "mma"),
+              ((1, 256, 4, 4, 128), torch.float32, 0, "mma"),
+              ((1, 256, 8, 2, 64), torch.float32, 0, "mma"),
+              ((1, 256, 4, 2, 30), torch.float32, 0, "mma")]
+
+
+@pytest.mark.parametrize("shape,dtype,offset,route", BWD_ROUTES)
+def test_flash_attention_bwd_route(cuda, shape, dtype, offset, route):
+    """Aligned bf16 LM shapes (D 64 and 128, contiguous) launch the wgmma
+    kernels, an unaligned view, a head size off the multiples of 8 and
+    float32 the mma.sync ones, as bwd_route says, with the sum pass at
+    H_kv < H on the wgmma route and in float32; the launch count is
+    bwd_launches'."""
+    from repro_torch.kernels.flash_attn.ops import bwd_launches, bwd_route
+    B, S, H, Hkv, D = shape
+    gen = torch.Generator(device=cuda).manual_seed(S + H + D)
+    rnd = lambda h: torch.randn(B, S, h, D, generator=gen,
+                                device=cuda).to(dtype)
+    q, k, v, do = rnd(H), rnd(Hkv), rnd(Hkv), rnd(H)
+    if offset:                     # q's data off a 16-byte boundary
+        q = torch.cat([torch.zeros(offset, device=cuda, dtype=dtype),
+                       q.flatten()])[offset:].view(B, S, H, D)
+    o, lse = flash_forward(q, k, v, True, 0, True)
+    assert bwd_route(q, k, v, o, do) == route
+    call = lambda: flash_attention_bwd(q, k, v, o, lse, do)
+    names = _bwd_kernel_names(call)
+    tag = "_wgmma" if route == "wgmma" else ""
+    want = {f"flash_bwd_dkdv{tag}_kernel", f"flash_bwd_dq{tag}_kernel",
+            "flash_bwd_prep_kernel" if tag else "flash_bwd_delta_kernel"}
+    if Hkv != H and (tag or dtype == torch.float32):
+        want.add("flash_bwd_reduce_kernel")
+    assert names == want
+    reset_launch_counts()
+    got = call()
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention_bwd"] == \
+        bwd_launches(q, k, v, o, do) == len(want)
+    _assert_bwd_close(got, flash_attention_bwd_ref(q, k, v, o, lse, do),
+                      dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -1322,19 +1391,24 @@ def test_flash_attention_lse_output(cuda, s, d, window, dtype):
                                rtol=1e-5)
 
 
-def test_flash_backward_counts_its_launches(cuda):
+@pytest.mark.parametrize("hkv,bwd", [(4, 3), (2, 4)])
+def test_flash_backward_counts_its_launches(cuda, hkv, bwd):
     """Autograd through flash_attention_kernel on the card: one forward
-    launch (with lse) and the backward's three kernels."""
-    q, k, v = (torch.randn(1, 100, 4, 64, device=cuda,
-                           dtype=torch.bfloat16).requires_grad_()
-               for _ in range(3))
+    launch (with lse) and the backward's kernels: three (lse and delta,
+    dK and dV, dQ), and the sum of the query heads' partial dK and dV
+    where H_kv < H."""
+    q = torch.randn(1, 100, 4, 64, device=cuda,
+                    dtype=torch.bfloat16).requires_grad_()
+    k, v = (torch.randn(1, 100, hkv, 64, device=cuda,
+                        dtype=torch.bfloat16).requires_grad_()
+            for _ in range(2))
     reset_launch_counts()
     out = flash_attention_kernel(q, k, v)
     out.float().square().sum().backward()
     torch.cuda.synchronize()
     counts = launch_counts()
     assert counts["flash_attention_kernel"] == 1
-    assert counts["flash_attention_bwd"] == 3
+    assert counts["flash_attention_bwd"] == bwd
     assert all(t.grad is not None and bool(torch.isfinite(t.grad).all())
                for t in (q, k, v))
 

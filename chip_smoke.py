@@ -15,8 +15,9 @@ farm, the DNN pipeline), and checks what comes out:
 2. build    — nvcc build of every kernel, its wall time and registers,
               and the tensor-core instructions of each kernel's SASS
               (cuobjdump): every instantiation of the bf16 flash kernels
-              (D <= 128 and D 256) must hold HGMMA, of the float32 flash
-              kernels TF32 HGMMA,
+              (D <= 128 and D 256) and of the bf16 backward's wgmma route
+              must hold HGMMA, of the float32 flash kernels (forward and
+              backward) TF32 HGMMA,
               and of mac_gemm's and mac_conv2d's tensor-core kernels (each
               signedness pairing, and each tile N of mac_conv) IGMMA; and
               the SASS instructions per element of fx_log's and fx_exp's
@@ -307,16 +308,19 @@ farm, the DNN pipeline), and checks what comes out:
     kernel's bf16 p and the two outputs' roundings); each second shape
     is a kernel_check line of its own, nested in its kernel's entry of
     the kernels line.  flash_attention_bwd's row (the kernels of a call,
-    ``ms`` their sum; bf16 rows on the wgmma route, float32 on mma.sync,
-    each row with its route and the kernels the profiler saw launched)
-    is held against ``flash_attention_bwd_ref`` at 2^-6
+    ``ms`` their sum; bf16 rows on the wgmma route, float32 on the tf32
+    route (3xTF32 wgmma), each row with its route, the kernels the
+    profiler saw launched and each kernel's cold device µs a call) is
+    held against ``flash_attention_bwd_ref`` at 2^-6
     (bf16) and 2^-14 (float32) of each gradient's largest magnitude, on
     the arguments of the first flash backward (the last layer's) in
     lm_train's 1 x 4096 step (bwd-b) and, nested, GLM-4-9B's 32 over 2
     heads (bwd-g), Gemma-3's window 1024 (bwd-w), MusicGen's D 64
-    (bwd-m) and float32 at S 1024 (bwd-f); its bound is the five
-    products of the backward at the bf16 rate (float32: CUDA cores, and
-    three TF32 products beside), its library time SDPA's backward: one
+    (bwd-m) and float32 at S 1024 (bwd-f), at the float32 gradient
+    gate's S 4096 (bwd-f4k) and at 32 over 2 heads (bwd-fg); its bound
+    is the five products of the backward at the bf16 rate (float32: each
+    as three TF32 products at the TF32 rate), its library time SDPA's
+    backward: one
     SDPA forward and backward less the forward alone (CUDA events).
     Row 8 (batch 1) also gives its ``lse`` case: the forward with the
     log-sum-exp written, its lse against the plain version's, and its
@@ -607,7 +611,9 @@ MOE_TRAIN = ("olmoe-1b-7b", 4, 4)         # arch, layers of 16, steps
 BWD_ROWS = {"bwd-g": ((1, 4096, 32, 2, 128), torch.bfloat16, 0),
             "bwd-w": ((1, 4096, 32, 16, 128), torch.bfloat16, 1024),
             "bwd-m": ((1, 4096, 32, 32, 64), torch.bfloat16, 0),
-            "bwd-f": ((1, 1024, 20, 20, 128), torch.float32, 0)}
+            "bwd-f": ((1, 1024, 20, 20, 128), torch.float32, 0),
+            "bwd-f4k": ((1, 4096, 20, 20, 128), torch.float32, 0),
+            "bwd-fg": ((1, 1024, 32, 2, 128), torch.float32, 0)}
 BWD_TOL = {torch.bfloat16: 2.0 ** -6, torch.float32: 2.0 ** -14}
 LSE_TOL = 1e-4                 # natural-log units, |lse - plain|
 # lm_zoo: each other attention arch at its published widths, depth cut to
@@ -717,7 +723,7 @@ KERNEL_SYMBOLS = {"lif_step": r"\blif_step_kernel\b",
                   "wkv6": r"\bwkv6(_chunked)?_kernel\b",
                   "flash_attention_bwd":
                       r"\bflash_bwd_(delta|prep|dkdv|dq|reduce)"
-                      r"(_wgmma)?_kernel\b"}
+                      r"(_wgmma|_tf32)?_kernel\b"}
 PASS_SYMBOLS = {"mac_gemm": r"\bimma_pack_kernel\b",
                 "mac_conv2d": r"\bimma_pack_kernel\b"}
 # tensor-core SASS: wgmma is HGMMA (bf16, and TF32 as HGMMA.*TF32) /
@@ -732,10 +738,12 @@ TENSOR_CORE_KERNELS = {"flash_attn_wgmma_kernel": (8, "HGMMA"),
                        "mac_gemm_kernel": (4, "IGMMA"),
                        "mac_conv_igmma_kernel": (12, "IGMMA"),
                        "flash_bwd_dkdv_wgmma_kernel": (4, "HGMMA"),
-                       "flash_bwd_dq_wgmma_kernel": (2, "HGMMA")}
+                       "flash_bwd_dq_wgmma_kernel": (2, "HGMMA"),
+                       "flash_bwd_dkdv_tf32_kernel": (2, "HGMMA.TF32"),
+                       "flash_bwd_dq_tf32_kernel": (2, "HGMMA.TF32")}
 # kernels whose ptxas notes that serialise wgmma (C7510-C7515: a full
 # wait after every wgmma) phase_build reports
-WGMMA_NOTE_KERNELS = r"flash_bwd_\w+_wgmma_kernel"
+WGMMA_NOTE_KERNELS = r"flash_bwd_\w+_(wgmma|tf32)_kernel"
 # kernels whose SASS instructions per element phase 2 counts
 SASS_LOOP_KERNELS = ("fx_log_kernel", "fx_exp_table_kernel",
                      "fx_exp_ladder_kernel", "fx_exp_mantissa_kernel",
@@ -3995,10 +4003,11 @@ def phase_accel_kernels(dev, log: tuple, attn: dict, lm_attn: tuple,
             enable_gqa=k.shape[2] != q.shape[2]).transpose(1, 2)
 
     def attn_row(rows, entry, ops_per_s, iters, tol=None, window=0,
-                 **extra):
+                 terms=1, **extra):
         """The flash row on ``entry``'s inputs; the bound counts the
-        scores the band keeps (two products of 2 D operations a score)
-        and the bytes of q, k and v at their own head counts and of the
+        scores the band keeps (two products of 2 D operations a score,
+        each taken as ``terms`` tensor-core products: 3 for 3xTF32) and
+        the bytes of q, k and v at their own head counts and of the
         output."""
         (q, k, v), got, want = entry
         B, S, H, D = q.shape
@@ -4016,7 +4025,7 @@ def phase_accel_kernels(dev, log: tuple, attn: dict, lm_attn: tuple,
             lambda: flash_attention_kernel(q, k, v, window=window),
             lambda: attention_plain(q, k, v, window=window), got, want,
             (2 * q.numel() + k.numel() + v.numel()) * q.element_size(),
-            4 * band_pairs(S, window) * D * H * B, iters,
+            terms * 4 * band_pairs(S, window) * D * H * B, iters,
             3, library=lib, ops_per_s=ops_per_s,
             tol=tol or ATTN_TOL[q.dtype], prof_iters=5, shape=list(q.shape),
             dtype=str(q.dtype).removeprefix("torch."), causal=True,
@@ -4028,14 +4037,9 @@ def phase_accel_kernels(dev, log: tuple, attn: dict, lm_attn: tuple,
                                    -lib_kernels[n][1])[:3],
             **extra)
         return rows[-1]
-    # float32: the CUDA cores' float32 bound, and beside it that of the
-    # kernel's three TF32 products
-    (q32, _, _), _, _ = attn[torch.float32]
-    B, S, H, D = q32.shape
-    at_f32 = attn_row([], attn[torch.float32], CUDA_CORE_OPS_PER_S, 10,
-                      bound_ms_3xtf32=bound_ms(
-                          4 * q32.numel() * 4, 3 * 2 * S * S * D * H * B,
-                          TF32_TENSOR_OPS_PER_S)[0])
+    # float32: the kernel's three TF32 products at the TF32 rate
+    at_f32 = attn_row([], attn[torch.float32], TF32_TENSOR_OPS_PER_S, 10,
+                      terms=3)
     at_b1 = attn_row([], attn[torch.bfloat16], BF16_TENSOR_OPS_PER_S, 5,
                      shape_tag="attention phase (batch 1)",
                      lse_case=lse_case(flush, attn[torch.bfloat16][0]))
@@ -4079,7 +4083,7 @@ def phase_accel_kernels(dev, log: tuple, attn: dict, lm_attn: tuple,
     # prefill of stream b: D 256, 10 query heads over 1 KV head (K and V
     # as the prefill hands them over, unexpanded), window 2048; bf16 (the
     # warp-specialised TMA kernel) and the same input in float32 (the
-    # 3xTF32 wgmma kernel; bound also at the three TF32 products)
+    # 3xTF32 wgmma kernel; bound at its three TF32 products)
     rg_cfg = lm_configs.get_arch("recurrentgemma-2b")
     rg_window = rg_cfg.window_size
     rq, rk, rv = rec_in.pop("flash")
@@ -4095,13 +4099,9 @@ def phase_accel_kernels(dev, log: tuple, attn: dict, lm_attn: tuple,
     del rq, rk, rv
     got32 = flash_attention_kernel(*qkv32, window=rg_window)
     want32 = attention_plain(*qkv32, window=rg_window)
-    B, S, H, D = qkv32[0].shape
     zoo_rows.append(attn_row(
-        [], (qkv32, got32, want32), CUDA_CORE_OPS_PER_S, 3, window=rg_window,
-        bound_ms_3xtf32=bound_ms(
-            (2 * qkv32[0].numel() + qkv32[1].numel() + qkv32[2].numel()) * 4,
-            3 * 4 * band_pairs(S, rg_window) * D * H * B,
-            TF32_TENSOR_OPS_PER_S)[0],
+        [], (qkv32, got32, want32), TF32_TENSOR_OPS_PER_S, 3,
+        window=rg_window, terms=3,
         shape_tag="the same in float32 (flash_attn_tf32_d256_kernel): row "
                   "8r'"))
     del qkv32, got32, want32
@@ -4615,7 +4615,7 @@ def bwd_rows(dev, bwd_in) -> list:
         plain = lambda: flash_attention_bwd_ref(q, k, v, o, lse, do,
                                                 window=window)
         got, want = call(), plain()
-        # the route (bf16 rows: the wgmma kernels, float32: mma.sync),
+        # the route (bf16 rows: the wgmma kernels, float32: the tf32 ones),
         # a call's launches by the wrapper's count, and the kernels the
         # profiler saw three calls launch (late in the run it has been
         # seen to record none: then only the count is checked)
@@ -4627,14 +4627,21 @@ def bwd_rows(dev, bwd_in) -> list:
         seen = sorted({re.search(sym, n).group(0)
                        for n in device_kernels(call, 3)[0]
                        if re.search(sym, n)})
-        want_route = "wgmma" if dtype == torch.bfloat16 else "mma"
-        tag = "_wgmma" if want_route == "wgmma" else ""
+        want_route = "wgmma" if dtype == torch.bfloat16 else "tf32"
+        tag = f"_{want_route}"
         check(route == want_route
               and launched == flash_ops.bwd_launches(q, k, v, o, do)
               and (not seen or {f"flash_bwd_dkdv{tag}_kernel",
                                 f"flash_bwd_dq{tag}_kernel"} <= set(seen)),
               f"flash_attention_bwd {extra.get('shape_tag')}: route "
               f"{route}, {launched} launches, kernels {seen}")
+        # cold device µs a call by kernel (the L2 flushed before each of
+        # 10 calls; each kernel launches once a call, so its mean over the
+        # launches the profiler kept): the row pass, dK/dV, the sum, dQ
+        split = {re.search(sym, n).group(0): us / count
+                 for n, (count, us) in device_kernels(
+                     lambda: (flush(), call()), 10)[0].items()
+                 if re.search(sym, n)}
         flat = lambda ts: torch.cat([t.flatten() for t in ts])
         atol = torch.cat([torch.full((t.numel(),), BWD_TOL[dtype] * float(
             t.float().abs().max()), device=dev) for t in want])
@@ -4660,12 +4667,11 @@ def bwd_rows(dev, bwd_in) -> list:
         nbytes = (2 * q.numel() * 2 + 2 * k.numel() * 2) * q.element_size() \
             + lse.numel() * 4
         nops = 5 * 2 * pairs * D * H * B
-        rate = (BF16_TENSOR_OPS_PER_S if dtype == torch.bfloat16
-                else CUDA_CORE_OPS_PER_S)
-        more = {}
+        # float32: every product runs as three TF32 products on the
+        # tensor cores (3xTF32 wgmma)
+        rate = BF16_TENSOR_OPS_PER_S
         if dtype == torch.float32:
-            more["bound_ms_3xtf32"] = bound_ms(nbytes, 3 * nops,
-                                               TF32_TENSOR_OPS_PER_S)[0]
+            nops, rate = 3 * nops, TF32_TENSOR_OPS_PER_S
         kernel_row(
             rows, flush, "flash_attention_bwd",
             "src/repro_torch/csrc/flash_attn_bwd.cu",
@@ -4685,7 +4691,8 @@ def bwd_rows(dev, bwd_in) -> list:
                          "less the forward",
             library_kernels=lib_bwd[:3], bwd_route=route,
             bwd_launches_a_call=launched,
-            bwd_kernels=seen or "not recorded (profiler)", **more, **extra)
+            bwd_kernels=seen or "not recorded (profiler)",
+            kernel_us_cold=split or "not recorded (profiler)", **extra)
         return rows[-1]
 
     others = []

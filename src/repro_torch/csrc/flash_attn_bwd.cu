@@ -1,14 +1,15 @@
 // Backward of fused softmax attention (flash attention) for Hopper
 // (sm_90a): dQ, dK and dV from Q, K, V, the output O, its cotangent dO and
-// the forward's per-row log-sum-exp.  Two routes, chosen by the wrapper
+// the forward's per-row log-sum-exp.  Three routes, chosen by the wrapper
 // (flash_attn/ops.py::bwd_route) by dtype and layout alone:
 //   wgmma  bfloat16 with D % 8 == 0 (D <= 128), contiguous, 16-byte
 //          aligned bases (every LM path): warp-specialised kernels on
 //          bf16 wgmma fed by TMA, below;
-//   mma    the rest (float32; bf16 with D % 8 != 0 or unaligned rows,
-//          which TMA cannot read): mma.sync kernels, bf16 m16n8k16 and
-//          float32 as 3xTF32 m16n8k8 (the operands split into a TF32 high
-//          and low part).
+//   mma    the rest of bfloat16 (D % 8 != 0 or unaligned rows, which TMA
+//          cannot read): mma.sync m16n8k16 kernels;
+//   tf32   float32: flash_attn_bwd_tf32.cu's 3xTF32 wgmma kernels, with
+//          this file's row pass (flash_bwd_delta_kernel) and sum pass
+//          (flash_bwd_reduce_kernel) in float32.
 //
 // Replaces no Pallas kernel: the reference's Pallas flash kernel has no
 // backward, and its model attention differentiates through
@@ -75,19 +76,20 @@
 // and accumulator of a wgmma is fenced until its wait, so ptxas keeps the
 // wgmma pipeline (no C7510-C7515 note).
 //
-// The mma route (three kernels; four in float32 at H_kv < H):
-//   flash_bwd_delta_kernel  rowsum(dO o O) in float32, one warp a row;
+// The mma route (three kernels):
+//   flash_bwd_delta_kernel  rowsum(dO o O) in float32, one warp a row (the
+//                           tf32 route's row pass too);
 //   flash_bwd_dkdv_kernel   a block per (batch, KV head, 64-row kv tile):
 //                           it keeps K and V in shared memory and walks the
 //                           group's G query heads and, in each, the query
 //                           tiles that the causal mask or the window lets
 //                           meet the tile, recomputing S and P from lse and
-//                           accumulating dK and dV in float32 registers; in
-//                           float32 at H_kv < H a block per query head,
-//                           its dK and dV summed by flash_bwd_reduce_kernel
-//                           (the tensor cores' float32 accumulation
-//                           truncates: one accumulator over a group's G S /
-//                           8 k steps passes the float32 limit at G 8);
+//                           accumulating dK and dV in float32 registers
+//                           (bf16 products are exact in float32; the tf32
+//                           route splits the group instead: the tensor
+//                           cores' float32 accumulation truncates, and one
+//                           accumulator over a group's G S / 8 TF32 k steps
+//                           passed the float32 limit at G 8);
 //   flash_bwd_dq_kernel     a block per (batch, head, 64-row query tile):
 //                           it keeps Q and dO and walks the kv tiles,
 //                           recomputing P and dS, dQ in float32 registers.
@@ -95,10 +97,9 @@
 // masked, so any S and D <= 128 work (D is padded to 64 or 128).  A block
 // is 8 warps: for the 64 x 64 score tiles warp w takes query rows 16 (w %
 // 4) and keys 32 (w / 4); for the 64 x D products rows 16 (w % 4) and
-// columns D / 2 (w / 4).  P and dS go to shared memory (in the input type:
-// bfloat16 rounds them once, as FlashAttention does; float32 keeps them)
-// for the products that read them transposed.  Fragments come from padded
-// shared-memory rows by ldmatrix (bfloat16) or 32-bit loads (float32);
+// columns D / 2 (w / 4).  P and dS go to shared memory (in bfloat16:
+// rounded once, as FlashAttention does) for the products that read them
+// transposed.  Fragments come from padded shared-memory rows by ldmatrix;
 // tiles are loaded synchronously.
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -137,7 +138,7 @@ __device__ __forceinline__ void store2(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-// A warp's tile products.  A is 16 x K (the warp's rows), B is K x 8; the
+// A warp's bf16 tile products.  A is 16 x K (the warp's rows), B is K x 8; the
 // accumulator c holds element 2 h + i at row g + 8 h, column 2 t + i (g =
 // lane / 4, t = lane % 4).  load_a<TRANS>: A(m, k) at s[m ld + k] (TRANS:
 // s[k ld + m]), rows m0.., columns k0..; load_b<NK>: B(k, n) at s[n ld + k]
@@ -201,62 +202,6 @@ struct Mma<bf16> {
         : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
         : "r"(a.r[0]), "r"(a.r[1]), "r"(a.r[2]), "r"(a.r[3]), "r"(b.r[0]),
           "r"(b.r[1]));
-  }
-};
-
-// x rounded to TF32 (hi) and the TF32 rounding of what is left (lo)
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
-  const float rest = x - __uint_as_float(hi);
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
-}
-
-template <>
-struct Mma<float> {
-  static constexpr int K = 8;
-  struct A { uint32_t hi[4], lo[4]; };
-  struct B { uint32_t hi[2], lo[2]; };
-  // m16n8k8 TF32 fragments: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4),
-  // a3 (g + 8, t + 4); b0 (k t, n g), b1 (k t + 4, n g)
-  template <bool TRANS>
-  __device__ static A load_a(const float* s, int ld, int m0, int k0) {
-    const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-    auto at = [&](int m, int kk) {
-      return TRANS ? s[kk * ld + m] : s[m * ld + kk];
-    };
-    const float x[4] = {at(m0 + g, k0 + t), at(m0 + g + 8, k0 + t),
-                        at(m0 + g, k0 + t + 4), at(m0 + g + 8, k0 + t + 4)};
-    A a;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) split_tf32(x[i], a.hi[i], a.lo[i]);
-    return a;
-  }
-  template <bool NK>
-  __device__ static B load_b(const float* s, int ld, int k0, int n0) {
-    const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-    auto at = [&](int kk, int n) {
-      return NK ? s[n * ld + kk] : s[kk * ld + n];
-    };
-    const float x[2] = {at(k0 + t, n0 + g), at(k0 + t + 4, n0 + g)};
-    B b;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) split_tf32(x[i], b.hi[i], b.lo[i]);
-    return b;
-  }
-  __device__ static void mma1(float (&c)[4], const uint32_t (&a)[4],
-                              const uint32_t (&b)[2]) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-  // a b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi, small terms first
-  __device__ static void mma(float (&c)[4], const A& a, const B& b) {
-    mma1(c, a.lo, b.hi);
-    mma1(c, a.hi, b.lo);
-    mma1(c, a.hi, b.hi);
   }
 };
 
@@ -407,12 +352,7 @@ __global__ void __launch_bounds__(BWD_THREADS)
 }
 
 // A block per (batch x KV head, kv tile): dK and dV of the tile, summed
-// over the group's G query heads and every query tile that meets it.
-// With part (float32, H_kv < H), a block per (batch x query head, kv
-// tile) instead, writing that head's dK and dV to part (2, B, S, H, D)
-// for flash_bwd_reduce_kernel: the tensor cores' float32 accumulation
-// truncates, and over a group's G S / 8 k steps in one accumulator its
-// bias passes float32's limit of 2^-14 at G 8 (S 1000)
+// over the group's G query heads and every query tile that meets it
 template <typename T, int DP>
 __global__ void __launch_bounds__(BWD_THREADS)
     flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -420,10 +360,9 @@ __global__ void __launch_bounds__(BWD_THREADS)
                           const T* __restrict__ dout,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
-                          T* __restrict__ dk, T* __restrict__ dv,
-                          float* __restrict__ part, int S, int H, int Hkv,
-                          int D, float scale, int causal, int window,
-                          int vec) {
+                          T* __restrict__ dk, T* __restrict__ dv, int S,
+                          int H, int Hkv, int D, float scale, int causal,
+                          int window, int vec) {
   using M = Mma<T>;
   using L = BwdSmem<T, DP>;
   extern __shared__ __align__(16) uint8_t smem_bwd[];
@@ -437,11 +376,8 @@ __global__ void __launch_bounds__(BWD_THREADS)
   float* s_delta = s_lse + BT;
 
   const int k0 = blockIdx.x * BT;   // low tiles meet the most queries: first
-  const int G = H / Hkv, rows_y = part ? H : Hkv;
-  const int b = blockIdx.y / rows_y, hy = blockIdx.y % rows_y;
-  const int hk = part ? hy / G : hy;
-  // the query heads of the block: the group, or (part) head hy alone
-  const int g_lo = part ? hy % G : 0, g_hi = part ? g_lo + 1 : G;
+  const int G = H / Hkv;
+  const int b = blockIdx.y / Hkv, hk = blockIdx.y % Hkv;
   const int64_t qrs = static_cast<int64_t>(H) * D;
   const int64_t krs = static_cast<int64_t>(Hkv) * D;
   const int64_t kbase = (static_cast<int64_t>(b) * S * Hkv + hk) * D;
@@ -456,7 +392,7 @@ __global__ void __launch_bounds__(BWD_THREADS)
   const int n_q = (S + BT - 1) / BT;
   const int qt_lo = causal ? k0 / BT : 0;
   const int qt_hi = window ? min(n_q, (k0 + BT - 2 + window) / BT + 1) : n_q;
-  for (int gi = g_lo; gi < g_hi; ++gi) {
+  for (int gi = 0; gi < G; ++gi) {
     const int h = hk * G + gi;
     const int64_t qbase = (static_cast<int64_t>(b) * S * H + h) * D;
     const int64_t rbase = (static_cast<int64_t>(b) * H + h) * S;
@@ -486,16 +422,8 @@ __global__ void __launch_bounds__(BWD_THREADS)
       }
     }
   }
-  if (part) {
-    const int64_t prs = static_cast<int64_t>(H) * D;
-    const int64_t pbase = (static_cast<int64_t>(b) * S * H + hy) * D;
-    const int64_t half = static_cast<int64_t>(gridDim.y) * S * D;
-    store_rows<float, DP>(part + pbase, prs, dk_acc, k0, S, D);
-    store_rows<float, DP>(part + half + pbase, prs, dv_acc, k0, S, D);
-  } else {
-    store_rows<T, DP>(dk + kbase, krs, dk_acc, k0, S, D);
-    store_rows<T, DP>(dv + kbase, krs, dv_acc, k0, S, D);
-  }
+  store_rows<T, DP>(dk + kbase, krs, dk_acc, k0, S, D);
+  store_rows<T, DP>(dv + kbase, krs, dv_acc, k0, S, D);
 }
 
 // A block per (batch x head, query tile): dQ of the tile over every kv
@@ -566,36 +494,26 @@ __global__ void __launch_bounds__(BWD_THREADS)
 
 namespace {
 
-template <typename Kernel>
-cudaError_t allow_smem_bwd(Kernel kernel, int bytes, bool& configured) {
-  if (configured) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  configured = err == cudaSuccess;
-  return err;
-}
-
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
+using sm90::aligned16;
+using sm90::allow_smem;
 
 template <typename T, int DP>
 int launch_dkdv(const void* q, const void* k, const void* v,
                 const void* dout, const float* lse, const float* delta,
-                void* dk, void* dv, float* part, int B, int S, int H,
-                int Hkv, int D, float scale, int causal, int window, int vec,
+                void* dk, void* dv, int B, int S, int H, int Hkv, int D,
+                float scale, int causal, int window, int vec,
                 cudaStream_t st) {
   auto kernel = flash_bwd_dkdv_kernel<T, DP>;
   constexpr int smem = BwdSmem<T, DP>::kBytes;
   static bool configured = false;
-  const cudaError_t err = allow_smem_bwd(kernel, smem, configured);
+  const cudaError_t err = allow_smem(kernel, smem, configured);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((S + BT - 1) / BT, B * (part ? H : Hkv));
+  const dim3 grid((S + BT - 1) / BT, B * Hkv);
   kernel<<<grid, BWD_THREADS, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), part, S, H, Hkv, D, scale,
-      causal, window, vec);
+      static_cast<T*>(dk), static_cast<T*>(dv), S, H, Hkv, D, scale, causal,
+      window, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -607,7 +525,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   auto kernel = flash_bwd_dq_kernel<T, DP>;
   constexpr int smem = BwdSmem<T, DP>::kBytes;
   static bool configured = false;
-  const cudaError_t err = allow_smem_bwd(kernel, smem, configured);
+  const cudaError_t err = allow_smem(kernel, smem, configured);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + BT - 1) / BT, B * H);
   kernel<<<grid, BWD_THREADS, smem, st>>>(
@@ -617,11 +535,12 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
-// 16-byte loads where D fills whole 16-byte chunks and every row is aligned
-int use_vec(int D, int elem, const void* a, const void* b, const void* c,
+// 16-byte loads where D fills whole 16-byte chunks (8 bf16 values) and
+// every row is aligned
+int use_vec(int D, const void* a, const void* b, const void* c,
             const void* d) {
-  return D % (16 / elem) == 0 && aligned16(a) && aligned16(b) &&
-         aligned16(c) && aligned16(d);
+  return D % 8 == 0 && aligned16(a) && aligned16(b) && aligned16(c) &&
+         aligned16(d);
 }
 
 }  // namespace
@@ -647,72 +566,48 @@ extern "C" int repro_flash_bwd_delta(const void* o, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
-// dk, dv (B, S, Hkv, D) from q, dout (B, S, H, D), k, v (B, S, Hkv, D),
-// lse and delta (B, H, S); D <= 128, H % Hkv == 0; window > 0: query i
-// sees keys j > i - window only.  part, where not null (float32, Hkv <
-// H): each query head's dK and dV into part (2, B, S, H, D) float32, for
-// repro_flash_bwd_reduce, in place of dk and dv
+// dk, dv (B, S, Hkv, D) bfloat16 from q, dout (B, S, H, D), k, v (B, S,
+// Hkv, D) bfloat16, lse and delta (B, H, S) float32; D <= 128, H % Hkv ==
+// 0; window > 0: query i sees keys j > i - window only
 extern "C" int repro_flash_bwd_dkdv(const void* q, const void* k,
                                     const void* v, const void* dout,
                                     const void* lse, const void* delta,
-                                    void* dk, void* dv, void* part,
-                                    int32_t B, int32_t S, int32_t H,
-                                    int32_t Hkv, int32_t D, float scale,
-                                    int32_t causal, int32_t window,
-                                    int32_t bf16_in, void* stream) {
-  if (D < 1 || D > 128 || (part && (bf16_in || Hkv == H))) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+                                    void* dk, void* dv, int32_t B, int32_t S,
+                                    int32_t H, int32_t Hkv, int32_t D,
+                                    float scale, int32_t causal,
+                                    int32_t window, void* stream) {
+  if (D < 1 || D > 128) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* ls = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
-  float* pt = static_cast<float*>(part);
-  const int elem = bf16_in ? 2 : 4;
-  const int vec = use_vec(D, elem, q, k, v, dout);
-  if (bf16_in) {
-    return D <= 64 ? launch_dkdv<bf16, 64>(q, k, v, dout, ls, dl, dk, dv,
-                                           nullptr, B, S, H, Hkv, D, scale,
-                                           causal, window, vec, st)
-                   : launch_dkdv<bf16, 128>(q, k, v, dout, ls, dl, dk, dv,
-                                            nullptr, B, S, H, Hkv, D, scale,
-                                            causal, window, vec, st);
-  }
-  return D <= 64 ? launch_dkdv<float, 64>(q, k, v, dout, ls, dl, dk, dv, pt,
-                                          B, S, H, Hkv, D, scale, causal,
-                                          window, vec, st)
-                 : launch_dkdv<float, 128>(q, k, v, dout, ls, dl, dk, dv, pt,
-                                           B, S, H, Hkv, D, scale, causal,
-                                           window, vec, st);
+  const int vec = use_vec(D, q, k, v, dout);
+  return D <= 64 ? launch_dkdv<bf16, 64>(q, k, v, dout, ls, dl, dk, dv, B, S,
+                                         H, Hkv, D, scale, causal, window,
+                                         vec, st)
+                 : launch_dkdv<bf16, 128>(q, k, v, dout, ls, dl, dk, dv, B,
+                                          S, H, Hkv, D, scale, causal,
+                                          window, vec, st);
 }
 
-// dq (B, S, H, D), the same inputs as repro_flash_bwd_dkdv
+// dq (B, S, H, D) bfloat16, the same inputs as repro_flash_bwd_dkdv
 extern "C" int repro_flash_bwd_dq(const void* q, const void* k,
                                   const void* v, const void* dout,
                                   const void* lse, const void* delta,
                                   void* dq, int32_t B, int32_t S, int32_t H,
                                   int32_t Hkv, int32_t D, float scale,
                                   int32_t causal, int32_t window,
-                                  int32_t bf16_in, void* stream) {
+                                  void* stream) {
   if (D < 1 || D > 128) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* ls = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
-  const int elem = bf16_in ? 2 : 4;
-  const int vec = use_vec(D, elem, q, k, v, dout);
-  if (bf16_in) {
-    return D <= 64 ? launch_dq<bf16, 64>(q, k, v, dout, ls, dl, dq, B, S, H,
-                                         Hkv, D, scale, causal, window, vec,
-                                         st)
-                   : launch_dq<bf16, 128>(q, k, v, dout, ls, dl, dq, B, S, H,
-                                          Hkv, D, scale, causal, window, vec,
-                                          st);
-  }
-  return D <= 64 ? launch_dq<float, 64>(q, k, v, dout, ls, dl, dq, B, S, H,
+  const int vec = use_vec(D, q, k, v, dout);
+  return D <= 64 ? launch_dq<bf16, 64>(q, k, v, dout, ls, dl, dq, B, S, H,
+                                       Hkv, D, scale, causal, window, vec,
+                                       st)
+                 : launch_dq<bf16, 128>(q, k, v, dout, ls, dl, dq, B, S, H,
                                         Hkv, D, scale, causal, window, vec,
-                                        st)
-                 : launch_dq<float, 128>(q, k, v, dout, ls, dl, dq, B, S, H,
-                                         Hkv, D, scale, causal, window, vec,
-                                         st);
+                                        st);
 }
 
 // ------------------------------ bfloat16 on wgmma: the route of the LMs
@@ -726,7 +621,9 @@ constexpr int WB_THREADS = 384, WB_ROWS = 64, WB_BLOCK = 2 * WB_ROWS;
 constexpr int WB_ST = 3;                 // stages of the ring
 constexpr int kWbRelease = 8;            // lane 0 of each consumer warp
 constexpr int kWbProducerRegs = 24, kWbConsumerRegs = 240;
+using sm90::edge_tile;
 using sm90::fast_exp2;
+using sm90::keeps;
 using sm90::pack_bf16;
 
 // Shared memory: four fixed tiles (the block's own rows of two tensors,
@@ -742,22 +639,6 @@ struct WbSmem {
   static constexpr int kBytes = kBars + 8 * (1 + 2 * WB_ST) + 1024;
 };
 constexpr int kMbFixed = 0, kMbFull = 1, kMbEmpty = 1 + WB_ST;
-
-// the keep mask of the reference's model attention: query qi meets key kj
-__device__ __forceinline__ bool keeps(int qi, int kj, int S, int causal,
-                                      int window) {
-  return qi < S && kj < S && (!causal || kj <= qi) &&
-         (!window || kj > qi - window);
-}
-
-// the 64 x 64 tile of queries q0.. and keys k0.. needs the mask: it
-// reaches past S, above the diagonal or behind the window
-__device__ __forceinline__ bool edge_tile(int q0, int k0, int S, int causal,
-                                          int window) {
-  return q0 + WB_ROWS > S || k0 + WB_ROWS > S ||
-         (causal && k0 + WB_ROWS - 1 > q0) ||
-         (window && k0 <= q0 + WB_ROWS - 1 - window);
-}
 
 // the tile masks every pair: its keys all above the diagonal or all
 // behind the window.  A consumer skips its products (an exact no-op, P =
@@ -951,7 +832,8 @@ __global__ void __launch_bounds__(WB_THREADS, 1)
       // float32 in s, and rounded to bf16 once as dV's A operand
       const float* rl = reinterpret_cast<const float*>(sm + rows(st));
       const float* rd = rl + WB_ROWS;
-      const bool edge = edge_tile(q0, kc0, S, causal, window);
+      const bool edge =
+          edge_tile(q0, WB_ROWS, kc0, WB_ROWS, S, causal, window);
 #pragma unroll
       for (int e = 0; e < 32; ++e) {
         const int col = 8 * (e / 4) + col0 + e % 2;
@@ -1146,7 +1028,8 @@ __global__ void __launch_bounds__(WB_THREADS, 1)
       issue_abt<NCH>(dp, fixed(2 + c), ring(st, 1));
       sm90::wgmma_wait<1>();
       sm90::fence_regs(s);
-      const bool edge = edge_tile(qc0, kv0, S, causal, window);
+      const bool edge =
+          edge_tile(qc0, WB_ROWS, kv0, WB_ROWS, S, causal, window);
 #pragma unroll
       for (int e = 0; e < 32; ++e) {
         const int hh = (e / 2) % 2;
@@ -1306,7 +1189,7 @@ int launch_dkdv_wgmma(const CUtensorMap (&maps)[4], const float* lse2,
   auto kernel = flash_bwd_dkdv_wgmma_kernel<NCH, PARTIAL>;
   constexpr int smem = WbSmem<NCH>::kBytes;
   static bool configured = false;
-  const cudaError_t err = allow_smem_bwd(kernel, smem, configured);
+  const cudaError_t err = allow_smem(kernel, smem, configured);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B * H, (S + WB_BLOCK - 1) / WB_BLOCK);
   kernel<<<grid, WB_THREADS, smem, st>>>(
@@ -1324,7 +1207,7 @@ int launch_dq_wgmma(const CUtensorMap (&maps)[4], const float* lse2,
   auto kernel = flash_bwd_dq_wgmma_kernel<NCH>;
   constexpr int smem = WbSmem<NCH>::kBytes;
   static bool configured = false;
-  const cudaError_t err = allow_smem_bwd(kernel, smem, configured);
+  const cudaError_t err = allow_smem(kernel, smem, configured);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B * H, (S + WB_BLOCK - 1) / WB_BLOCK);
   kernel<<<grid, WB_THREADS, smem, st>>>(

@@ -1,10 +1,14 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
-// (mac_gemm.cu through imma.cuh, flash_attn.cu, flash_attn_bwd.cu):
-// 16-byte cp.async with zero fill, the 128-byte swizzled shared-memory
-// layout that wgmma reads, its matrix descriptor, wgmma's fence / commit /
-// wait and the bf16 m64n64k16 products, and for the warp-specialised
-// kernels mbarriers, TMA tile and bulk loads, the bf16 tile maps TMA reads
-// and setmaxnreg.
+// (mac_gemm.cu through imma.cuh, flash_attn.cu, flash_attn_bwd.cu,
+// flash_attn_bwd_tf32.cu and tf32.cuh): 16-byte cp.async with zero fill,
+// the 128-byte swizzled shared-memory layout that wgmma reads, its matrix
+// descriptor, wgmma's fence / commit / wait and the bf16 m64n64k16
+// products, and for the warp-specialised kernels named barriers,
+// mbarriers, TMA tile and bulk loads, the bf16 tile maps TMA reads and
+// setmaxnreg; opaque() hides a value from the compiler.  For the
+// attention kernels: the reference's keep mask and its edge-tile test,
+// and on the host the 16-byte alignment test and the opt-in to more
+// than 48 KB of dynamic shared memory.
 //
 // Layout.  A tile is stored as rows of 128 bytes (128 int8 or 64 bf16
 // values along the row), 16-byte chunk c of row r at r * 128 +
@@ -53,6 +57,27 @@ __device__ __forceinline__ void cp_async_wait() {
 // each writer fences before the barrier that precedes the wgmma
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// x, which the compiler cannot see through: addresses and descriptors
+// built from it are recomputed at each use instead of held in registers
+// across the kv loop (which spilled them: a thread of the float32
+// kernel's 384-thread block has 168 registers)
+template <typename T>
+__device__ __forceinline__ T opaque(T x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
+// named barrier id (0 is __syncthreads' own) over COUNT threads: wait, or
+// arrive without waiting
+template <int COUNT>
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(COUNT) : "memory");
+}
+template <int COUNT>
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(COUNT) : "memory");
 }
 
 // wgmma matrix descriptor of a 128-byte-swizzled tile starting at shared
@@ -268,6 +293,35 @@ inline bool bf16_tile_map(CUtensorMap* map, const void* t, int B, int S,
             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the keep mask of the reference's model attention: query qi meets key kj
+__device__ __forceinline__ bool keeps(int qi, int kj, int S, int causal,
+                                      int window) {
+  return qi < S && kj < S && (!causal || kj <= qi) &&
+         (!window || kj > qi - window);
+}
+
+// the tile of queries [q0, q0 + nq) and keys [k0, k0 + nk) needs the
+// mask: it reaches past S, above the diagonal or behind the window
+__device__ __forceinline__ bool edge_tile(int q0, int nq, int k0, int nk,
+                                          int S, int causal, int window) {
+  return q0 + nq > S || k0 + nk > S || (causal && k0 + nk - 1 > q0) ||
+         (window && k0 <= q0 + nq - 1 - window);
+}
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// above 48 KB of dynamic shared memory only when allowed, once a kernel
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, bool& configured) {
+  if (configured) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  configured = err == cudaSuccess;
+  return err;
 }
 
 }  // namespace sm90

@@ -14,7 +14,9 @@ When q, k or v requires grad (under grad mode), the call goes through
 ``FlashAttention``, a ``torch.autograd.Function``: its forward also
 writes each row's log-sum-exp and saves (q, k, v, o, lse), its backward
 is ``flash_attention_bwd`` (kernels on CUDA tensors, D <= 128, routed by
-``bwd_route``; ``flash_attention_bwd_ref`` on CPU tensors), the
+``bwd_route``: ``csrc/flash_attn_bwd.cu`` in bfloat16,
+``csrc/flash_attn_bwd_tf32.cu`` in float32; ``flash_attention_bwd_ref``
+on CPU tensors), the
 reference model attention's recompute-from-lse backward.  Otherwise
 nothing is saved and no lse is written: serving runs the kernels as they
 were."""
@@ -37,7 +39,7 @@ _DELTA_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int32,) * 5 + (
     ctypes.c_void_p,)
 _BWD_ARGS = lambda n_ptrs: (ctypes.c_void_p,) * n_ptrs + (
     ctypes.c_int32,) * 5 + (ctypes.c_float, ctypes.c_int32, ctypes.c_int32,
-                            ctypes.c_int32, ctypes.c_void_p)
+                            ctypes.c_void_p)
 _PREP_ARGS = (ctypes.c_void_p,) * 5 + (ctypes.c_int32,) * 5 + (
     ctypes.c_void_p,)
 _WB_ARGS = lambda n_ptrs: (ctypes.c_void_p,) * n_ptrs + (
@@ -162,18 +164,29 @@ class FlashAttention(torch.autograd.Function):
 
 def bwd_route(q, k, v, o, do) -> str:
     """The backward's route on the card, by dtype, head size and layout
-    alone: "wgmma" (``flash_bwd_dkdv_wgmma_kernel`` and
+    alone.  Every kernel reads each tensor as a dense (B, S, heads, D)
+    block by fixed strides, so ``flash_attention_bwd`` refuses CUDA
+    tensors that are not contiguous (``on_cpu`` raises ValueError); the
+    layout that matters is the alignment of each base.  "tf32" for
+    float32 (``flash_bwd_dkdv_tf32_kernel`` and
+    ``flash_bwd_dq_tf32_kernel``, 3xTF32 ``wgmma``), whatever the
+    alignment: they load their tiles with 16-byte loads where D % 4 == 0
+    and every row is 16-byte aligned, element by element otherwise (every
+    LM path, D 64 and 128 from fresh allocations, takes the 16-byte
+    loads).  "wgmma" (``flash_bwd_dkdv_wgmma_kernel`` and
     ``flash_bwd_dq_wgmma_kernel``, their tiles brought in by TMA) for
-    bfloat16 with D % 8 == 0 and D <= 128, every tensor contiguous and its
-    base 16-byte aligned: TMA reads rows of D values, which must fill
-    whole 16-byte chunks, from aligned bases; every LM path (D 64 and 128,
-    contiguous (B, S, H, D)) takes it.  "mma" otherwise (float32, a head
-    size that is not a multiple of 8, an unaligned view): the
-    ``mma.sync`` kernels ``flash_bwd_dkdv_kernel`` and
-    ``flash_bwd_dq_kernel``.  Not a fallback: a kernel of either route
-    that fails to build or launch raises."""
+    bfloat16 with D % 8 == 0 and D <= 128, every tensor contiguous and
+    its base 16-byte aligned: TMA reads rows of D values, which must
+    fill whole 16-byte chunks, from aligned bases; every bf16 LM path
+    takes it.  "mma" for the rest of bfloat16 (a head size that is not a
+    multiple of 8, a view off a 16-byte boundary): the ``mma.sync``
+    kernels ``flash_bwd_dkdv_kernel`` and ``flash_bwd_dq_kernel``.  Not
+    a fallback: a kernel of any route that fails to build or launch
+    raises."""
     D = q.shape[3]
-    if q.dtype != torch.bfloat16 or D % 8 or D > MAX_BWD_HEAD_DIM:
+    if q.dtype == torch.float32:
+        return "tf32"
+    if D % 8 or D > MAX_BWD_HEAD_DIM:
         return "mma"
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
                for t in (q, k, v, o, do)):
@@ -184,18 +197,17 @@ def bwd_route(q, k, v, o, do) -> str:
 def bwd_launches(q, k, v, o, do) -> int:
     """Kernels one ``flash_attention_bwd`` call launches on the card: the
     row pass (delta, or on the wgmma route lse and delta), dK and dV, dQ,
-    and with H_kv < H on the wgmma route or in float32 the pass that sums
-    the query heads' partial dK and dV (``_split_group``)."""
+    and with H_kv < H on the wgmma and tf32 routes the pass that sums the
+    query heads' partial dK and dV (``_split_group``)."""
     return 3 + int(_split_group(q, k, bwd_route(q, k, v, o, do)))
 
 
 def _split_group(q, k, route) -> bool:
     """dK and dV a query head at a time, summed after: at H_kv < H on the
-    wgmma route (the group across blocks) and in float32 (the tensor
+    wgmma route (the group across blocks) and the tf32 route (the tensor
     cores' float32 accumulation truncates; one accumulator over a group's
     G S / 8 k steps passes float32's limit at G 8)."""
-    return q.shape[2] != k.shape[2] and (route == "wgmma"
-                                         or q.dtype == torch.float32)
+    return q.shape[2] != k.shape[2] and route in ("wgmma", "tf32")
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0):
@@ -203,9 +215,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0):
     k, v (B, S, H_kv, D), lse (B, H, S) float32 (the forward's) -> dq, dk,
     dv in the inputs' dtype, float32 inside.  CPU tensors: the plain
     version ``flash_attention_bwd_ref``; CUDA tensors: the kernels of
-    ``csrc/flash_attn_bwd.cu`` on ``bwd_route``'s route, each launch
-    counted in ``launches`` (``bwd_launches`` a call); D in (128, 256]
-    raises.
+    ``csrc/flash_attn_bwd.cu`` and ``csrc/flash_attn_bwd_tf32.cu`` on
+    ``bwd_route``'s route, each launch counted in ``launches``
+    (``bwd_launches`` a call); CUDA tensors that are not contiguous
+    raise ValueError (the kernels read fixed strides), as does D in
+    (128, 256].
 
     "wgmma": ``flash_bwd_prep_kernel`` (each row's lse log2(e) and delta
     = rowsum(dO o O), padded to 128 rows), ``flash_bwd_dkdv_wgmma_kernel``
@@ -214,11 +228,20 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0):
     H_kv < H ``flash_bwd_reduce_kernel`` (each query head's float32
     partial dK and dV summed in head order, rounded once: the same bits
     every call), then ``flash_bwd_dq_wgmma_kernel`` (a block per (batch,
-    head, 128 query rows), the kv tiles streamed).  "mma": delta, then
-    dK and dV a KV head's kv tile at a time (float32 with H_kv < H: a
-    query head's, summed by ``flash_bwd_reduce_kernel``), then dQ a query
-    tile at a time.  Bound: the five products, 5 x 2 D per (query, key)
-    pair the mask keeps, at the bf16 tensor-core rate."""
+    head, 128 query rows), the kv tiles streamed).  "tf32":
+    ``flash_bwd_delta_kernel``, ``flash_bwd_dkdv_tf32_kernel`` (a block
+    per (batch, query head, 64 kv rows): K and V split into TF32 hi and
+    lo once, the query tiles (16 rows at D > 64, else 32) split once by
+    a producer warpgroup and staged K-major for both their products;
+    S^T, dP^T, dV += P^T dO, dK += dS^T Q on 3xTF32 ``wgmma``), with
+    H_kv < H ``flash_bwd_reduce_kernel`` (the query heads' partials
+    summed in head order), then ``flash_bwd_dq_tf32_kernel`` (a block per
+    (batch, head, 64 query rows), kv tiles of 32 rows streamed).  "mma":
+    delta, then dK and dV a KV head's kv tile at a time, then dQ a query
+    tile at a time.
+    No atomics on any route: two calls give the same bits.  Bound: the
+    five products, 5 x 2 D per (query, key) pair the mask keeps, at the
+    bf16 tensor-core rate (float32: three TF32 products each)."""
     _check(q, k, v)
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
             or do.dtype != q.dtype:
@@ -254,13 +277,16 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0):
     if route == "wgmma":
         _bwd_wgmma(q, k, v, o, lse, do, dq, dk, dv, part, causal, window)
     else:
-        _bwd_mma(q, k, v, o, lse, do, dq, dk, dv, part, causal, window)
+        _bwd_rows(q, k, v, o, lse, do, dq, dk, dv, part, causal, window,
+                  route)
     return dq, dk, dv
 
 
-def _bwd_mma(q, k, v, o, lse, do, dq, dk, dv, part, causal, window):
-    """The mma.sync route's launches into dq, dk and dv (see
-    ``flash_attention_bwd``)."""
+def _bwd_rows(q, k, v, o, lse, do, dq, dk, dv, part, causal, window,
+              route):
+    """The launches of the "tf32" and "mma" routes into dq, dk and dv:
+    delta, dK and dV (at H_kv < H on the tf32 route each query head's
+    into ``part``, then their sum), dQ (see ``flash_attention_bwd``)."""
     B, S, H, D = q.shape
     Hkv = k.shape[2]
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
@@ -271,17 +297,20 @@ def _bwd_mma(q, k, v, o, lse, do, dq, dk, dv, part, causal, window):
         stream)
     _build.check(rc, "flash_attention_bwd (delta)")
     flash_attention_bwd.launches += 1
+    tag = "_tf32" if route == "tf32" else ""
     common = (B, S, H, Hkv, D, 1.0 / math.sqrt(D), int(causal), window,
-              bf16, stream)
+              stream)
     ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
            lse.data_ptr(), delta.data_ptr())
-    rc = _build.launcher("repro_flash_bwd_dkdv", _BWD_ARGS(9))(
-        *ins, dk.data_ptr(), dv.data_ptr(),
-        part.data_ptr() if part is not None else None, *common)
+    outs = (dk.data_ptr(), dv.data_ptr())
+    if route == "tf32":
+        outs += (part.data_ptr() if part is not None else None,)
+    rc = _build.launcher(f"repro_flash_bwd_dkdv{tag}",
+                         _BWD_ARGS(6 + len(outs)))(*ins, *outs, *common)
     _build.check(rc, "flash_attention_bwd (dk, dv)")
     flash_attention_bwd.launches += 1
     _reduce(part, dk, dv, bf16, stream)
-    rc = _build.launcher("repro_flash_bwd_dq", _BWD_ARGS(7))(
+    rc = _build.launcher(f"repro_flash_bwd_dq{tag}", _BWD_ARGS(7))(
         *ins, dq.data_ptr(), *common)
     _build.check(rc, "flash_attention_bwd (dq)")
     flash_attention_bwd.launches += 1

@@ -26,6 +26,7 @@ from repro.models import layers as JL
 from repro_torch.kernels import flash_attention_bwd, flash_attention_kernel
 from repro_torch.kernels.flash_attn.ref import (flash_attention_bwd_ref,
                                                 flash_attention_ref)
+from test_torch_tf32 import split
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -242,6 +243,111 @@ def test_gqa_split_matches_reference_vjp(case):
             (name, err)
 
 
+# ----------------------------------------- the card's tf32 route, on the CPU
+
+F32_TOL = 2.0 ** -14     # the card's float32 limit, of each gradient's max
+
+
+def _mm3(a, b, three=True):
+    """a @ b as the tf32 kernels take it: a_hi b_hi + a_hi b_lo + a_lo b_hi
+    (test_torch_tf32's split: TF32 rounding on the bit pattern, products
+    of TF32 values exact in float32), or one TF32 product."""
+    (ah, al), (bh, bl) = split(a), split(b)
+    if not three:
+        return ah @ bh
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _bwd_tf32_arithmetic(q, k, v, o, lse, do, window, three=True):
+    """The tf32 route's arithmetic written out in torch on float32 (B, S,
+    h, D) tensors: delta = rowsum(dO o O), P = 2^(S scale log2(e) - lse
+    log2(e)) under the mask, dS = P (dP - delta) scale, each of the five
+    products (S, dP, dV, dK, dQ) in three TF32 terms (``three=False``:
+    one) with float32 sums, each query head's dK and dV a float32 partial,
+    summed over a KV head's G query heads in head order."""
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    log2e = 1.4426950408889634
+    scale = 1.0 / np.sqrt(D)
+    heads = lambda t: t.transpose(1, 2).contiguous()        # (B, h, S, D)
+    qf, kf, vf, of, dof = (heads(t) for t in (q, k, v, o, do))
+    delta = (dof * of).sum(-1)
+    lse2 = lse * log2e
+    keep = torch.ones(S, S, dtype=torch.bool).tril()
+    if window:
+        keep &= ~torch.ones(S, S, dtype=torch.bool).tril(-window)
+    mm = lambda a, b: _mm3(a, b, three)
+    dq = torch.empty_like(qf)
+    part_k = torch.empty(B, H, S, D)
+    part_v = torch.empty(B, H, S, D)
+    for h in range(H):
+        kh, vh = kf[:, h // G], vf[:, h // G]
+        s = mm(qf[:, h], kh.transpose(-1, -2))
+        p = torch.where(keep, torch.exp2(s * np.float32(scale * log2e)
+                                         - lse2[:, h, :, None]), 0.0)
+        dp = mm(dof[:, h], vh.transpose(-1, -2))
+        ds = p * (dp - delta[:, h, :, None]) * np.float32(scale)
+        part_v[:, h] = mm(p.transpose(-1, -2), dof[:, h])
+        part_k[:, h] = mm(ds.transpose(-1, -2), qf[:, h])
+        dq[:, h] = mm(ds, kh)
+    dk = torch.zeros(B, Hkv, S, D)
+    dv = torch.zeros(B, Hkv, S, D)
+    for h in range(H):                     # head order, a KV head's group
+        dk[:, h // G] += part_k[:, h]
+        dv[:, h // G] += part_v[:, h]
+    back = lambda t: t.transpose(1, 2)
+    return back(dq), back(dk), back(dv)
+
+
+def _tf32_case(case):
+    """The reference's gradients (jax.vjp of _flash_attention, float32)
+    and the port's inputs of the same case."""
+    B, S, KH, G, D, window = SPLIT_CASES[case]
+    q, k, v, do = _inputs(B, S, KH, G, D, 6)
+    pos = jnp.arange(S)
+    fn = lambda q, k, v: JL._flash_attention((window, CHUNK, CHUNK), q, k,
+                                             v, pos, pos)
+    _, vjp = jax.vjp(fn, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = [np.asarray(w).reshape(B, S, -1, D) for w in vjp(jnp.asarray(do))]
+    tq, tk, tv, tdo = (_port(x) for x in (q, k, v, do))
+    o, lse = _port_forward(tq, tk, tv, window)
+    return want, (tq, tk, tv, o, lse, tdo), window
+
+
+def _tf32_errors(got, want):
+    """Each gradient's largest error over the larger of its own and dV's
+    largest magnitude."""
+    scale = float(np.abs(want[2]).max())
+    return [float(np.abs(g.numpy() - w).max())
+            / max(float(np.abs(w).max()), scale)
+            for g, w in zip(got, want)]
+
+
+@pytest.mark.parametrize("case", ["g1", "g2_window", "g16"])
+def test_tf32_route_matches_reference_vjp(case):
+    """The tf32 route's arithmetic (every product as three TF32 terms,
+    per-query-head float32 partial dK and dV summed in head order) on
+    float32 inputs against jax.vjp of the reference's _flash_attention at
+    the card's float32 limit: 2^-14 of the larger of each gradient's and
+    dV's largest magnitude."""
+    want, args, window = _tf32_case(case)
+    got = _bwd_tf32_arithmetic(*args, window)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+    errs = _tf32_errors(got, want)
+    assert max(errs) <= F32_TOL, errs
+
+
+@pytest.mark.parametrize("case", ["g1", "g16"])
+def test_one_tf32_product_misses_the_float32_limit(case):
+    """The same arithmetic with one TF32 product in place of three misses
+    2^-14: why the kernels split every operand."""
+    want, args, window = _tf32_case(case)
+    got = _bwd_tf32_arithmetic(*args, window, three=False)
+    assert max(_tf32_errors(got, want)) > F32_TOL
+
+
 def _view(shape, dtype, offset=0, transpose=False):
     """A CPU tensor of ``shape`` whose data starts ``offset`` elements
     into its storage (``transpose``: a (B, H, S, D) buffer viewed as (B,
@@ -262,24 +368,31 @@ ROUTE_CASES = [(torch.bfloat16, 128, 0, False, "wgmma"),
                (torch.bfloat16, 128, 4, False, "mma"),
                (torch.bfloat16, 128, 0, True, "mma"),
                (torch.bfloat16, 100, 0, False, "mma"),
+               (torch.bfloat16, 100, 0, True, "mma"),
                (torch.bfloat16, 36, 0, False, "mma"),
-               (torch.float32, 128, 0, False, "mma"),
-               (torch.float32, 64, 0, False, "mma")]
+               (torch.float32, 128, 0, False, "tf32"),
+               (torch.float32, 64, 0, False, "tf32"),
+               (torch.float32, 30, 0, False, "tf32"),
+               (torch.float32, 128, 1, False, "tf32"),
+               (torch.float32, 128, 0, True, "tf32")]
 
 
 @pytest.mark.parametrize("dtype,D,offset,transpose,route", ROUTE_CASES)
 def test_bwd_route_rule(dtype, D, offset, transpose, route):
     """bwd_route is a function of dtype, D, strides and alignment alone:
-    bf16 with D % 8 == 0 and every tensor contiguous on a 16-byte aligned
-    base takes the wgmma kernels, the rest the mma.sync ones; a call
-    launches 4 kernels on the wgmma route with H_kv < H, else 3."""
+    float32 takes the tf32 kernels whatever its alignment, bf16 with D % 8
+    == 0 and every tensor contiguous on a 16-byte aligned base the wgmma
+    kernels, the rest of bf16 the mma.sync ones; a call launches 4
+    kernels on the wgmma and tf32 routes with H_kv < H, else 3.  (On the
+    card ``flash_attention_bwd`` refuses the transposed views: the
+    kernels read fixed strides.)"""
     from repro_torch.kernels.flash_attn.ops import bwd_launches, bwd_route
     B, S, H, Hkv = 1, 16, 4, 2
     q = _view((B, S, H, D), dtype, offset, transpose)
     k, v = (_view((B, S, Hkv, D), dtype) for _ in range(2))
     o, do = (_view((B, S, H, D), dtype) for _ in range(2))
     assert bwd_route(q, k, v, o, do) == route
-    # the sum pass: the wgmma route and float32 split the group
-    split = route == "wgmma" or dtype == torch.float32
+    # the sum pass: the wgmma and tf32 routes split the group
+    split = route in ("wgmma", "tf32")
     assert bwd_launches(q, k, v, o, do) == (4 if split else 3)
     assert bwd_launches(q, q, q, o, do) == 3       # H_kv == H: no sum pass

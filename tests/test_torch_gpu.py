@@ -1227,13 +1227,16 @@ def test_optimize_routes_on_the_card_matches_the_cpu(cuda):
 # ------------------------------------------------ flash attention backward
 
 # chip_smoke.py's flash_attention_bwd rows: (B, S, H, H_kv, D), dtype,
-# window; the backward's limit, of each gradient's largest magnitude
+# window (bwd-f4k: the float32 training gate's length, an accumulator over
+# 512 k steps); the backward's limit, of each gradient's largest magnitude
 # (bf16: P and dS are rounded to bf16 for their products; float32: 3xTF32)
 BWD_ROWS = {"bwd-b": ((1, 4096, 20, 20, 128), torch.bfloat16, 0),
             "bwd-g": ((1, 4096, 32, 2, 128), torch.bfloat16, 0),
             "bwd-w": ((1, 4096, 32, 16, 128), torch.bfloat16, 1024),
             "bwd-m": ((1, 4096, 32, 32, 64), torch.bfloat16, 0),
-            "bwd-f": ((1, 1024, 20, 20, 128), torch.float32, 0)}
+            "bwd-f": ((1, 1024, 20, 20, 128), torch.float32, 0),
+            "bwd-f4k": ((1, 4096, 20, 20, 128), torch.float32, 0),
+            "bwd-fg": ((1, 1024, 32, 2, 128), torch.float32, 0)}
 BWD_TOL = {torch.bfloat16: 2.0 ** -6, torch.float32: 2.0 ** -14}
 
 
@@ -1297,15 +1300,18 @@ def test_flash_attention_bwd_kernel_sweep(cuda, s, d, h, hkv, causal,
     _assert_bwd_close(got, want, dtype)
 
 
-@pytest.mark.parametrize("shape", [(1, 700, 8, 2, 128),
-                                   BWD_ROWS["bwd-b"][0],
-                                   BWD_ROWS["bwd-g"][0]])
-def test_flash_attention_bwd_is_bitwise_reproducible(cuda, shape):
+@pytest.mark.parametrize("shape,dtype", [
+    ((1, 700, 8, 2, 128), torch.bfloat16), (BWD_ROWS["bwd-b"][0],
+                                            torch.bfloat16),
+    (BWD_ROWS["bwd-g"][0], torch.bfloat16), (BWD_ROWS["bwd-f"][0],
+                                             torch.float32),
+    (BWD_ROWS["bwd-fg"][0], torch.float32)])
+def test_flash_attention_bwd_is_bitwise_reproducible(cuda, shape, dtype):
     """No atomics: two calls give the same bits, at G 1 and where the
-    wgmma route splits the group across blocks (bwd-g: 16 query heads
-    a KV head, summed in head order)."""
-    a, _ = _bwd_case(cuda, shape, torch.bfloat16, True, 0, 3)
-    b, _ = _bwd_case(cuda, shape, torch.bfloat16, True, 0, 3)
+    wgmma and tf32 routes split the group across blocks (bwd-g, bwd-fg:
+    16 query heads a KV head, summed in head order)."""
+    a, _ = _bwd_case(cuda, shape, dtype, True, 0, 3)
+    b, _ = _bwd_case(cuda, shape, dtype, True, 0, 3)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
@@ -1329,18 +1335,19 @@ BWD_ROUTES = [((1, 256, 20, 20, 128), torch.bfloat16, 0, "wgmma"),
               ((1, 256, 8, 8, 64), torch.bfloat16, 0, "wgmma"),
               ((1, 256, 4, 2, 128), torch.bfloat16, 4, "mma"),
               ((1, 256, 4, 2, 100), torch.bfloat16, 0, "mma"),
-              ((1, 256, 4, 4, 128), torch.float32, 0, "mma"),
-              ((1, 256, 8, 2, 64), torch.float32, 0, "mma"),
-              ((1, 256, 4, 2, 30), torch.float32, 0, "mma")]
+              ((1, 256, 4, 4, 128), torch.float32, 0, "tf32"),
+              ((1, 256, 8, 2, 64), torch.float32, 0, "tf32"),
+              ((1, 256, 4, 2, 30), torch.float32, 0, "tf32"),
+              ((1, 256, 4, 2, 128), torch.float32, 1, "tf32")]
 
 
 @pytest.mark.parametrize("shape,dtype,offset,route", BWD_ROUTES)
 def test_flash_attention_bwd_route(cuda, shape, dtype, offset, route):
     """Aligned bf16 LM shapes (D 64 and 128, contiguous) launch the wgmma
-    kernels, an unaligned view, a head size off the multiples of 8 and
-    float32 the mma.sync ones, as bwd_route says, with the sum pass at
-    H_kv < H on the wgmma route and in float32; the launch count is
-    bwd_launches'."""
+    kernels, an unaligned bf16 view and a head size off the multiples of
+    8 the mma.sync ones, float32 (aligned or not, any D) the tf32 ones, as
+    bwd_route says, with the sum pass at H_kv < H on the wgmma and tf32
+    routes; the launch count is bwd_launches'."""
     from repro_torch.kernels.flash_attn.ops import bwd_launches, bwd_route
     B, S, H, Hkv, D = shape
     gen = torch.Generator(device=cuda).manual_seed(S + H + D)
@@ -1354,10 +1361,11 @@ def test_flash_attention_bwd_route(cuda, shape, dtype, offset, route):
     assert bwd_route(q, k, v, o, do) == route
     call = lambda: flash_attention_bwd(q, k, v, o, lse, do)
     names = _bwd_kernel_names(call)
-    tag = "_wgmma" if route == "wgmma" else ""
+    tag = "" if route == "mma" else f"_{route}"
     want = {f"flash_bwd_dkdv{tag}_kernel", f"flash_bwd_dq{tag}_kernel",
-            "flash_bwd_prep_kernel" if tag else "flash_bwd_delta_kernel"}
-    if Hkv != H and (tag or dtype == torch.float32):
+            "flash_bwd_prep_kernel" if route == "wgmma"
+            else "flash_bwd_delta_kernel"}
+    if Hkv != H and route != "mma":
         want.add("flash_bwd_reduce_kernel")
     assert names == want
     reset_launch_counts()
@@ -1367,6 +1375,38 @@ def test_flash_attention_bwd_route(cuda, shape, dtype, offset, route):
         bwd_launches(q, k, v, o, do) == len(want)
     _assert_bwd_close(got, flash_attention_bwd_ref(q, k, v, o, lse, do),
                       dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_refuses_transposed_views(cuda, dtype):
+    """Every flash kernel reads each tensor as a dense (B, S, heads, D)
+    block by fixed strides, so a view that is not contiguous (a (B, H, S,
+    D) buffer viewed as (B, S, H, D)) is refused by the forward and by the
+    backward, in each argument, before anything launches: never read
+    wrongly."""
+    B, S, H, Hkv, D = 1, 256, 8, 2, 128
+    gen = torch.Generator(device=cuda).manual_seed(S + H + D + 1)
+    rnd = lambda h: torch.randn(B, S, h, D, generator=gen,
+                                device=cuda).to(dtype)
+    q, k, v, do = rnd(H), rnd(Hkv), rnd(Hkv), rnd(H)
+    o, lse = flash_forward(q, k, v, True, 0, True)
+    view = lambda t: t.transpose(1, 2).contiguous().transpose(1, 2)
+    reset_launch_counts()
+    for i in range(3):
+        args = [q, k, v]
+        args[i] = view(args[i])
+        assert not args[i].is_contiguous()
+        with pytest.raises(ValueError, match="contiguous"):
+            flash_forward(*args, True, 0, True)
+    for i in range(5):
+        args = [q, k, v, o, do]
+        args[i] = view(args[i])
+        with pytest.raises(ValueError, match="contiguous"):
+            flash_attention_bwd(*args[:4], lse, args[4])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["flash_attention_kernel"] == 0
+    assert counts["flash_attention_bwd"] == 0
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

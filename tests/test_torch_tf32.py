@@ -75,6 +75,17 @@ def test_tf32_rounding_keeps_ten_mantissa_bits():
     assert (hi + lo - x).abs().max() <= 2**-21 * x.abs().max()
 
 
+def test_tf32_split_keeps_each_operand():
+    """hi + lo holds each value to float32's own rounding near 2^-22, and
+    hi is a TF32 value (13 low mantissa bits clear)."""
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(4096)
+                         .astype(np.float32))
+    hi, lo = split(x)
+    assert torch.equal(tf32(hi), hi) and torch.equal(tf32(lo), lo)
+    assert float((hi + lo - x).abs().max()) <= 2.0 ** -21 * float(
+        x.abs().max())
+
+
 @pytest.mark.parametrize("shape,causal", SHAPES)
 def test_three_tf32_products_stay_in_the_float32_tolerance(shape, causal):
     q, k, v = _inputs(shape)

@@ -288,7 +288,26 @@ farm, the DNN pipeline), and checks what comes out:
               over 120 steps (qwen1.5-4b, lr 3e-3: last ten below the
               first ten by 0.15), microbatch 4 against 1 (glm4-9b: loss
               within 5e-3, weights within 5e-4), and the fault-tolerant
-              loop's resume (bitwise) and retry in a temp directory.
+              loop's resume (bitwise) and retry in a temp directory.  The
+              recurrent record: RecurrentGemma-2B (26 layers, 2.894 B
+              parameters) and RWKV-6-1.6B (24 layers, 1.600 B) at full
+              width and depth through ``launch/train.py``'s ``main`` at
+              its defaults (batch 8 x 128, bf16, remat "full"), 4 steps
+              each, a path each: finite losses, the parameters equal to
+              the model tree's count (``param_count`` leaves out the norm
+              vectors), the peak memory, steady ms a step and tokens a
+              second, one step split into forward, backward and AdamW and
+              one profiled, every hand kernel's launches equal to what the
+              layers and steps give (linear_scan_bwd 18, wkv6_bwd 24 and
+              flash's d256 backward 4 x 8 a step) and no plain version
+              called.  Its gradient gates: RecurrentGemma at 3 layers
+              (rglru, rglru, local) and RWKV-6 at 2, full width, batch 1 x
+              4096, the recurrent leaves redrawn as in phase 19, the
+              kernels against linear_scan, wkv6 and flash through their
+              plain versions, at the Qwen gate's limits in bf16 and
+              float32; the scan reading h_t for h_{t-1}, flash without
+              delta (RecurrentGemma) and WKV without its bonus (RWKV-6)
+              must fail them.
     The kernel rows of these paths (mac_conv2d at VGG-16 conv3, at
     batch 32 of it, at ResNet-50's 3x3 and MobileNetV2's 1x1 layers,
     fx_log at 2^20 values, flash_attention_kernel at the LM prefill's
@@ -317,11 +336,21 @@ farm, the DNN pipeline), and checks what comes out:
     lm_train's 1 x 4096 step (bwd-b) and, nested, GLM-4-9B's 32 over 2
     heads (bwd-g), Gemma-3's window 1024 (bwd-w), MusicGen's D 64
     (bwd-m) and float32 at S 1024 (bwd-f), at the float32 gradient
-    gate's S 4096 (bwd-f4k) and at 32 over 2 heads (bwd-fg); its bound
+    gate's S 4096 (bwd-f4k), at 32 over 2 heads (bwd-fg) and at
+    RecurrentGemma-2B's local attention, 10 query heads over 1 KV head of
+    256, window 2048, in bf16 (bwd-r) and float32 (bwd-rf), both on the
+    d256 route (mma.sync kernels at D 256; their forward's lse against
+    the plain version's at 1e-4); its bound
     is the five products of the backward at the bf16 rate (float32: each
     as three TF32 products at the TF32 rate), its library time SDPA's
     backward: one
     SDPA forward and backward less the forward alone (CUDA events).
+    linear_scan_bwd's row (RecurrentGemma's gate, layer 0's backward at 1
+    x 4096 x 2560, and 8 x 128 nested) and wkv6_bwd's (RWKV-6's gate,
+    layer 0's at 1 x 4096 x 32 x 64 bf16) are held against their plain
+    versions (the scan at 2^-18 of each gradient's largest magnitude,
+    WKV at 2^-16 and one bf16 rounding of dr, dk, dv); neither has a
+    library call; their launches are their lm_train path's.
     Row 8 (batch 1) also gives its ``lse`` case: the forward with the
     log-sum-exp written, its lse against the plain version's, and its
     cold time with and without lse.  mac_conv2d's rows also time the
@@ -382,9 +411,10 @@ from repro_torch.kernels import (_build, compact_lanes,  # noqa: E402
                                  event_link_loads, flash_attention_bwd,
                                  flash_attention_kernel,
                                  fx_exp, fx_log, launch_counts, lif_step,
-                                 linear_scan, mac_conv2d, mac_gemm,
-                                 noc_link_loads, reset_launch_counts,
-                                 syn_accum, wkv6)
+                                 linear_scan, linear_scan_bwd, mac_conv2d,
+                                 mac_gemm, noc_link_loads,
+                                 reset_launch_counts, syn_accum, wkv6,
+                                 wkv6_bwd)
 from repro_torch.kernels.event_gather.ops import (  # noqa: E402
     launch as event_gather_launch)
 from repro_torch.kernels.event_gather.ops import (  # noqa: E402
@@ -400,8 +430,9 @@ from repro_torch.kernels.flash_attn import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attn.ref import (  # noqa: E402
     flash_attention_bwd_ref, flash_attention_ref, keep_mask)
 from repro_torch.kernels.lif.ref import lif_step_ref  # noqa: E402
+from repro_torch.kernels.linear_scan import ops as scan_ops  # noqa: E402
 from repro_torch.kernels.linear_scan.ref import (  # noqa: E402
-    linear_scan_ref)
+    linear_scan_bwd_ref, linear_scan_ref)
 from repro_torch.kernels.link_load.ref import (  # noqa: E402
     noc_link_loads_ref)
 from repro_torch.kernels.mac_conv.ops import launch as conv_launch  # noqa: E402
@@ -411,8 +442,9 @@ from repro_torch.kernels.mac_gemm.ref import mac_gemm_ref  # noqa: E402
 from repro_torch.kernels.syn_accum.ref import (pack_spikes,  # noqa: E402
                                                popcount_words,
                                                spike_words, syn_accum_ref)
+from repro_torch.kernels.wkv6 import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.wkv6.ops import route as wkv6_route  # noqa: E402
-from repro_torch.kernels.wkv6.ref import wkv6_ref  # noqa: E402
+from repro_torch.kernels.wkv6.ref import wkv6_bwd_ref, wkv6_ref  # noqa: E402
 from repro_torch.core.nef import build_ensemble, encode_drive  # noqa: E402
 from repro_torch.core.dvfs import QueueDVFS  # noqa: E402
 from repro_torch.learn.adaptive import adaptive_control_graph  # noqa: E402
@@ -608,12 +640,37 @@ MOE_TRAIN = ("olmoe-1b-7b", 4, 4)         # arch, layers of 16, steps
 # flash_attention_bwd's rows: (B, S, H, H_kv, D), dtype, window; bwd-b is
 # lm_train's own layer-0 input.  The limit, of each gradient's largest
 # magnitude: bf16 rounds P and dS for their products, float32 is 3xTF32
+# bwd-r, bwd-rf: RecurrentGemma-2B's local attention, 10 query heads over
+# 1 KV head of 256, window 2048 (the d256 route)
 BWD_ROWS = {"bwd-g": ((1, 4096, 32, 2, 128), torch.bfloat16, 0),
             "bwd-w": ((1, 4096, 32, 16, 128), torch.bfloat16, 1024),
             "bwd-m": ((1, 4096, 32, 32, 64), torch.bfloat16, 0),
             "bwd-f": ((1, 1024, 20, 20, 128), torch.float32, 0),
             "bwd-f4k": ((1, 4096, 20, 20, 128), torch.float32, 0),
-            "bwd-fg": ((1, 1024, 32, 2, 128), torch.float32, 0)}
+            "bwd-fg": ((1, 1024, 32, 2, 128), torch.float32, 0),
+            "bwd-r": ((1, 4096, 10, 1, 256), torch.bfloat16, 2048),
+            "bwd-rf": ((1, 4096, 10, 1, 256), torch.float32, 2048)}
+# lm_train's recurrent record: each recurrent arch at full width and depth
+# through launch/train.py's main at its defaults (batch 8 x 128, bf16,
+# remat "full"), REC_TRAIN_STEPS steps; then its gradient gate at full
+# width, depth REC_GATE_LAYERS (RecurrentGemma's one group: rglru, rglru,
+# local), batch 1 x GATE_SEQ (past the window of 2048; the chunked WKV
+# forward), its zero-initialised leaves redrawn (RECURRENT_REDRAW), at the
+# Qwen gate's limits, and the faults each must fail
+REC_TRAIN_STEPS = 4
+REC_GATE_LAYERS = {"recurrentgemma-2b": 3, "rwkv6-1.6b": 2}
+REC_FAULTS = {"recurrentgemma-2b": ("scan_h_t", "no_delta"),
+              "rwkv6-1.6b": ("no_bonus",)}
+# the backwards' limits against their plain versions on the card, of each
+# gradient's largest magnitude: the scan's (float32, the same formulas:
+# dlam alone sums in another order), WKV's (float32 sums of D in another
+# order; bf16 dr, dk, dv one bf16 rounding, rtol 2^-7)
+SCAN_BWD_REL, WKV_BWD_REL = 2.0 ** -18, 2.0 ** -16
+# operations an element of linear_scan's backward: a recomputed (sigmoid,
+# multiply, exp: 5), the reverse scan's multiply and add, both sigmoids
+# again (6), log a, exp(2 log a), 1 - it, max and sqrt (6), and the chain
+# to dxi, dxa, du and dlam's sum (19)
+SCAN_BWD_OPS = 38
 BWD_TOL = {torch.bfloat16: 2.0 ** -6, torch.float32: 2.0 ** -14}
 LSE_TOL = 1e-4                 # natural-log units, |lse - plain|
 # lm_zoo: each other attention arch at its published widths, depth cut to
@@ -720,7 +777,9 @@ KERNEL_SYMBOLS = {"lif_step": r"\blif_step_kernel\b",
                   "flash_attention_kernel":
                       r"\bflash_attn_(wgmma|tf32)(_d256)?_kernel\b",
                   "linear_scan": r"\blinear_scan_kernel\b",
+                  "linear_scan_bwd": r"\blinear_scan_bwd_kernel\b",
                   "wkv6": r"\bwkv6(_chunked)?_kernel\b",
+                  "wkv6_bwd": r"\bwkv6_bwd_kernel\b",
                   "flash_attention_bwd":
                       r"\bflash_bwd_(delta|prep|dkdv|dq|reduce)"
                       r"(_wgmma|_tf32)?_kernel\b"}
@@ -4265,10 +4324,11 @@ def train_split(cfg, params, opt, batch, dtype, ce_chunk: int) -> dict:
                 step_ms=sum(ms))
 
 
-def step_profile(fn) -> dict:
+def step_profile(fn, names=()) -> dict:
     """One call of ``fn`` (a train step) under the profiler: device busy
-    ms, the idle share of its wall time (which the profiler slows), and
-    the kernels that take the time."""
+    ms, the idle share of its wall time (which the profiler slows), the
+    kernels that take the time and the device ms of each hand kernel in
+    ``names``."""
     kernels, wall_us = device_kernels(fn, 1)
     busy_us = sum(us for _, us in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
@@ -4278,6 +4338,9 @@ def step_profile(fn) -> dict:
     return dict(launches=sum(n for n, _ in kernels.values()),
                 busy_ms=busy_us / 1e3, wall_ms=wall_us / 1e3,
                 idle_share=1.0 - busy_us / wall_us, flash_ms=flash,
+                kernel_ms={name: sum(us for k, (_, us) in kernels.items()
+                                     if re.search(KERNEL_SYMBOLS[name], k))
+                           / 1e3 for name in names},
                 top_kernels=[dict(name=k[:120], launches=n, ms=us / 1e3)
                              for k, (n, us) in top])
 
@@ -4434,6 +4497,324 @@ def gradient_gate(dev) -> dict:
     return out
 
 
+# ------------------------------------------- lm_train: the recurrent archs
+
+@contextlib.contextmanager
+def plain_calls():
+    """Count the calls of the recurrences' and flash's plain versions, as
+    their wrappers call them, while the block runs (a run on the card's
+    kernels calls none)."""
+    calls = {}
+    with contextlib.ExitStack() as stack:
+        for mod, name in ((scan_ops, "linear_scan_ref"),
+                          (scan_ops, "linear_scan_bwd_ref"),
+                          (wkv_ops, "wkv6_ref"), (wkv_ops, "wkv6_bwd_ref"),
+                          (flash_ops, "flash_attention_ref"),
+                          (flash_ops, "flash_attention_bwd_ref")):
+            def counting(*args, _fn=getattr(mod, name), _name=name, **kw):
+                calls[_name] = calls.get(_name, 0) + 1
+                return _fn(*args, **kw)
+            stack.enter_context(patched(mod, name, counting))
+        yield calls
+
+
+def rec_launches(cfg, dtype, forwards: int) -> dict:
+    """The hand kernels one step of ``cfg`` launches at ``dtype``: each
+    layer's forward kernel ``forwards`` times (2 under remat "full": the
+    forward and its recompute), its backward once."""
+    kinds = lm.layer_kinds(cfg)
+    rg, rw = kinds.count("rglru"), kinds.count("rwkv")
+    att = sum(k in lm.ATTN_KINDS for k in kinds)
+    return {"linear_scan": forwards * rg, "linear_scan_bwd": rg,
+            "wkv6": forwards * rw, "wkv6_bwd": rw,
+            "flash_attention_kernel": forwards * att,
+            "flash_attention_bwd": bwd_call_launches(cfg, dtype) * att}
+
+
+def recurrent_train(arch: str, dev, tmp: str) -> tuple[dict, dict]:
+    """``launch/train.py``'s main for ``arch`` at full width and depth and
+    the launcher's defaults, REC_TRAIN_STEPS steps; then one split step
+    and one profiled step on its final state.  Returns the record and the
+    run's launch counts (the path's)."""
+    t_arch = time.perf_counter()
+    cfg = lm_configs.get_arch(arch)
+    steps = REC_TRAIN_STEPS
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    with plain_calls() as plain:
+        t0 = time.perf_counter()
+        out = train_main([
+            "--arch", arch, "--steps", str(steps), "--ckpt-dir",
+            f"{tmp}/{arch}", "--ckpt-every", str(steps + 1), "--seed",
+            str(TRAIN_SEED), "--log-every", "1"])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    counts = launch_counts()
+    max_mem = torch.cuda.max_memory_allocated()
+    log = out["log"]
+    losses = [r["loss"] for r in log]
+    check(len(losses) == steps and all(np.isfinite(losses)),
+          f"lm_train {arch}: losses {losses}")
+    want = {k: n * steps for k, n in
+            rec_launches(cfg, torch.bfloat16, 2).items()}
+    check(all(n == want.get(k, 0) for k, n in counts.items()),
+          f"lm_train {arch}: launches {counts}, expected {want}")
+    check(not plain, f"lm_train {arch}: plain versions called {plain}")
+    params, opt = out["state"]["params"], out["state"]["opt"]
+    del out
+    n_params = sum(p.numel() for p in params.parameters())
+    check(n_params == pspec_count(cfg),
+          f"lm_train {arch}: {n_params} parameters, tree {pspec_count(cfg)}")
+    pipe = SyntheticTokenPipeline(PipelineConfig(
+        vocab_size=cfg.vocab_size, seq_len=128, global_batch=8,
+        seed=TRAIN_SEED), device=dev)
+    split = train_split(cfg, params, opt, pipe.batch(steps), torch.bfloat16,
+                        128)
+    step_fn = make_train_step(cfg, opt=AdamWConfig(lr=TRAIN_LR),
+                              ce_chunk=128, total_steps=steps,
+                              warmup_steps=10)
+    prof_batch = pipe.batch(steps + 1)
+    prof = step_profile(lambda: float(step_fn(params, opt, prof_batch,
+                                              steps)[2]["loss"]),
+                        [k for k, n in want.items() if n])
+    del params, opt, step_fn
+    free_card()
+    dts = [r["dt"] for r in log]
+    steady = dts[1:] or dts
+    return dict(arch=arch, layers=cfg.num_layers, d_model=cfg.d_model,
+                batch=8, seq=128, steps=steps, losses=losses,
+                params=n_params, param_count=cfg.param_count(),
+                step_ms=[d * 1e3 for d in dts],
+                steady_step_ms=float(np.median(steady)) * 1e3,
+                tokens_per_s=8 * 128 / float(np.median(steady)),
+                run_s=run_s, max_memory_allocated=max_mem,
+                launches_per_step={k: n / steps for k, n in counts.items()
+                                   if n},
+                plain_calls=0, split_step=split, profile=prof,
+                phase_s=time.perf_counter() - t_arch), counts
+
+
+def scan_bwd_fault(xi, xa, u, lam, h0, y, dy, dh):
+    """A faulty scan backward: the kernel reading h_t where it reads
+    h_{t-1} (y moved one position earlier, y_0 for h0)."""
+    later = torch.cat([y[:, 1:], y[:, -1:]], 1).contiguous()
+    return linear_scan_bwd(xi, xa, u, lam, y[:, 0].contiguous(), later, dy,
+                           dh)
+
+
+def wkv_bwd_fault(r, k, v, lw, u, s0, dy, ds):
+    """A faulty WKV backward: the kernel without its bonus term (u = 0)."""
+    return wkv6_bwd(r, k, v, lw, torch.zeros_like(u), s0, dy, ds)
+
+
+def rec_backward(function, bwd):
+    """``function``'s (``LinearScan``'s or ``WKV6``'s) backward running
+    ``bwd(*saved tensors, *cotangents)`` in place of its wrapper
+    (``linear_scan_bwd``, ``wkv6_bwd``), inside the block."""
+    def backward(ctx, *grads):
+        return bwd(*ctx.saved_tensors, *(g.contiguous() for g in grads))
+    return patched(function, "backward", staticmethod(backward))
+
+
+def rec_fault(fault: str):
+    """The backward that ``fault`` puts in place, inside the block."""
+    if fault == "no_delta":
+        return flash_backward(train_faults(fault))
+    if fault == "scan_h_t":
+        return rec_backward(scan_ops.LinearScan, scan_bwd_fault)
+    return rec_backward(wkv_ops.WKV6, wkv_bwd_fault)
+
+
+@contextlib.contextmanager
+def plain_recurrent():
+    """linear_scan, wkv6 and flash through their plain versions on card
+    tensors, autograd through them: the recurrent gates' truth."""
+    with patched(lm_rglru, "linear_scan", linear_scan_ref), \
+            patched(lm_rwkv, "wkv6", wkv6_ref), \
+            patched(lm_layers, "flash_attention_kernel", plain_flash):
+        yield
+
+
+@contextlib.contextmanager
+def last_bwd(function, bwd):
+    """Record (clones of) the arguments of the last call of
+    ``function``'s backward wrapper ``bwd`` while the block runs, as
+    ``seen["args"]``: in a backward pass, layer 0's."""
+    seen = {}
+
+    def recording(*args):
+        seen["args"] = tuple(a.detach().clone() for a in args)
+        return bwd(*args)
+    with rec_backward(function, recording):
+        yield seen
+
+
+def recurrent_gate(arch: str, dev) -> tuple[dict, tuple]:
+    """``arch`` at full width, depth REC_GATE_LAYERS, batch 1 x GATE_SEQ,
+    its zero-initialised leaves redrawn: the gradients with the kernels
+    against the same model with linear_scan, wkv6 and flash through their
+    plain versions, differentiated by autograd, at the Qwen gate's limits
+    in bf16 and float32, and each fault of REC_FAULTS failing it.
+    Returns the record and the arguments of the bf16 run's last
+    recurrence backward (layer 0's)."""
+    t_gate = time.perf_counter()
+    cfg = dataclasses.replace(lm_configs.get_arch(arch),
+                              num_layers=REC_GATE_LAYERS[arch])
+    model = lm.init_params(cfg, device=dev, seed=TRAIN_SEED + 1,
+                           requires_grad=True)
+    redraw_recurrent(model, TRAIN_SEED + 1)
+    batch = SyntheticTokenPipeline(PipelineConfig(
+        vocab_size=cfg.vocab_size, seq_len=GATE_SEQ, global_batch=1,
+        seed=TRAIN_SEED + 1), device=dev).batch(0)
+    plain = {}
+    with plain_recurrent():
+        for dt in (torch.bfloat16, torch.float32):
+            plain[dt] = grads_of(cfg, model, batch, dt)
+    dist = {n: float((g - plain[torch.float32][n]).abs().max())
+            for n, g in plain[torch.bfloat16].items()}
+    limit = {torch.bfloat16: {
+                 n: max(GATE_BF16 * d, GATE_BF16_ULP * float(
+                     plain[torch.bfloat16][n].abs().max()))
+                 for n, d in dist.items()},
+             torch.float32: {n: GATE_F32 * float(g.abs().max())
+                             for n, g in plain[torch.float32].items()}}
+
+    def share(got, dt):
+        s = {n: float((g - plain[dt][n]).abs().max()) / limit[dt][n]
+             for n, g in got.items()}
+        worst = max(s, key=s.get)
+        return s[worst], worst
+
+    function, bwd = ((scan_ops.LinearScan, linear_scan_bwd)
+                     if cfg.family == "rglru" else (wkv_ops.WKV6, wkv6_bwd))
+    out = {"arch": arch, "layers": cfg.num_layers, "seq": GATE_SEQ,
+           "kinds": lm.layer_kinds(cfg),
+           "bf16_limit": f"max({GATE_BF16} x |plain bf16 - plain f32|, "
+                         f"{GATE_BF16_ULP} x max |leaf|), a leaf",
+           "f32_limit": f"{GATE_F32} x max |leaf|"}
+    for dt in (torch.bfloat16, torch.float32):
+        key = str(dt).removeprefix("torch.")
+        reset_launch_counts()
+        with last_bwd(function, bwd) as seen:
+            sh, leaf = share(grads_of(cfg, model, batch, dt), dt)
+        counts = launch_counts()
+        want = rec_launches(cfg, dt, 1)
+        check(all(n == want.get(k, 0) for k, n in counts.items()),
+              f"{arch} gradient gate {key}: launches {counts}")
+        check(sh <= 1.0, f"{arch} gradient gate {key}: {leaf} at {sh} of "
+                         f"its limit")
+        if dt == torch.bfloat16:
+            bwd_args = seen["args"]
+        del seen
+        faults = {}
+        for fault in REC_FAULTS[arch]:
+            with rec_fault(fault):
+                fsh, fleaf = share(grads_of(cfg, model, batch, dt), dt)
+            check(fsh > 1.0, f"{arch} gradient gate {key}: fault {fault} "
+                             f"passed ({fleaf} at {fsh})")
+            faults[fault] = dict(share=fsh, leaf=fleaf)
+        out[key] = dict(share=sh, worst_leaf=leaf, faults=faults,
+                        launches={k: n for k, n in counts.items() if n})
+    del model, plain
+    free_card()
+    out["phase_s"] = time.perf_counter() - t_gate
+    return out, bwd_args
+
+
+def recurrent_training(dev, tmp: str) -> tuple[dict, dict, dict]:
+    """lm_train's recurrent record: each arch of RECURRENT_ARCHS trained
+    at full width and depth, then its gradient gate.  Returns the record,
+    each run's launch counts (a path each) and the recurrences' backward
+    arguments for their kernel rows."""
+    t0 = time.perf_counter()
+    record, paths, bwd_in = {}, {}, {}
+    for arch in RECURRENT_ARCHS:
+        record[arch], paths[f"lm_train_{arch}"] = recurrent_train(arch, dev,
+                                                                  tmp)
+        record[arch]["gradient_gate"], bwd_in[arch] = recurrent_gate(arch,
+                                                                     dev)
+    record["phase_s"] = time.perf_counter() - t0
+    return record, paths, bwd_in
+
+
+def recurrent_bwd_rows(dev, bwd_in: dict) -> list:
+    """linear_scan_bwd's row on RecurrentGemma's gate's layer-0 arguments
+    (1 x 4096 x 2560) with 8 x 128 nested, and wkv6_bwd's on RWKV-6's
+    (1 x 4096 x 32 x 64, bf16), each against its plain version; neither
+    has a library call."""
+    flush = l2_flusher(dev)
+    flat = lambda ts: torch.cat([t.float().flatten() for t in ts])
+
+    def scan_row(rows, args, iters, **extra):
+        xi, xa, u, lam, h0, y, dy, dh = args
+        got, want = linear_scan_bwd(*args), linear_scan_bwd_ref(*args)
+        B, S, W = u.shape
+        atol = torch.cat([torch.full((t.numel(),), SCAN_BWD_REL * float(
+            t.abs().max()), device=dev) for t in want])
+        kernel_row(
+            rows, flush, "linear_scan_bwd",
+            "src/repro_torch/csrc/linear_scan.cu",
+            "src/repro/models/rglru.py:72 rg_lru (jax.grad through "
+            "jax.lax.associative_scan; no Pallas kernel)",
+            lambda: linear_scan_bwd(*args),
+            lambda: linear_scan_bwd_ref(*args), flat(got), flat(want),
+            4 * (8 * B * S * W + W + 4 * B * W), SCAN_BWD_OPS * B * S * W,
+            iters, 1, tol=(atol, 0.0), shape=[B, S, W],
+            tolerance_atol=f"{SCAN_BWD_REL} x max |grad|, each of dxi, "
+                           f"dxa, du, dlam, dh0",
+            bitwise={n: bool(torch.equal(g, w)) for n, g, w in zip(
+                ("dxi", "dxa", "du", "dlam", "dh0"), got, want)},
+            **extra)
+        return rows[-1]
+
+    def wkv_row(rows, args, iters, **extra):
+        r, k, v, lw, u, s0, dy, ds = args
+        got, want = wkv6_bwd(*args), wkv6_bwd_ref(*args)
+        B, S, H, D = r.shape
+        rel = 2.0 ** -7 if r.dtype == torch.bfloat16 else 0.0
+        atol = torch.cat([
+            WKV_BWD_REL * float(w.float().abs().max())
+            + (rel if i < 3 else 0.0) * w.float().abs().flatten()
+            for i, w in enumerate(want)])
+        n = B * S * H * D
+        kernel_row(
+            rows, flush, "wkv6_bwd", "src/repro_torch/csrc/wkv6_bwd.cu",
+            "src/repro/models/rwkv6.py:102 wkv_chunked (jax.grad through "
+            "its einsums; no Pallas kernel)", lambda: wkv6_bwd(*args),
+            lambda: wkv6_bwd_ref(*args), flat(got), flat(want),
+            6 * n * r.element_size() + 12 * n + 12 * B * H * D * D
+            + 4 * H * D + 4 * B * H * D, 14 * D * D * B * S * H, iters, 1,
+            tol=(atol, 0.0), shape=[B, S, H, D],
+            dtype=str(r.dtype).removeprefix("torch."),
+            tolerance_atol=f"{WKV_BWD_REL} x max |grad| (dr, dk, dv in "
+                           f"{r.dtype}: + {rel} x |want|)",
+            dstate0_bitwise=bool(torch.equal(got[5], want[5])),
+            checkpoint_chunk=wkv_ops.bwd_chunk(D), **extra)
+        return rows[-1]
+
+    rows = []
+    xi, xa, u, lam, h0, y, dy, dh = bwd_in["recurrentgemma-2b"]
+    gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED + 2)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    W = u.shape[2]
+    small = [rnd(8, 128, W) for _ in range(3)]
+    small_y = linear_scan(*small, lam, torch.zeros(8, W, device=dev))[0]
+    scan_row(rows, bwd_in["recurrentgemma-2b"], 20,
+             main_path="lm_train RecurrentGemma-2B gradient gate (layer 0's "
+                       "backward, 1 x 4096, bf16 activations)",
+             other_shapes=[scan_row([], (*small, lam, torch.zeros(
+                 8, W, device=dev), small_y, rnd(8, 128, W),
+                 torch.zeros(8, W, device=dev)), 20,
+                 shape_tag="8 x 128 (the launcher's batch)")])
+    del small, small_y
+    wkv_row(rows, bwd_in["rwkv6-1.6b"], 3,
+            main_path="lm_train RWKV-6-1.6B gradient gate (layer 0's "
+                      "backward, 1 x 4096, bf16 activations)")
+    free_card()
+    return rows
+
+
 def moe_train(dev) -> dict:
     """OLMoE-1B-7B at full width, MOE_TRAIN's layers, its steps at batch
     8 x 128: finite losses with the auxiliary losses in them, and each
@@ -4575,10 +4956,12 @@ def smoke_training(dev, tmp: str) -> dict:
                 resume_bitwise=True, retry_steps=len(rlog))
 
 
-def phase_lm_train(dev) -> tuple[dict, tuple]:
+def phase_lm_train(dev) -> tuple[dict, tuple, dict, dict]:
     """Training on the card (see the module docstring, phase 20).
-    Returns the 8-step run's launch counts and the 1 x 4096 run's first
-    flash backward arguments (bwd-b's row)."""
+    Returns the 8-step run's launch counts, the 1 x 4096 run's first
+    flash backward arguments (bwd-b's row), the recurrent archs' runs'
+    launch counts (a path each) and their gates' layer-0 recurrence
+    backward arguments (the recurrent backward rows)."""
     t_phase = time.perf_counter()
     cfg = lm_configs.get_arch(TRAIN_ARCH)
     shapes, bwd_in = {}, None
@@ -4589,16 +4972,17 @@ def phase_lm_train(dev) -> tuple[dict, tuple]:
         gate = gradient_gate(dev)
         moe = moe_train(dev)
         smoke = smoke_training(dev, tmp)
+        recurrent, rec_paths, rec_bwd_in = recurrent_training(dev, tmp)
     losses = shapes["b8_s128"]["losses"]
     check(np.mean(losses[-3:]) < np.mean(losses[:3]),
           f"lm_train: loss not falling {losses}")
     emit("lm_train", arch=TRAIN_ARCH, layers=cfg.num_layers,
          d_model=cfg.d_model, heads=[cfg.num_heads, cfg.head_dim],
          d_ff=cfg.d_ff, vocab=cfg.vocab_size, shapes=shapes,
-         gradient_gate=gate, moe=moe, smoke=smoke,
+         gradient_gate=gate, moe=moe, smoke=smoke, recurrent=recurrent,
          card=torch.cuda.get_device_name(0),
          phase_s=time.perf_counter() - t_phase)
-    return shapes["b8_s128"]["launches"], bwd_in
+    return shapes["b8_s128"]["launches"], bwd_in, rec_paths, rec_bwd_in
 
 
 def bwd_rows(dev, bwd_in) -> list:
@@ -4627,8 +5011,9 @@ def bwd_rows(dev, bwd_in) -> list:
         seen = sorted({re.search(sym, n).group(0)
                        for n in device_kernels(call, 3)[0]
                        if re.search(sym, n)})
-        want_route = "wgmma" if dtype == torch.bfloat16 else "tf32"
-        tag = f"_{want_route}"
+        want_route = ("d256" if D > 128 else
+                      "wgmma" if dtype == torch.bfloat16 else "tf32")
+        tag = "" if want_route == "d256" else f"_{want_route}"
         check(route == want_route
               and launched == flash_ops.bwd_launches(q, k, v, o, do)
               and (not seen or {f"flash_bwd_dkdv{tag}_kernel",
@@ -4703,9 +5088,21 @@ def bwd_rows(dev, bwd_in) -> list:
                                     device=dev).to(dtype)
         q, k, v, do = rnd(H), rnd(Hkv), rnd(Hkv), rnd(H)
         o, lse = flash_ops._forward(q, k, v, True, window, True)
+        extra = {}
+        if D > 128:
+            # the D 256 forward's lse (written under grad) against the
+            # plain version's
+            fold = lambda t: t.repeat_interleave(H // t.shape[2], dim=2) \
+                .transpose(1, 2).reshape(B * H, S, D)
+            _, want_lse = flash_attention_ref(fold(q), fold(k), fold(v),
+                                              window=window, return_lse=True)
+            err = max_abs_err(lse.reshape(B * H, S), want_lse)
+            check(err <= LSE_TOL, f"flash_attention_kernel {tag}: lse {err}")
+            extra = dict(lse_max_abs_err=err, lse_tolerance=LSE_TOL)
+            del want_lse
         others.append(row([], (q, k, v, o, lse, do), window,
                           5 if dtype == torch.bfloat16 else 10,
-                          shape_tag=tag))
+                          shape_tag=tag, **extra))
         del q, k, v, do, o, lse
         free_card()
     (args, kw) = bwd_in
@@ -4773,9 +5170,15 @@ def main() -> int:
     rows += phase_accel_kernels(dev, log, attn, lm_attn, zoo_attn, rec_in)
     del log, attn, lm_attn, zoo_attn, rec_in, sim, ev_sim, prog
     free_card()
-    paths["lm_train"], bwd_in = phase_lm_train(dev)
+    paths["lm_train"], bwd_in, rec_paths, rec_bwd_in = phase_lm_train(dev)
+    paths.update(rec_paths)
     rows += bwd_rows(dev, bwd_in)
     del bwd_in
+    free_card()
+    t_rows = time.perf_counter()
+    rows += recurrent_bwd_rows(dev, rec_bwd_in)
+    emit("recurrent_bwd_rows", phase_s=time.perf_counter() - t_rows)
+    del rec_bwd_in
     free_card()
     # each kernel's launches on the path it was checked at
     home = {"event_link_loads": "hybrid_farm_4096pe", "mac_gemm": "hybrid",
@@ -4783,11 +5186,13 @@ def main() -> int:
             "mac_conv2d": "dnn_layers", "fx_log": "elementary",
             "flash_attention_kernel": "lm_serve",
             "linear_scan": "lm_recurrent", "wkv6": "lm_recurrent",
-            "flash_attention_bwd": "lm_train"}
+            "flash_attention_bwd": "lm_train",
+            "linear_scan_bwd": "lm_train_recurrentgemma-2b",
+            "wkv6_bwd": "lm_train_rwkv6-1.6b"}
     for row in rows:
         name = row["name"]
         row["launches"] = paths[home.get(name, "board_ring_4096pe")][name]
-        row["launches_by_path"] = {p: c[name] for p, c in paths.items()}
+        row["launches_by_path"] = {p: c.get(name, 0) for p, c in paths.items()}
     phase_parity(dev)
     emit("script", seconds=time.perf_counter() - t_script)
     print(smi)

@@ -1,15 +1,19 @@
 // Backward of fused softmax attention (flash attention) for Hopper
 // (sm_90a): dQ, dK and dV from Q, K, V, the output O, its cotangent dO and
-// the forward's per-row log-sum-exp.  Three routes, chosen by the wrapper
-// (flash_attn/ops.py::bwd_route) by dtype and layout alone:
+// the forward's per-row log-sum-exp.  Four routes, chosen by the wrapper
+// (flash_attn/ops.py::bwd_route) by dtype, head size and layout alone:
 //   wgmma  bfloat16 with D % 8 == 0 (D <= 128), contiguous, 16-byte
 //          aligned bases (every LM path): warp-specialised kernels on
 //          bf16 wgmma fed by TMA, below;
-//   mma    the rest of bfloat16 (D % 8 != 0 or unaligned rows, which TMA
-//          cannot read): mma.sync m16n8k16 kernels;
-//   tf32   float32: flash_attn_bwd_tf32.cu's 3xTF32 wgmma kernels, with
-//          this file's row pass (flash_bwd_delta_kernel) and sum pass
-//          (flash_bwd_reduce_kernel) in float32.
+//   mma    the rest of bfloat16 at D <= 128 (D % 8 != 0 or unaligned
+//          rows, which TMA cannot read): mma.sync m16n8k16 kernels;
+//   d256   128 < D <= 256 (RecurrentGemma's local attention), both
+//          dtypes: the mma route's kernels at D 256, bfloat16 on
+//          m16n8k16 with 64-row tiles, float32 on 3xTF32 m16n8k8 with
+//          32-row tiles;
+//   tf32   float32 at D <= 128: flash_attn_bwd_tf32.cu's 3xTF32 wgmma
+//          kernels, with this file's row pass (flash_bwd_delta_kernel)
+//          and sum pass (flash_bwd_reduce_kernel) in float32.
 //
 // Replaces no Pallas kernel: the reference's Pallas flash kernel has no
 // backward, and its model attention differentiates through
@@ -101,6 +105,23 @@
 // rounded once, as FlashAttention does) for the products that read them
 // transposed.  Fragments come from padded shared-memory rows by ldmatrix;
 // tiles are loaded synchronously.
+//
+// The d256 route (three kernels, four at H_kv < H): delta, the mma
+// route's dK/dV and dQ kernels instantiated at D 256, and with H_kv < H
+// flash_bwd_reduce_kernel.  bfloat16 keeps the 64-row tiles (K, V, Q and
+// dO of 64 x 256 and P, dS: 154 KB of shared memory; a warp's dK and dV
+// accumulators of 16 rows by 128 columns, 128 registers).  float32 takes
+// 32-row tiles so that the four 32 x 256 tiles fit (143 KB), the 8 warps
+// as 2 row groups by 4 column groups, and runs each product as three TF32
+// products on m16n8k8, each operand split into a high and a low part
+// (tf32.cuh), P and dS kept in float32.  At H_kv < H the group is split:
+// a block per (batch, query head, kv tile) writes the head's float32 dK
+// and dV, and the sum pass adds the G heads in head order (RecurrentGemma
+// is 10 query heads over 1: a block per KV head would leave most SMs
+// idle, and the tensor cores' float32 accumulation truncates over a
+// group's G S / 8 k steps).  Bound: the five products over the band's
+// pairs, 161 GFLOP at 1 x 4096 x 10 heads of 256, window 2048: 163 us at
+// the bf16 rate; float32's three TF32 products each 977 us at 495 T/s.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -109,6 +130,7 @@
 #include <type_traits>
 
 #include "sm90.cuh"
+#include "tf32.cuh"
 
 namespace {
 
@@ -205,28 +227,83 @@ struct Mma<bf16> {
   }
 };
 
-// shared-memory rows padded by 16 bytes: ldmatrix rows stay 16-byte
-// aligned and 8 consecutive rows fall on distinct banks
-template <typename T, int DP>
-struct BwdSmem {
-  static constexpr int kPad = 16 / sizeof(T);
-  static constexpr int LD = DP + kPad;           // a 64 x DP tile's rows
-  static constexpr int LDP = BT + kPad;          // a 64 x 64 tile's rows
-  static constexpr int kTile = BT * LD, kSq = BT * LDP;   // elements
-  // K, V, Q, dO; P, dS; lse and delta of the query tile
-  static constexpr int kBytes =
-      (4 * kTile + 2 * kSq) * static_cast<int>(sizeof(T)) + 2 * BT * 4;
+// float32: 3xTF32 on m16n8k8, each operand split once into a TF32 high
+// and low part (tf32.cuh), a b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi
+template <>
+struct Mma<float> {
+  static constexpr int K = 8;
+  struct A { uint32_t hi[4], lo[4]; };
+  struct B { uint32_t hi[2], lo[2]; };
+  // m16n8k8 TF32 fragments: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4),
+  // a3 (g + 8, t + 4); b0 (k t, n g), b1 (k t + 4, n g)
+  template <bool TRANS>
+  __device__ static A load_a(const float* s, int ld, int m0, int k0) {
+    const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+    auto at = [&](int m, int kk) {
+      return TRANS ? s[kk * ld + m] : s[m * ld + kk];
+    };
+    const float x[4] = {at(m0 + g, k0 + t), at(m0 + g + 8, k0 + t),
+                        at(m0 + g, k0 + t + 4), at(m0 + g + 8, k0 + t + 4)};
+    A a;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) tf32::split_tf32(x[i], a.hi[i], a.lo[i]);
+    return a;
+  }
+  template <bool NK>
+  __device__ static B load_b(const float* s, int ld, int k0, int n0) {
+    const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+    auto at = [&](int kk, int n) {
+      return NK ? s[n * ld + kk] : s[kk * ld + n];
+    };
+    const float x[2] = {at(k0 + t, n0 + g), at(k0 + t + 4, n0 + g)};
+    B b;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) tf32::split_tf32(x[i], b.hi[i], b.lo[i]);
+    return b;
+  }
+  __device__ static void mma1(float (&c)[4], const uint32_t (&a)[4],
+                              const uint32_t (&b)[2]) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
+  // the small terms first
+  __device__ static void mma(float (&c)[4], const A& a, const B& b) {
+    mma1(c, a.lo, b.hi);
+    mma1(c, a.hi, b.lo);
+    mma1(c, a.hi, b.hi);
+  }
 };
 
-// rows r0 .. r0 + 63 of one head of a (B, S, heads, D) tensor (g: its row
-// 0, rows rs elements apart) into s (64 x DP, rows ld apart), zeros past S
-// and D; vec: D a multiple of 16 bytes and 16-byte aligned rows
-template <typename T, int DP>
+// shared-memory rows padded by 16 bytes: ldmatrix rows stay 16-byte
+// aligned and 8 consecutive rows fall on distinct banks.  R rows a query
+// or kv tile (64, or 32 for float32 at D 256); the 8 warps as WR row
+// groups of 16 by WC column groups
+template <typename T, int DP, int R = BT>
+struct BwdSmem {
+  static constexpr int kPad = 16 / sizeof(T);
+  static constexpr int LD = DP + kPad;           // an R x DP tile's rows
+  static constexpr int LDP = R + kPad;           // an R x R tile's rows
+  static constexpr int kTile = R * LD, kSq = R * LDP;   // elements
+  // K, V, Q, dO; P, dS; lse and delta of the query tile
+  static constexpr int kBytes =
+      (4 * kTile + 2 * kSq) * static_cast<int>(sizeof(T)) + 2 * R * 4;
+  static constexpr int WR = R / 16, WC = 8 / WR;
+  static constexpr int NS = R / WC / 8;          // 8-key tiles a warp
+  static constexpr int NP = DP / WC / 8;         // 8-column tiles a warp
+};
+
+// rows r0 .. r0 + R - 1 of one head of a (B, S, heads, D) tensor (g: its
+// row 0, rows rs elements apart) into s (R x DP, rows ld apart), zeros
+// past S and D; vec: D a multiple of 16 bytes and 16-byte aligned rows
+template <typename T, int DP, int R = BT>
 __device__ void load_tile(T* s, int ld, const T* g, int64_t rs, int r0,
                           int S, int D, int vec) {
   if (vec) {
     constexpr int V = 16 / sizeof(T), NC = DP / V;
-    for (int i = threadIdx.x; i < BT * NC; i += BWD_THREADS) {
+    for (int i = threadIdx.x; i < R * NC; i += BWD_THREADS) {
       const int r = i / NC, c = (i % NC) * V;
       uint4 val = make_uint4(0, 0, 0, 0);
       if (r0 + r < S && c < D) {
@@ -235,7 +312,7 @@ __device__ void load_tile(T* s, int ld, const T* g, int64_t rs, int r0,
       *reinterpret_cast<uint4*>(s + r * ld + c) = val;
     }
   } else {
-    for (int i = threadIdx.x; i < BT * DP; i += BWD_THREADS) {
+    for (int i = threadIdx.x; i < R * DP; i += BWD_THREADS) {
       const int r = i / DP, c = i % DP;
       s[r * ld + c] = (r0 + r < S && c < D) ? g[(r0 + r) * rs + c]
                                             : from_f32<T>(0.f);
@@ -243,12 +320,13 @@ __device__ void load_tile(T* s, int ld, const T* g, int64_t rs, int r0,
   }
 }
 
-// lse and delta of query rows q0 .. q0 + 63 (zeros past S)
+// lse and delta of query rows q0 .. q0 + R - 1 (zeros past S)
+template <int R = BT>
 __device__ __forceinline__ void load_rows(float* s_lse, float* s_delta,
                                           const float* lse,
                                           const float* delta, int q0,
                                           int S) {
-  if (threadIdx.x < BT) {
+  if (threadIdx.x < R) {
     const int r = q0 + threadIdx.x;
     s_lse[threadIdx.x] = r < S ? lse[r] : 0.f;
     s_delta[threadIdx.x] = r < S ? delta[r] : 0.f;
@@ -256,9 +334,9 @@ __device__ __forceinline__ void load_rows(float* s_lse, float* s_delta,
 }
 
 // S = Q K^T and dP = dO V^T of the staged tiles (this warp's 16 query rows
-// by 32 keys), then P = exp(S scale - lse) and dS = P (dP - delta) scale
-// under the mask (zero elsewhere) into sP (when not null) and sdS
-template <typename T, int DP>
+// by R / WC keys), then P = exp(S scale - lse) and dS = P (dP - delta)
+// scale under the mask (zero elsewhere) into sP (when not null) and sdS
+template <typename T, int DP, int R = BT>
 __device__ __forceinline__ void scores(const T* sQ, const T* sdO,
                                        const T* sK, const T* sV, T* sP,
                                        T* sdS, const float* s_lse,
@@ -266,26 +344,27 @@ __device__ __forceinline__ void scores(const T* sQ, const T* sdO,
                                        int S, float scale, int causal,
                                        int window) {
   using M = Mma<T>;
-  using L = BwdSmem<T, DP>;
+  using L = BwdSmem<T, DP, R>;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wr = warp % 4, wc = warp / 4, g = lane / 4, t = lane % 4;
-  float s_acc[4][4] = {}, dp_acc[4][4] = {};
+  const int wr = warp % L::WR, wc = warp / L::WR, g = lane / 4, t = lane % 4;
+  float s_acc[L::NS][4] = {}, dp_acc[L::NS][4] = {};
 #pragma unroll
   for (int kk = 0; kk < DP; kk += M::K) {
     const auto aq = M::template load_a<false>(sQ, L::LD, 16 * wr, kk);
     const auto ad = M::template load_a<false>(sdO, L::LD, 16 * wr, kk);
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int n0 = 32 * wc + 8 * nt;
+    for (int nt = 0; nt < L::NS; ++nt) {
+      const int n0 = (R / L::WC) * wc + 8 * nt;
       M::mma(s_acc[nt], aq, M::template load_b<true>(sK, L::LD, kk, n0));
       M::mma(dp_acc[nt], ad, M::template load_b<true>(sV, L::LD, kk, n0));
     }
   }
 #pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
+  for (int nt = 0; nt < L::NS; ++nt) {
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
-      const int r = 16 * wr + g + 8 * hh, c = 32 * wc + 8 * nt + 2 * t;
+      const int r = 16 * wr + g + 8 * hh;
+      const int c = (R / L::WC) * wc + 8 * nt + 2 * t;
       const int qi = q0 + r;
       float p[2], ds[2];
 #pragma unroll
@@ -302,23 +381,25 @@ __device__ __forceinline__ void scores(const T* sQ, const T* sdO,
   }
 }
 
-// this warp's accumulator of 16 rows by DP / 2 columns to rows r0.. of one
-// head of a (B, S, heads, D) tensor (g: its row 0, rows rs apart)
-template <typename T, int DP>
-__device__ __forceinline__ void store_rows(T* out, int64_t rs,
-                                           const float (&acc)[DP / 16][4],
-                                           int r0, int S, int D) {
+// this warp's accumulator of 16 rows by DP / WC columns to rows r0.. of
+// one head of a (B, S, heads, D) tensor of U (out: its row 0, rows rs
+// apart)
+template <typename T, int DP, int R, typename U>
+__device__ __forceinline__ void store_rows(
+    U* out, int64_t rs, const float (&acc)[BwdSmem<T, DP, R>::NP][4],
+    int r0, int S, int D) {
+  using L = BwdSmem<T, DP, R>;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wr = warp % 4, wc = warp / 4, g = lane / 4, t = lane % 4;
+  const int wr = warp % L::WR, wc = warp / L::WR, g = lane / 4, t = lane % 4;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int r = r0 + 16 * wr + g + 8 * hh;
     if (r >= S) continue;
 #pragma unroll
-    for (int nt = 0; nt < DP / 16; ++nt) {
-      const int c = (DP / 2) * wc + 8 * nt + 2 * t;
-      if (c < D) out[r * rs + c] = from_f32<T>(acc[nt][2 * hh]);
-      if (c + 1 < D) out[r * rs + c + 1] = from_f32<T>(acc[nt][2 * hh + 1]);
+    for (int nt = 0; nt < L::NP; ++nt) {
+      const int c = (DP / L::WC) * wc + 8 * nt + 2 * t;
+      if (c < D) out[r * rs + c] = from_f32<U>(acc[nt][2 * hh]);
+      if (c + 1 < D) out[r * rs + c + 1] = from_f32<U>(acc[nt][2 * hh + 1]);
     }
   }
 }
@@ -352,19 +433,23 @@ __global__ void __launch_bounds__(BWD_THREADS)
 }
 
 // A block per (batch x KV head, kv tile): dK and dV of the tile, summed
-// over the group's G query heads and every query tile that meets it
-template <typename T, int DP>
+// over the group's G query heads and every query tile that meets it.
+// With part (the group split): a block per (batch x query head, kv tile),
+// the head's float32 dK and dV into part (2, B, S, H, D), which
+// flash_bwd_reduce_kernel sums in head order
+template <typename T, int DP, int R>
 __global__ void __launch_bounds__(BWD_THREADS)
     flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v,
                           const T* __restrict__ dout,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
-                          T* __restrict__ dk, T* __restrict__ dv, int S,
-                          int H, int Hkv, int D, float scale, int causal,
-                          int window, int vec) {
+                          T* __restrict__ dk, T* __restrict__ dv,
+                          float* __restrict__ part, int S, int H, int Hkv,
+                          int D, float scale, int causal, int window,
+                          int vec) {
   using M = Mma<T>;
-  using L = BwdSmem<T, DP>;
+  using L = BwdSmem<T, DP, R>;
   extern __shared__ __align__(16) uint8_t smem_bwd[];
   T* sK = reinterpret_cast<T*>(smem_bwd);
   T* sV = sK + L::kTile;
@@ -373,47 +458,51 @@ __global__ void __launch_bounds__(BWD_THREADS)
   T* sP = sdO + L::kTile;
   T* sdS = sP + L::kSq;
   float* s_lse = reinterpret_cast<float*>(sdS + L::kSq);
-  float* s_delta = s_lse + BT;
+  float* s_delta = s_lse + R;
 
-  const int k0 = blockIdx.x * BT;   // low tiles meet the most queries: first
+  const int k0 = blockIdx.x * R;    // low tiles meet the most queries: first
   const int G = H / Hkv;
-  const int b = blockIdx.y / Hkv, hk = blockIdx.y % Hkv;
+  const bool split = part != nullptr;
+  const int heads = split ? H : Hkv;
+  const int b = blockIdx.y / heads, hy = blockIdx.y % heads;
+  const int hk = split ? hy / G : hy;
+  const int g_lo = split ? hy % G : 0, g_hi = split ? g_lo + 1 : G;
   const int64_t qrs = static_cast<int64_t>(H) * D;
   const int64_t krs = static_cast<int64_t>(Hkv) * D;
   const int64_t kbase = (static_cast<int64_t>(b) * S * Hkv + hk) * D;
   const int warp = threadIdx.x / 32;
-  const int wr = warp % 4, wc = warp / 4;
-  float dk_acc[DP / 16][4] = {}, dv_acc[DP / 16][4] = {};
+  const int wr = warp % L::WR, wc = warp / L::WR;
+  float dk_acc[L::NP][4] = {}, dv_acc[L::NP][4] = {};
 
-  load_tile<T, DP>(sK, L::LD, k + kbase, krs, k0, S, D, vec);
-  load_tile<T, DP>(sV, L::LD, v + kbase, krs, k0, S, D, vec);
-  // the query tiles that meet keys k0 .. k0 + 63: from the diagonal (causal)
-  // to the last query within the window of the tile's last key
-  const int n_q = (S + BT - 1) / BT;
-  const int qt_lo = causal ? k0 / BT : 0;
-  const int qt_hi = window ? min(n_q, (k0 + BT - 2 + window) / BT + 1) : n_q;
-  for (int gi = 0; gi < G; ++gi) {
+  load_tile<T, DP, R>(sK, L::LD, k + kbase, krs, k0, S, D, vec);
+  load_tile<T, DP, R>(sV, L::LD, v + kbase, krs, k0, S, D, vec);
+  // the query tiles that meet keys k0 .. k0 + R - 1: from the diagonal
+  // (causal) to the last query within the window of the tile's last key
+  const int n_q = (S + R - 1) / R;
+  const int qt_lo = causal ? k0 / R : 0;
+  const int qt_hi = window ? min(n_q, (k0 + R - 2 + window) / R + 1) : n_q;
+  for (int gi = g_lo; gi < g_hi; ++gi) {
     const int h = hk * G + gi;
     const int64_t qbase = (static_cast<int64_t>(b) * S * H + h) * D;
     const int64_t rbase = (static_cast<int64_t>(b) * H + h) * S;
     for (int qt = qt_lo; qt < qt_hi; ++qt) {
-      const int q0 = qt * BT;
+      const int q0 = qt * R;
       __syncthreads();               // the last tile's readers are done
-      load_tile<T, DP>(sQ, L::LD, q + qbase, qrs, q0, S, D, vec);
-      load_tile<T, DP>(sdO, L::LD, dout + qbase, qrs, q0, S, D, vec);
-      load_rows(s_lse, s_delta, lse + rbase, delta + rbase, q0, S);
+      load_tile<T, DP, R>(sQ, L::LD, q + qbase, qrs, q0, S, D, vec);
+      load_tile<T, DP, R>(sdO, L::LD, dout + qbase, qrs, q0, S, D, vec);
+      load_rows<R>(s_lse, s_delta, lse + rbase, delta + rbase, q0, S);
       __syncthreads();
-      scores<T, DP>(sQ, sdO, sK, sV, sP, sdS, s_lse, s_delta, q0, k0, S,
-                    scale, causal, window);
+      scores<T, DP, R>(sQ, sdO, sK, sV, sP, sdS, s_lse, s_delta, q0, k0, S,
+                       scale, causal, window);
       __syncthreads();
-      // dV += P^T dO, dK += dS^T Q: this warp's 16 keys by DP / 2 columns
+      // dV += P^T dO, dK += dS^T Q: this warp's 16 keys by DP / WC columns
 #pragma unroll
-      for (int kk = 0; kk < BT; kk += M::K) {
+      for (int kk = 0; kk < R; kk += M::K) {
         const auto ap = M::template load_a<true>(sP, L::LDP, 16 * wr, kk);
         const auto as = M::template load_a<true>(sdS, L::LDP, 16 * wr, kk);
 #pragma unroll
-        for (int nt = 0; nt < DP / 16; ++nt) {
-          const int n0 = (DP / 2) * wc + 8 * nt;
+        for (int nt = 0; nt < L::NP; ++nt) {
+          const int n0 = (DP / L::WC) * wc + 8 * nt;
           M::mma(dv_acc[nt], ap,
                  M::template load_b<false>(sdO, L::LD, kk, n0));
           M::mma(dk_acc[nt], as,
@@ -422,13 +511,20 @@ __global__ void __launch_bounds__(BWD_THREADS)
       }
     }
   }
-  store_rows<T, DP>(dk + kbase, krs, dk_acc, k0, S, D);
-  store_rows<T, DP>(dv + kbase, krs, dv_acc, k0, S, D);
+  if (split) {
+    const int64_t pbase = (static_cast<int64_t>(b) * S * H + hy) * D;
+    const int64_t plane = static_cast<int64_t>(gridDim.y) * S * D;
+    store_rows<T, DP, R>(part + pbase, qrs, dk_acc, k0, S, D);
+    store_rows<T, DP, R>(part + plane + pbase, qrs, dv_acc, k0, S, D);
+  } else {
+    store_rows<T, DP, R>(dk + kbase, krs, dk_acc, k0, S, D);
+    store_rows<T, DP, R>(dv + kbase, krs, dv_acc, k0, S, D);
+  }
 }
 
 // A block per (batch x head, query tile): dQ of the tile over every kv
 // tile that meets it
-template <typename T, int DP>
+template <typename T, int DP, int R>
 __global__ void __launch_bounds__(BWD_THREADS)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
@@ -437,7 +533,7 @@ __global__ void __launch_bounds__(BWD_THREADS)
                         int S, int H, int Hkv, int D, float scale,
                         int causal, int window, int vec) {
   using M = Mma<T>;
-  using L = BwdSmem<T, DP>;
+  using L = BwdSmem<T, DP, R>;
   extern __shared__ __align__(16) uint8_t smem_bwd[];
   T* sK = reinterpret_cast<T*>(smem_bwd);
   T* sV = sK + L::kTile;
@@ -445,10 +541,10 @@ __global__ void __launch_bounds__(BWD_THREADS)
   T* sdO = sQ + L::kTile;
   T* sdS = sdO + L::kTile + L::kSq;
   float* s_lse = reinterpret_cast<float*>(sdS + L::kSq);
-  float* s_delta = s_lse + BT;
+  float* s_delta = s_lse + R;
 
-  const int n_q = (S + BT - 1) / BT;
-  const int q0 = (n_q - 1 - blockIdx.x) * BT;     // longest first
+  const int n_q = (S + R - 1) / R;
+  const int q0 = (n_q - 1 - blockIdx.x) * R;      // longest first
   const int b = blockIdx.y / H, h = blockIdx.y % H;
   const int64_t qrs = static_cast<int64_t>(H) * D;
   const int64_t krs = static_cast<int64_t>(Hkv) * D;
@@ -457,39 +553,39 @@ __global__ void __launch_bounds__(BWD_THREADS)
       (static_cast<int64_t>(b) * S * Hkv + h / (H / Hkv)) * D;
   const int64_t rbase = (static_cast<int64_t>(b) * H + h) * S;
   const int warp = threadIdx.x / 32;
-  const int wr = warp % 4, wc = warp / 4;
-  float dq_acc[DP / 16][4] = {};
+  const int wr = warp % L::WR, wc = warp / L::WR;
+  float dq_acc[L::NP][4] = {};
 
-  load_tile<T, DP>(sQ, L::LD, q + qbase, qrs, q0, S, D, vec);
-  load_tile<T, DP>(sdO, L::LD, dout + qbase, qrs, q0, S, D, vec);
-  load_rows(s_lse, s_delta, lse + rbase, delta + rbase, q0, S);
+  load_tile<T, DP, R>(sQ, L::LD, q + qbase, qrs, q0, S, D, vec);
+  load_tile<T, DP, R>(sdO, L::LD, dout + qbase, qrs, q0, S, D, vec);
+  load_rows<R>(s_lse, s_delta, lse + rbase, delta + rbase, q0, S);
   // kv tiles from the first inside the window of the tile's first query to
   // the last below the diagonal (causal)
-  const int n_k = (S + BT - 1) / BT;
-  const int kt_lo = window ? max(0, q0 - window + 1) / BT : 0;
-  const int kt_hi = causal ? min(n_k, (q0 + BT - 1) / BT + 1) : n_k;
+  const int n_k = (S + R - 1) / R;
+  const int kt_lo = window ? max(0, q0 - window + 1) / R : 0;
+  const int kt_hi = causal ? min(n_k, (q0 + R - 1) / R + 1) : n_k;
   for (int kt = kt_lo; kt < kt_hi; ++kt) {
-    const int k0 = kt * BT;
+    const int k0 = kt * R;
     __syncthreads();                 // the last tile's readers are done
-    load_tile<T, DP>(sK, L::LD, k + kbase, krs, k0, S, D, vec);
-    load_tile<T, DP>(sV, L::LD, v + kbase, krs, k0, S, D, vec);
+    load_tile<T, DP, R>(sK, L::LD, k + kbase, krs, k0, S, D, vec);
+    load_tile<T, DP, R>(sV, L::LD, v + kbase, krs, k0, S, D, vec);
     __syncthreads();
-    scores<T, DP>(sQ, sdO, sK, sV, nullptr, sdS, s_lse, s_delta, q0, k0, S,
-                  scale, causal, window);
+    scores<T, DP, R>(sQ, sdO, sK, sV, nullptr, sdS, s_lse, s_delta, q0, k0,
+                     S, scale, causal, window);
     __syncthreads();
-    // dQ += dS K: this warp's 16 query rows by DP / 2 columns
+    // dQ += dS K: this warp's 16 query rows by DP / WC columns
 #pragma unroll
-    for (int kk = 0; kk < BT; kk += M::K) {
+    for (int kk = 0; kk < R; kk += M::K) {
       const auto as = M::template load_a<false>(sdS, L::LDP, 16 * wr, kk);
 #pragma unroll
-      for (int nt = 0; nt < DP / 16; ++nt) {
+      for (int nt = 0; nt < L::NP; ++nt) {
         M::mma(dq_acc[nt], as,
-               M::template load_b<false>(sK, L::LD, kk, (DP / 2) * wc +
+               M::template load_b<false>(sK, L::LD, kk, (DP / L::WC) * wc +
                                                         8 * nt));
       }
     }
   }
-  store_rows<T, DP>(dq + qbase, qrs, dq_acc, q0, S, D);
+  store_rows<T, DP, R>(dq + qbase, qrs, dq_acc, q0, S, D);
 }
 
 namespace {
@@ -497,37 +593,38 @@ namespace {
 using sm90::aligned16;
 using sm90::allow_smem;
 
-template <typename T, int DP>
+template <typename T, int DP, int R = BT>
 int launch_dkdv(const void* q, const void* k, const void* v,
                 const void* dout, const float* lse, const float* delta,
-                void* dk, void* dv, int B, int S, int H, int Hkv, int D,
-                float scale, int causal, int window, int vec,
+                void* dk, void* dv, float* part, int B, int S, int H,
+                int Hkv, int D, float scale, int causal, int window, int vec,
                 cudaStream_t st) {
-  auto kernel = flash_bwd_dkdv_kernel<T, DP>;
-  constexpr int smem = BwdSmem<T, DP>::kBytes;
+  auto kernel = flash_bwd_dkdv_kernel<T, DP, R>;
+  constexpr int smem = BwdSmem<T, DP, R>::kBytes;
+  static_assert(smem <= 232448, "shared memory");
   static bool configured = false;
   const cudaError_t err = allow_smem(kernel, smem, configured);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((S + BT - 1) / BT, B * Hkv);
+  const dim3 grid((S + R - 1) / R, B * (part != nullptr ? H : Hkv));
   kernel<<<grid, BWD_THREADS, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), S, H, Hkv, D, scale, causal,
-      window, vec);
+      static_cast<T*>(dk), static_cast<T*>(dv), part, S, H, Hkv, D, scale,
+      causal, window, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int DP>
+template <typename T, int DP, int R = BT>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, void* dq, int B, int S,
               int H, int Hkv, int D, float scale, int causal, int window,
               int vec, cudaStream_t st) {
-  auto kernel = flash_bwd_dq_kernel<T, DP>;
-  constexpr int smem = BwdSmem<T, DP>::kBytes;
+  auto kernel = flash_bwd_dq_kernel<T, DP, R>;
+  constexpr int smem = BwdSmem<T, DP, R>::kBytes;
   static bool configured = false;
   const cudaError_t err = allow_smem(kernel, smem, configured);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((S + BT - 1) / BT, B * H);
+  const dim3 grid((S + R - 1) / R, B * H);
   kernel<<<grid, BWD_THREADS, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
@@ -535,12 +632,13 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
-// 16-byte loads where D fills whole 16-byte chunks (8 bf16 values) and
-// every row is aligned
+// 16-byte loads where D fills whole 16-byte chunks and every row is
+// aligned
+template <typename T>
 int use_vec(int D, const void* a, const void* b, const void* c,
             const void* d) {
-  return D % 8 == 0 && aligned16(a) && aligned16(b) && aligned16(c) &&
-         aligned16(d);
+  return D * sizeof(T) % 16 == 0 && aligned16(a) && aligned16(b) &&
+         aligned16(c) && aligned16(d);
 }
 
 }  // namespace
@@ -580,13 +678,13 @@ extern "C" int repro_flash_bwd_dkdv(const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* ls = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
-  const int vec = use_vec(D, q, k, v, dout);
-  return D <= 64 ? launch_dkdv<bf16, 64>(q, k, v, dout, ls, dl, dk, dv, B, S,
-                                         H, Hkv, D, scale, causal, window,
-                                         vec, st)
-                 : launch_dkdv<bf16, 128>(q, k, v, dout, ls, dl, dk, dv, B,
-                                          S, H, Hkv, D, scale, causal,
-                                          window, vec, st);
+  const int vec = use_vec<bf16>(D, q, k, v, dout);
+  return D <= 64 ? launch_dkdv<bf16, 64>(q, k, v, dout, ls, dl, dk, dv,
+                                         nullptr, B, S, H, Hkv, D, scale,
+                                         causal, window, vec, st)
+                 : launch_dkdv<bf16, 128>(q, k, v, dout, ls, dl, dk, dv,
+                                          nullptr, B, S, H, Hkv, D, scale,
+                                          causal, window, vec, st);
 }
 
 // dq (B, S, H, D) bfloat16, the same inputs as repro_flash_bwd_dkdv
@@ -601,13 +699,94 @@ extern "C" int repro_flash_bwd_dq(const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* ls = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
-  const int vec = use_vec(D, q, k, v, dout);
+  const int vec = use_vec<bf16>(D, q, k, v, dout);
   return D <= 64 ? launch_dq<bf16, 64>(q, k, v, dout, ls, dl, dq, B, S, H,
                                        Hkv, D, scale, causal, window, vec,
                                        st)
                  : launch_dq<bf16, 128>(q, k, v, dout, ls, dl, dq, B, S, H,
                                         Hkv, D, scale, causal, window, vec,
                                         st);
+}
+
+namespace {
+
+// the d256 route's launches: T's tiles of R rows at D <= 256
+template <typename T, int R>
+int launch_dkdv_d256(const void* q, const void* k, const void* v,
+                     const void* dout, const void* lse, const void* delta,
+                     void* dk, void* dv, void* part, int B, int S, int H,
+                     int Hkv, int D, float scale, int causal, int window,
+                     void* stream) {
+  if (D <= 128 || D > 256 || (Hkv != H && part == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_dkdv<T, 256, R>(
+      q, k, v, dout, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), dk, dv,
+      Hkv != H ? static_cast<float*>(part) : nullptr, B, S, H, Hkv, D,
+      scale, causal, window, use_vec<T>(D, q, k, v, dout),
+      static_cast<cudaStream_t>(stream));
+}
+
+template <typename T, int R>
+int launch_dq_d256(const void* q, const void* k, const void* v,
+                   const void* dout, const void* lse, const void* delta,
+                   void* dq, int B, int S, int H, int Hkv, int D, float scale,
+                   int causal, int window, void* stream) {
+  if (D <= 128 || D > 256) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_dq<T, 256, R>(q, k, v, dout, static_cast<const float*>(lse),
+                              static_cast<const float*>(delta), dq, B, S, H,
+                              Hkv, D, scale, causal, window,
+                              use_vec<T>(D, q, k, v, dout),
+                              static_cast<cudaStream_t>(stream));
+}
+
+}  // namespace
+
+// The d256 route, 128 < D <= 256: dk, dv (B, S, Hkv, D) bfloat16 (tiles
+// of 64 rows) from the inputs of repro_flash_bwd_dkdv; with Hkv < H, part
+// (2, B, S, H, D) float32 takes the per-query-head partials and
+// repro_flash_bwd_reduce writes dk and dv
+extern "C" int repro_flash_bwd_dkdv_d256(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dk, void* dv, void* part,
+    int32_t B, int32_t S, int32_t H, int32_t Hkv, int32_t D, float scale,
+    int32_t causal, int32_t window, void* stream) {
+  return launch_dkdv_d256<bf16, 64>(q, k, v, dout, lse, delta, dk, dv, part,
+                                    B, S, H, Hkv, D, scale, causal, window,
+                                    stream);
+}
+
+// the same in float32 (3xTF32, tiles of 32 rows)
+extern "C" int repro_flash_bwd_dkdv_d256_f32(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dk, void* dv, void* part,
+    int32_t B, int32_t S, int32_t H, int32_t Hkv, int32_t D, float scale,
+    int32_t causal, int32_t window, void* stream) {
+  return launch_dkdv_d256<float, 32>(q, k, v, dout, lse, delta, dk, dv,
+                                     part, B, S, H, Hkv, D, scale, causal,
+                                     window, stream);
+}
+
+// dq (B, S, H, D) of the d256 route, bfloat16, the inputs of
+// repro_flash_bwd_dq
+extern "C" int repro_flash_bwd_dq_d256(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dq, int32_t B, int32_t S,
+    int32_t H, int32_t Hkv, int32_t D, float scale, int32_t causal,
+    int32_t window, void* stream) {
+  return launch_dq_d256<bf16, 64>(q, k, v, dout, lse, delta, dq, B, S, H,
+                                  Hkv, D, scale, causal, window, stream);
+}
+
+// the same in float32
+extern "C" int repro_flash_bwd_dq_d256_f32(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dq, int32_t B, int32_t S,
+    int32_t H, int32_t Hkv, int32_t D, float scale, int32_t causal,
+    int32_t window, void* stream) {
+  return launch_dq_d256<float, 32>(q, k, v, dout, lse, delta, dq, B, S, H,
+                                   Hkv, D, scale, causal, window, stream);
 }
 
 // ------------------------------ bfloat16 on wgmma: the route of the LMs
@@ -1297,14 +1476,14 @@ extern "C" int repro_flash_bwd_reduce(const void* part, void* dk, void* dv,
                                       int32_t B, int32_t S, int32_t H,
                                       int32_t Hkv, int32_t D,
                                       int32_t bf16_out, void* stream) {
-  // bf16 comes from the wgmma route alone, where D % 8 == 0
-  if (D < 1 || H % Hkv || (bf16_out && D % 8)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (D < 1 || H % Hkv) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t values = static_cast<int64_t>(B) * S * Hkv * D;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int G = H / Hkv;
-  if (bf16_out) return launch_reduce<bf16, 4>(part, dk, dv, values, G, D, st);
+  if (bf16_out) {
+    return D % 4 ? launch_reduce<bf16, 1>(part, dk, dv, values, G, D, st)
+                 : launch_reduce<bf16, 4>(part, dk, dv, values, G, D, st);
+  }
   return D % 4 ? launch_reduce<float, 1>(part, dk, dv, values, G, D, st)
                : launch_reduce<float, 4>(part, dk, dv, values, G, D, st);
 }

@@ -13,12 +13,12 @@ from repro_torch.kernels.explog.ops import fx_exp, fx_log
 from repro_torch.kernels.flash_attn.ops import (flash_attention_bwd,
                                                 flash_attention_kernel)
 from repro_torch.kernels.lif.ops import lif_step
-from repro_torch.kernels.linear_scan.ops import linear_scan
+from repro_torch.kernels.linear_scan.ops import linear_scan, linear_scan_bwd
 from repro_torch.kernels.link_load.ops import link_loads_csc, noc_link_loads
 from repro_torch.kernels.mac_conv.ops import mac_conv2d
 from repro_torch.kernels.mac_gemm.ops import mac_gemm
 from repro_torch.kernels.syn_accum.ops import syn_accum
-from repro_torch.kernels.wkv6.ops import wkv6
+from repro_torch.kernels.wkv6.ops import wkv6, wkv6_bwd
 
 WRAPPERS = {"fx_exp": fx_exp, "lif_step": lif_step,
             "link_loads_csc": link_loads_csc,
@@ -28,7 +28,8 @@ WRAPPERS = {"fx_exp": fx_exp, "lif_step": lif_step,
             "flash_attention_kernel": flash_attention_kernel,
             "flash_attention_bwd": flash_attention_bwd,
             "compact_lanes": compact_lanes, "linear_scan": linear_scan,
-            "wkv6": wkv6}
+            "linear_scan_bwd": linear_scan_bwd, "wkv6": wkv6,
+            "wkv6_bwd": wkv6_bwd}
 
 
 def launch_counts() -> dict:

@@ -13,10 +13,10 @@ reads K and V at their own head count.
 When q, k or v requires grad (under grad mode), the call goes through
 ``FlashAttention``, a ``torch.autograd.Function``: its forward also
 writes each row's log-sum-exp and saves (q, k, v, o, lse), its backward
-is ``flash_attention_bwd`` (kernels on CUDA tensors, D <= 128, routed by
-``bwd_route``: ``csrc/flash_attn_bwd.cu`` in bfloat16,
-``csrc/flash_attn_bwd_tf32.cu`` in float32; ``flash_attention_bwd_ref``
-on CPU tensors), the
+is ``flash_attention_bwd`` (kernels on CUDA tensors, routed by
+``bwd_route``: ``csrc/flash_attn_bwd.cu`` in bfloat16 and at 128 < D <=
+256, ``csrc/flash_attn_bwd_tf32.cu`` in float32 at D <= 128;
+``flash_attention_bwd_ref`` on CPU tensors), the
 reference model attention's recompute-from-lse backward.  Otherwise
 nothing is saved and no lse is written: serving runs the kernels as they
 were."""
@@ -50,7 +50,8 @@ _REDUCE_ARGS = (ctypes.c_void_p,) * 3 + (ctypes.c_int32,) * 6 + (
 _DTYPES = (torch.float32, torch.bfloat16)
 _WB_BLOCK = 128                    # rows of a wgmma backward block
 MAX_HEAD_DIM = 256
-MAX_BWD_HEAD_DIM = 128
+MAX_BWD_HEAD_DIM = 256
+_MMA_HEAD_DIM = 128                # the wgmma, tf32 and mma routes' limit
 _MAX_HEADS = 65535                 # gridDim.y: one row of blocks per (b, h)
 
 
@@ -66,8 +67,7 @@ def flash_attention_kernel(q, k, v, *, causal=True, window=0, bq=128,
     ``window`` > 0 is a sliding window: query i sees keys j > i - window
     (the reference's model attention's band); the kernels start each
     query tile's kv loop at the first tile inside the band.  0 leaves the
-    plain causal (or full) attention.  Differentiable in q, k and v (the
-    backward at D <= 128 on the card).
+    plain causal (or full) attention.  Differentiable in q, k and v.
 
     ``bq`` and ``bk`` are the reference's query and kv block sizes, kept
     for parity of the signature and ignored: the kernels tile 64 or 128
@@ -143,11 +143,6 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
-        if q.is_cuda and q.shape[3] > MAX_BWD_HEAD_DIM:
-            raise NotImplementedError(
-                f"flash_attention_kernel: head_dim {q.shape[3]} > "
-                f"{MAX_BWD_HEAD_DIM} has no backward kernel yet (ROADMAP "
-                f"queue A, slice 17); call it without grad")
         out, lse = _forward(q, k, v, causal, window, True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window = causal, window
@@ -182,11 +177,16 @@ def bwd_route(q, k, v, o, do) -> str:
     multiple of 8, a view off a 16-byte boundary): the ``mma.sync``
     kernels ``flash_bwd_dkdv_kernel`` and ``flash_bwd_dq_kernel``.  Not
     a fallback: a kernel of any route that fails to build or launch
-    raises."""
+    raises.  "d256" for 128 < D <= 256 in both dtypes: the ``mma.sync``
+    kernels at D 256, ``flash_bwd_dkdv_kernel`` and
+    ``flash_bwd_dq_kernel`` (bfloat16 on tiles of 64 rows, float32 on
+    3xTF32 and tiles of 32 rows)."""
     D = q.shape[3]
+    if D > _MMA_HEAD_DIM:
+        return "d256"
     if q.dtype == torch.float32:
         return "tf32"
-    if D % 8 or D > MAX_BWD_HEAD_DIM:
+    if D % 8:
         return "mma"
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
                for t in (q, k, v, o, do)):
@@ -197,17 +197,19 @@ def bwd_route(q, k, v, o, do) -> str:
 def bwd_launches(q, k, v, o, do) -> int:
     """Kernels one ``flash_attention_bwd`` call launches on the card: the
     row pass (delta, or on the wgmma route lse and delta), dK and dV, dQ,
-    and with H_kv < H on the wgmma and tf32 routes the pass that sums the
-    query heads' partial dK and dV (``_split_group``)."""
+    and with H_kv < H on the wgmma, tf32 and d256 routes the pass that
+    sums the query heads' partial dK and dV (``_split_group``)."""
     return 3 + int(_split_group(q, k, bwd_route(q, k, v, o, do)))
 
 
 def _split_group(q, k, route) -> bool:
     """dK and dV a query head at a time, summed after: at H_kv < H on the
-    wgmma route (the group across blocks) and the tf32 route (the tensor
+    wgmma route (the group across blocks), the tf32 route (the tensor
     cores' float32 accumulation truncates; one accumulator over a group's
-    G S / 8 k steps passes float32's limit at G 8)."""
-    return q.shape[2] != k.shape[2] and route in ("wgmma", "tf32")
+    G S / 8 k steps passes float32's limit at G 8) and the d256 route
+    (both: RecurrentGemma's 10 query heads over 1 fill the card, and
+    float32 runs on TF32 there too)."""
+    return q.shape[2] != k.shape[2] and route in ("wgmma", "tf32", "d256")
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0):
@@ -218,8 +220,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0):
     ``csrc/flash_attn_bwd.cu`` and ``csrc/flash_attn_bwd_tf32.cu`` on
     ``bwd_route``'s route, each launch counted in ``launches``
     (``bwd_launches`` a call); CUDA tensors that are not contiguous
-    raise ValueError (the kernels read fixed strides), as does D in
-    (128, 256].
+    raise ValueError (the kernels read fixed strides).
 
     "wgmma": ``flash_bwd_prep_kernel`` (each row's lse log2(e) and delta
     = rowsum(dO o O), padded to 128 rows), ``flash_bwd_dkdv_wgmma_kernel``
@@ -228,7 +229,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0):
     H_kv < H ``flash_bwd_reduce_kernel`` (each query head's float32
     partial dK and dV summed in head order, rounded once: the same bits
     every call), then ``flash_bwd_dq_wgmma_kernel`` (a block per (batch,
-    head, 128 query rows), the kv tiles streamed).  "tf32":
+    head, 128 query rows), the kv tiles streamed).  "d256": delta,
+    ``flash_bwd_dkdv_kernel`` (a block per (batch, query head, kv tile)
+    at H_kv < H, each head's float32 partials summed by
+    ``flash_bwd_reduce_kernel``; a block per (batch, KV head, kv tile) at
+    H_kv == H), ``flash_bwd_dq_kernel``.  "tf32":
     ``flash_bwd_delta_kernel``, ``flash_bwd_dkdv_tf32_kernel`` (a block
     per (batch, query head, 64 kv rows): K and V split into TF32 hi and
     lo once, the query tiles (16 rows at D > 64, else 32) split once by
@@ -258,11 +263,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0):
     if on_cpu("flash_attention_bwd", q, k, v, o, lse, do):
         return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
                                        window=window)
-    if D > MAX_BWD_HEAD_DIM:
-        raise NotImplementedError(
-            f"flash_attention_bwd: head_dim {D} > {MAX_BWD_HEAD_DIM} has no "
-            f"backward kernel yet (ROADMAP queue A, slice 17)")
-    if D < 1 or B * max(H, 1) > _MAX_HEADS:
+    if not 0 < D <= MAX_BWD_HEAD_DIM or B * max(H, 1) > _MAX_HEADS:
         raise ValueError(f"flash_attention_bwd: shape {tuple(q.shape)} "
                          f"outside the kernel's limits")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
@@ -284,9 +285,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0):
 
 def _bwd_rows(q, k, v, o, lse, do, dq, dk, dv, part, causal, window,
               route):
-    """The launches of the "tf32" and "mma" routes into dq, dk and dv:
-    delta, dK and dV (at H_kv < H on the tf32 route each query head's
-    into ``part``, then their sum), dQ (see ``flash_attention_bwd``)."""
+    """The launches of the "tf32", "d256" and "mma" routes into dq, dk
+    and dv: delta, dK and dV (at H_kv < H on the tf32 and d256 routes
+    each query head's into ``part``, then their sum), dQ (see
+    ``flash_attention_bwd``)."""
     B, S, H, D = q.shape
     Hkv = k.shape[2]
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
@@ -297,13 +299,14 @@ def _bwd_rows(q, k, v, o, lse, do, dq, dk, dv, part, causal, window,
         stream)
     _build.check(rc, "flash_attention_bwd (delta)")
     flash_attention_bwd.launches += 1
-    tag = "_tf32" if route == "tf32" else ""
+    tag = {"mma": "", "tf32": "_tf32",
+           "d256": "_d256" if bf16 else "_d256_f32"}[route]
     common = (B, S, H, Hkv, D, 1.0 / math.sqrt(D), int(causal), window,
               stream)
     ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
            lse.data_ptr(), delta.data_ptr())
     outs = (dk.data_ptr(), dv.data_ptr())
-    if route == "tf32":
+    if route != "mma":
         outs += (part.data_ptr() if part is not None else None,)
     rc = _build.launcher(f"repro_flash_bwd_dkdv{tag}",
                          _BWD_ARGS(6 + len(outs)))(*ins, *outs, *common)

@@ -38,3 +38,41 @@ def linear_scan_ref(xi, xa, u, lam, h0):
         h = a[:, t] * h + b[:, t]
         y[:, t] = h
     return y, h
+
+
+def linear_scan_bwd_ref(xi, xa, u, lam, h0, y, dy, dh_final):
+    """The backward of ``linear_scan_ref``: its inputs, its output y (B,
+    S, w) and the cotangents dy (B, S, w) and dh_final (B, w), all
+    float32 -> (dxi, dxa, du (B, S, w), dlam (w,), dh0 (B, w)).
+
+    The reverse scan g_t = dy_t + a_{t+1} g_{t+1} (g_S = dy_S +
+    dh_final) gives da_t = g_t h_{t-1} and db_t = g_t (h_0 = h0, dh0 =
+    a_1 g_1); then the chain back through ``rglru_coefficients``: beta's
+    derivative goes through log a and is zero where its 1e-12 clamp
+    holds, softplus' derivative is the sigmoid, and dlam = sum over
+    (B, S) of dlog a_t (-8 sigmoid(lam) sigmoid(xa_t))."""
+    gate_i = torch.sigmoid(xi)
+    gate_a = torch.sigmoid(xa)
+    neg_c_sp = -C * softplus(lam)
+    log_a = neg_c_sp * gate_a
+    a = torch.exp(log_a)
+    e2 = torch.exp(2.0 * log_a)
+    m = 1.0 - e2
+    beta = torch.sqrt(torch.clamp_min(m, 1e-12))
+    g = torch.empty_like(dy)
+    carry, a_next = dh_final, torch.ones_like(h0)
+    for t in reversed(range(dy.shape[1])):
+        carry = dy[:, t] + a_next * carry
+        g[:, t] = carry
+        a_next = a[:, t]
+    dh0 = a_next * carry
+    h_prev = torch.cat([h0[:, None], y[:, :-1]], 1)
+    gb = g * beta
+    du = gb * gate_i
+    dbeta = g * gate_i * u
+    dlog_a = g * h_prev * a + torch.where(m > 1e-12, -(dbeta * e2) / beta,
+                                          0.0)
+    dxi = gb * u * (gate_i * (1.0 - gate_i))
+    dxa = dlog_a * neg_c_sp * (gate_a * (1.0 - gate_a))
+    dlam = (dlog_a * gate_a).sum((0, 1)) * (-C * torch.sigmoid(lam))
+    return dxi, dxa, du, dlam, dh0

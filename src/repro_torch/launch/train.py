@@ -13,10 +13,10 @@ MusicGen's encodec frontend), made on the host from the same seed.  The
 step runs ``remat="full"`` and ``ce_chunk=min(seq, 512)`` as the
 reference's does, inside the fault-tolerant loop (checkpoints under
 ``--ckpt-dir/<arch>`` every ``--ckpt-every`` steps, resume from the
-latest, preemption by SIGTERM / SIGINT).  On the card, the recurrent
-archs (``recurrentgemma-2b``, ``rwkv6-1.6b``) and head_dim above 128 are
-refused: their kernels have no backward yet (ROADMAP queue A, slice 17);
-on the CPU their plain versions differentiate and they train.
+latest, preemption by SIGTERM / SIGINT).  Every registered token arch
+trains on the card, the recurrent ones (``recurrentgemma-2b``,
+``rwkv6-1.6b``) through the backward kernels of ``linear_scan``, ``wkv6``
+and flash attention at head_dim 256.
 """
 from __future__ import annotations
 
@@ -29,26 +29,11 @@ from repro_torch import configs, resolve_device
 from repro_torch.ckpt.checkpoint import CheckpointManager
 from repro_torch.data.pipeline import PipelineConfig, SyntheticTokenPipeline
 from repro_torch.ft.loop import FaultTolerantLoop, LoopConfig
-from repro_torch.kernels.flash_attn.ops import MAX_BWD_HEAD_DIM
 from repro_torch.models import transformer as T
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.train.step import make_train_step
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-RECURRENT = ("rglru", "rwkv")
-
-
-def card_refusal(cfg) -> str | None:
-    """Why ``cfg`` cannot train on the card yet, or None."""
-    if any(k in RECURRENT for k in cfg.layer_pattern + cfg.rem_layers):
-        return (f"{cfg.name}: the recurrent kernels (linear_scan, wkv6) "
-                f"have no backward yet (ROADMAP queue A, slice 17); train "
-                f"it with --device cpu")
-    if cfg.head_dim > MAX_BWD_HEAD_DIM:
-        return (f"{cfg.name}: flash attention's backward takes head_dim <= "
-                f"{MAX_BWD_HEAD_DIM}, not {cfg.head_dim} (ROADMAP queue A, "
-                f"slice 17)")
-    return None
 
 
 def main(argv=None) -> dict:
@@ -75,8 +60,6 @@ def main(argv=None) -> dict:
     if args.smoke:
         cfg = cfg.smoke()
     device = resolve_device(args.device)
-    if device.type == "cuda" and card_refusal(cfg):
-        ap.error(card_refusal(cfg))
     print(f"arch={cfg.name} params={cfg.param_count()/1e6:.1f}M "
           f"device={device}")
 

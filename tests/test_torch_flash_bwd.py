@@ -43,9 +43,12 @@ def _one_thread():
 TOL = 1e-5
 CHUNK = 32               # the reference's blockwise query and kv chunks
 # (B, S, KH, G, D, window)
+# rg_d256: RecurrentGemma's local attention, 10 query heads over 1 KV
+# head of 256, window 8 at S 32
 CASES = {"mha_d128": (2, 64, 2, 1, 128, 0), "gqa_d64": (1, 96, 2, 3, 64, 0),
          "window_d64": (2, 96, 3, 2, 64, 40),
-         "window_d128": (1, 128, 1, 4, 128, 17)}
+         "window_d128": (1, 128, 1, 4, 128, 17),
+         "rg_d256": (1, 32, 1, 10, 256, 8)}
 
 
 def _inputs(B, S, KH, G, D, seed):
@@ -348,6 +351,81 @@ def test_one_tf32_product_misses_the_float32_limit(case):
     assert max(_tf32_errors(got, want)) > F32_TOL
 
 
+# ----------------------------------------- the card's d256 route, on the CPU
+
+def _bwd_d256_arithmetic(q, k, v, o, lse, do, window):
+    """The d256 route's arithmetic written out in torch on (B, S, h, D)
+    tensors: delta = rowsum(dO o O), P = exp(S scale - lse) under the
+    mask, dS = P (dP - delta) scale; bfloat16: the products of bf16
+    operands exact in float32, P and dS rounded to bf16 once for their
+    products; float32: each of the five products in three TF32 terms, P
+    and dS in float32.  Each query head's dK and dV a float32 partial,
+    summed over a KV head's G query heads in head order and rounded to
+    the inputs' dtype once."""
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    bf16 = q.dtype == torch.bfloat16
+    scale = np.float32(1.0 / np.sqrt(D))
+    heads = lambda t: t.float().transpose(1, 2).contiguous()
+    qf, kf, vf, of, dof = (heads(t) for t in (q, k, v, o, do))
+    delta = (dof * of).sum(-1)
+    keep = torch.ones(S, S, dtype=torch.bool).tril()
+    if window:
+        keep &= ~torch.ones(S, S, dtype=torch.bool).tril(-window)
+    rnd = (lambda t: t.bfloat16().float()) if bf16 else (lambda t: t)
+    mm = (lambda a, b: a @ b) if bf16 else _mm3
+    dq = torch.empty_like(qf)
+    part_k = torch.empty(B, H, S, D)
+    part_v = torch.empty(B, H, S, D)
+    for h in range(H):
+        kh, vh = kf[:, h // G], vf[:, h // G]
+        s = mm(qf[:, h], kh.transpose(-1, -2))
+        p = torch.where(keep, torch.exp(s * scale - lse[:, h, :, None]),
+                        0.0)
+        dp = mm(dof[:, h], vh.transpose(-1, -2))
+        ds = p * (dp - delta[:, h, :, None]) * scale
+        part_v[:, h] = mm(rnd(p).transpose(-1, -2).contiguous(), dof[:, h])
+        part_k[:, h] = mm(rnd(ds).transpose(-1, -2).contiguous(), qf[:, h])
+        dq[:, h] = mm(rnd(ds), kh)
+    dk = torch.zeros(B, Hkv, S, D)
+    dv = torch.zeros(B, Hkv, S, D)
+    for h in range(H):                     # head order, a KV head's group
+        dk[:, h // G] += part_k[:, h]
+        dv[:, h // G] += part_v[:, h]
+    back = lambda t: t.transpose(1, 2).to(q.dtype)
+    return back(dq), back(dk), back(dv)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_d256_route_matches_reference_vjp(dtype):
+    """The d256 route's arithmetic at RecurrentGemma's head size (10 query
+    heads over 1 KV head of 256, window 8 at S 32) against jax.vjp of
+    the reference's _flash_attention (float32 on the same values) at the
+    card's limit: bf16 2^-6, float32 2^-14 of the larger of each
+    gradient's and dV's largest magnitude."""
+    B, S, KH, G, D, window = CASES["rg_d256"]
+    q, k, v, do = _inputs(B, S, KH, G, D, 8)
+    if dtype == torch.bfloat16:
+        bf = lambda x: np.asarray(torch.from_numpy(x).bfloat16().float())
+        q, k, v, do = (bf(x) for x in (q, k, v, do))
+    pos = jnp.arange(S)
+    fn = lambda q, k, v: JL._flash_attention((window, CHUNK, CHUNK), q, k,
+                                             v, pos, pos)
+    _, vjp = jax.vjp(fn, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = [np.asarray(w).reshape(B, S, -1, D) for w in vjp(jnp.asarray(do))]
+    tq, tk, tv, tdo = (_port(x) for x in (q, k, v, do))
+    o, lse = _port_forward(tq, tk, tv, window)
+    got = _bwd_d256_arithmetic(*(t.to(dtype) for t in (tq, tk, tv)),
+                               o.to(dtype), lse, tdo.to(dtype), window)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+    errs = _tf32_errors([g.float() for g in got], want)
+    limit = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+    assert max(errs) <= limit, errs
+
+
 def _view(shape, dtype, offset=0, transpose=False):
     """A CPU tensor of ``shape`` whose data starts ``offset`` elements
     into its storage (``transpose``: a (B, H, S, D) buffer viewed as (B,
@@ -374,25 +452,31 @@ ROUTE_CASES = [(torch.bfloat16, 128, 0, False, "wgmma"),
                (torch.float32, 64, 0, False, "tf32"),
                (torch.float32, 30, 0, False, "tf32"),
                (torch.float32, 128, 1, False, "tf32"),
-               (torch.float32, 128, 0, True, "tf32")]
+               (torch.float32, 128, 0, True, "tf32"),
+               (torch.bfloat16, 256, 0, False, "d256"),
+               (torch.bfloat16, 160, 4, False, "d256"),
+               (torch.bfloat16, 200, 0, True, "d256"),
+               (torch.float32, 256, 0, False, "d256"),
+               (torch.float32, 136, 1, False, "d256")]
 
 
 @pytest.mark.parametrize("dtype,D,offset,transpose,route", ROUTE_CASES)
 def test_bwd_route_rule(dtype, D, offset, transpose, route):
     """bwd_route is a function of dtype, D, strides and alignment alone:
-    float32 takes the tf32 kernels whatever its alignment, bf16 with D % 8
-    == 0 and every tensor contiguous on a 16-byte aligned base the wgmma
-    kernels, the rest of bf16 the mma.sync ones; a call launches 4
-    kernels on the wgmma and tf32 routes with H_kv < H, else 3.  (On the
-    card ``flash_attention_bwd`` refuses the transposed views: the
-    kernels read fixed strides.)"""
+    D above 128 takes the d256 kernels in both dtypes; at D <= 128
+    float32 takes the tf32 kernels whatever its alignment, bf16 with D %
+    8 == 0 and every tensor contiguous on a 16-byte aligned base the
+    wgmma kernels, the rest of bf16 the mma.sync ones; a call launches 4
+    kernels on the wgmma, tf32 and d256 routes with H_kv < H, else 3.
+    (On the card ``flash_attention_bwd`` refuses the transposed views:
+    the kernels read fixed strides.)"""
     from repro_torch.kernels.flash_attn.ops import bwd_launches, bwd_route
     B, S, H, Hkv = 1, 16, 4, 2
     q = _view((B, S, H, D), dtype, offset, transpose)
     k, v = (_view((B, S, Hkv, D), dtype) for _ in range(2))
     o, do = (_view((B, S, H, D), dtype) for _ in range(2))
     assert bwd_route(q, k, v, o, do) == route
-    # the sum pass: the wgmma and tf32 routes split the group
-    split = route in ("wgmma", "tf32")
+    # the sum pass: the wgmma, tf32 and d256 routes split the group
+    split = route in ("wgmma", "tf32", "d256")
     assert bwd_launches(q, k, v, o, do) == (4 if split else 3)
     assert bwd_launches(q, q, q, o, do) == 3       # H_kv == H: no sum pass

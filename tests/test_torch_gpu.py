@@ -1453,28 +1453,128 @@ def test_flash_backward_counts_its_launches(cuda, hkv, bwd):
                for t in (q, k, v))
 
 
-def test_cuda_training_without_a_backward_kernel_raises(cuda):
-    """No fallback: head_dim 256 and the recurrent kernels refuse grad on
-    the card, and the launcher refuses the recurrent archs there."""
-    from repro_torch.launch import train as train_launcher
-    q = torch.ones(1, 8, 2, 256, device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="slice 17"):
-        flash_attention_kernel(q, q.detach(), q.detach())
-    with pytest.raises(NotImplementedError, match="slice 17"):
-        linear_scan(*[torch.ones(1, 3, 4, device=cuda,
-                                 requires_grad=True)] * 3,
-                    torch.ones(4, device=cuda), torch.ones(1, 4, device=cuda))
-    with pytest.raises(NotImplementedError, match="slice 17"):
-        wkv6(*[torch.ones(1, 3, 2, 64, device=cuda,
-                          requires_grad=True)] * 4,
-             torch.ones(2, 64, device=cuda),
-             torch.ones(1, 2, 64, 64, device=cuda))
-    with pytest.raises(SystemExit):
-        train_launcher.main(["--arch", "recurrentgemma-2b", "--smoke",
-                             "--steps", "1"])
+def _rel(got, want) -> float:
+    """Largest error over the plain version's largest magnitude."""
+    want = want.float()
+    return float((got.float() - want).abs().max()) / max(
+        float(want.abs().max()), 1e-30)
 
 
-@pytest.mark.parametrize("arch", ["qwen1.5-4b", "olmoe-1b-7b", "gemma3-27b"])
+@pytest.mark.parametrize("shape", [(1, 1, 5), (2, 77, 70), (3, 130, 2560)])
+def test_linear_scan_backward_kernel(cuda, shape):
+    """linear_scan_bwd_kernel against linear_scan_bwd_ref on the card
+    (dxi, dxa, du, dlam, dh0 at 2^-18 of each one's largest magnitude,
+    lam -40 on a few channels: beta's clamp), two calls bit for bit, and
+    autograd through linear_scan: one forward and one backward launch."""
+    from repro_torch.kernels import linear_scan, linear_scan_bwd
+    from repro_torch.kernels.linear_scan.ref import linear_scan_bwd_ref
+    B, S, W = shape
+    gen = torch.Generator(device=cuda).manual_seed(S + W)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=cuda)
+    xi, xa, u, dy = (rnd(B, S, W) for _ in range(4))
+    lam, h0, dh = rnd(W), rnd(B, W), rnd(B, W)
+    lam[:2] = -40.0
+    y, _ = linear_scan(xi, xa, u, lam, h0)
+    got = linear_scan_bwd(xi, xa, u, lam, h0, y, dy, dh)
+    again = linear_scan_bwd(xi, xa, u, lam, h0, y, dy, dh)
+    want = linear_scan_bwd_ref(xi, xa, u, lam, h0, y, dy, dh)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        assert _rel(g, w) <= 2.0 ** -18
+    leaves = [t.clone().requires_grad_() for t in (xi, xa, u, lam, h0)]
+    reset_launch_counts()
+    yy, hh = linear_scan(*leaves)
+    torch.autograd.backward((yy, hh), (dy, dh))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["linear_scan"] == 1 and counts["linear_scan_bwd"] == 1
+    assert all(torch.equal(t.grad, g) for t, g in zip(leaves, got))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 1, 2, 64), (2, 100, 4, 64),
+                                   (1, 33, 2, 8), (2, 70, 3, 16),
+                                   (1, 131, 2, 32)])
+def test_wkv6_backward_kernel(cuda, shape, dtype):
+    """wkv6_bwd_kernel against wkv6_bwd_ref on the card (dr, dk, dv at one
+    rounding of their dtype beside 2^-16 of the largest magnitude; dlw, du
+    at 2^-16; dstate0 bit for bit: the same rounded operations), with the
+    strongest decays, two calls bit for bit, and autograd through wkv6:
+    one forward and one backward launch."""
+    from repro_torch.kernels import wkv6, wkv6_bwd
+    from repro_torch.kernels.wkv6.ref import wkv6_bwd_ref
+    B, S, H, D = shape
+    gen = torch.Generator(device=cuda).manual_seed(S + H + D)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=cuda)
+    r, k, v = (rnd(B, S, H, D).to(dtype) for _ in range(3))
+    lw = -torch.exp(rnd(B, S, H, D) * 2.0)
+    u, s0 = rnd(H, D), rnd(B, H, D, D)
+    dy, ds = rnd(B, S, H, D), rnd(B, H, D, D)
+    got = wkv6_bwd(r, k, v, lw, u, s0, dy, ds)
+    again = wkv6_bwd(r, k, v, lw, u, s0, dy, ds)
+    want = wkv6_bwd_ref(r, k, v, lw, u, s0, dy, ds)
+    rel = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+    for i, (g, a, w) in enumerate(zip(got, again, want)):
+        assert torch.equal(g, a) and g.dtype == w.dtype
+        if i == 5:
+            assert torch.equal(g, w)
+        else:
+            torch.testing.assert_close(
+                g.float(), w.float(), rtol=rel if i < 3 else 0.0,
+                atol=2.0 ** -16 * float(w.float().abs().max()))
+    leaves = [t.clone().requires_grad_() for t in (r, k, v, lw, u, s0)]
+    reset_launch_counts()
+    yy, st = wkv6(*leaves)
+    torch.autograd.backward((yy, st), (dy, ds))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["wkv6"] == 1 and counts["wkv6_bwd"] == 1
+    assert all(torch.equal(t.grad, g) for t, g in zip(leaves, got))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,window", [((1, 300, 10, 1, 256), 64),
+                                          ((2, 200, 4, 4, 256), 0),
+                                          ((1, 129, 4, 2, 160), 0),
+                                          ((1, 97, 3, 1, 200), 16)])
+def test_flash_backward_d256_kernels(cuda, shape, window, dtype):
+    """The d256 route (128 < D <= 256) against flash_attention_bwd_ref on
+    the card at the backward's card limits (bf16 2^-6, float32 2^-14 of
+    each gradient's largest magnitude), two calls bit for bit, and its
+    launches: 3 a call, 4 with the sum pass at H_kv < H; autograd
+    through flash_attention_kernel: the forward's lse and one backward."""
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+    B, S, H, Hkv, D = shape
+    gen = torch.Generator(device=cuda).manual_seed(S + H + D)
+    rnd = lambda h: torch.randn(B, S, h, D, generator=gen,
+                                device=cuda).to(dtype)
+    q, k, v, do = rnd(H), rnd(Hkv), rnd(Hkv), rnd(H)
+    o, lse = flash_forward(q, k, v, True, window, True)
+    assert flash_ops.bwd_route(q, k, v, o, do) == "d256"
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, lse, do, window=window)
+    assert flash_attention_bwd.launches - before == \
+        flash_ops.bwd_launches(q, k, v, o, do) == 3 + int(Hkv < H)
+    again = flash_attention_bwd(q, k, v, o, lse, do, window=window)
+    want = flash_attention_bwd_ref(q, k, v, o, lse, do, window=window)
+    tol = 2.0 ** -6 if dtype == torch.bfloat16 else 2.0 ** -14
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        assert _rel(g, w) <= tol
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    reset_launch_counts()
+    out = flash_attention_kernel(*leaves, window=window)
+    assert torch.equal(out.detach(), o)
+    out.backward(do)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["flash_attention_kernel"] == 1
+    assert counts["flash_attention_bwd"] == 3 + int(Hkv < H)
+    assert all(torch.equal(t.grad, g) for t, g in zip(leaves, got))
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-4b", "olmoe-1b-7b", "gemma3-27b",
+                                  "recurrentgemma-2b", "rwkv6-1.6b"])
 def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
     """Three steps of the smoke model in float32 on the card (flash and
     its backward) and on the CPU (plain versions): losses and weights."""

@@ -33,9 +33,10 @@ from repro_torch.kernels import (compact_lanes, event_link_loads,
                                  flash_attention_bwd,
                                  flash_attention_kernel, fx_exp, fx_log,
                                  launch_counts, lif_step, linear_scan,
-                                 link_loads_csc, mac_conv2d, mac_gemm,
-                                 noc_link_loads, reset_launch_counts,
-                                 syn_accum, wkv6)
+                                 linear_scan_bwd, link_loads_csc,
+                                 mac_conv2d, mac_gemm, noc_link_loads,
+                                 reset_launch_counts, syn_accum, wkv6,
+                                 wkv6_bwd)
 from repro_torch.kernels.explog.ref import LN2, LOG_TABLE, MAX_EXP_ARG
 from repro_torch.kernels.lif.ops import lif_params_fx
 from repro_torch.kernels.link_load.ref import link_loads_ref
@@ -242,6 +243,12 @@ def test_plain_versions_do_not_count_launches():
     linear_scan(*[torch.ones(1, 3, 4)] * 3, torch.ones(4), torch.ones(1, 4))
     wkv6(*[torch.ones(1, 3, 2, 4)] * 4, torch.ones(2, 4),
          torch.ones(1, 2, 4, 4))
+    linear_scan_bwd(*[torch.ones(1, 3, 4)] * 3, torch.ones(4),
+                    torch.ones(1, 4), *[torch.ones(1, 3, 4)] * 2,
+                    torch.ones(1, 4))
+    wkv6_bwd(*[torch.ones(1, 3, 2, 4)] * 4, torch.ones(2, 4),
+             torch.ones(1, 2, 4, 4), torch.ones(1, 3, 2, 4),
+             torch.ones(1, 2, 4, 4))
     assert launch_counts() == {"fx_exp": 0, "lif_step": 0,
                                "link_loads_csc": 0, "noc_link_loads": 0,
                                "syn_accum": 0,
@@ -250,7 +257,8 @@ def test_plain_versions_do_not_count_launches():
                                "flash_attention_kernel": 0,
                                "flash_attention_bwd": 0,
                                "compact_lanes": 0, "linear_scan": 0,
-                               "wkv6": 0}
+                               "linear_scan_bwd": 0, "wkv6": 0,
+                               "wkv6_bwd": 0}
 
 
 # ------------------------------------------------------------------ tick pieces

@@ -4,8 +4,11 @@ reference's ``jax.value_and_grad``, on the CPU, at smoke widths.
 Archs: a dense transformer (qwen1.5-4b: MHA, QKV biases), a MoE
 (olmoe-1b-7b: qk-norm, capacity dispatch with ``moe_dense=False``, the
 load-balance and router z-losses in the loss), a windowed one
-(gemma3-27b: five local layers of window 8 and a global one) and
-MusicGen (frames, four codebook heads).  Weights are the reference's
+(gemma3-27b: five local layers of window 8 and a global one), MusicGen
+(frames, four codebook heads) and the recurrent pair (recurrentgemma-2b:
+two RG-LRU layers and a local-attention one, through ``LinearScan`` and
+``FlashAttention``; rwkv6-1.6b: WKV through ``WKV6``, against the
+reference's ``wkv_chunked``, one chunk at S 16 and two of 32 at S 64).  Weights are the reference's
 ``init_params`` (crc32 path seeds, tests/lm_weights.py) with every leaf it
 initialises to zeros (biases, norm scales, qk-norm) redrawn from a normal
 of std 0.1, so that each takes a gradient of its own size; the port
@@ -58,7 +61,9 @@ def _stable_weights():
     yield from lm_weights.stable_weights()
 
 
-ARCHS = ["qwen1.5-4b", "olmoe-1b-7b", "gemma3-27b", "musicgen-large"]
+ARCHS = ["qwen1.5-4b", "olmoe-1b-7b", "gemma3-27b", "musicgen-large",
+         "recurrentgemma-2b", "rwkv6-1.6b"]
+RECURRENT = ["recurrentgemma-2b", "rwkv6-1.6b"]
 B, S, CE_CHUNK = 2, 16, 8
 F32_LOSS, F32_LEAF = 1e-5, 1e-4
 BF16_LOSS, BF16_LEAF = 2.0 ** -10, 2.0 ** -4
@@ -77,7 +82,7 @@ def reference_tree(cfg, key: int, rng):
     return jax.tree.map(redraw, tree)
 
 
-def make_batch(cfg, rng):
+def make_batch(cfg, rng, S=S):
     """numpy batch: tokens (B, S + 1) or frames (B, S, d) and labels."""
     if cfg.frontend == "encodec":
         return {"frames": rng.standard_normal((B, S, cfg.d_model))
@@ -89,7 +94,7 @@ def make_batch(cfg, rng):
                                    dtype=np.int32)}
 
 
-def reference_loss(jcfg, dtype):
+def reference_loss(jcfg, dtype, S=S):
     """The reference's loss as a function of (params, batch): its
     ``train_loss`` (bf16) or the same steps at float32 activations."""
     if dtype == "bfloat16":
@@ -135,16 +140,18 @@ def reference_leaf(cfg, tree, name: str) -> np.ndarray:
     return node[g] if g < cfg.num_groups else node
 
 
-def compare(arch: str, dtype: str, key: int = 0, remat: str = "full"):
+def compare(arch: str, dtype: str, key: int = 0, remat: str = "full",
+            seq: int = S):
     """(loss relative error, {leaf: error / its largest magnitude},
-    port metrics, reference metrics) of one weight set."""
+    port metrics, reference metrics) of one weight set at ``seq``
+    positions."""
     jcfg = jconfigs.get_arch(arch).smoke()
     cfg = configs.get_arch(arch).smoke()
     rng = np.random.default_rng(key)
     tree = reference_tree(jcfg, key, rng)
-    batch = make_batch(cfg, rng)
+    batch = make_batch(cfg, rng, seq)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
-    (jl, jm), jg = jax.value_and_grad(reference_loss(jcfg, dtype),
+    (jl, jm), jg = jax.value_and_grad(reference_loss(jcfg, dtype, seq),
                                       has_aux=True)(tree, jbatch)
     model = T.params_from_numpy(cfg, tree, device="cpu", requires_grad=True)
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
@@ -183,7 +190,16 @@ def test_train_loss_and_grads_float32(arch):
         assert float(metrics["z_loss"].detach()) > 0
 
 
-@pytest.mark.parametrize("arch", ARCHS[:3])
+def test_rwkv_two_wkv_chunks_float32():
+    """RWKV-6 at S 64, where the reference's wkv_chunked runs two chunks
+    of 32 and carries the state between them."""
+    loss_err, errs, _, _ = compare("rwkv6-1.6b", "float32", seq=64)
+    assert loss_err < F32_LOSS
+    worst = max(errs, key=errs.get)
+    assert errs[worst] < F32_LEAF, (worst, errs[worst])
+
+
+@pytest.mark.parametrize("arch", [a for a in ARCHS if a != "musicgen-large"])
 def test_train_loss_and_grads_bfloat16(arch):
     loss_err, errs, _, _ = compare(arch, "bfloat16")
     assert loss_err < BF16_LOSS
@@ -191,7 +207,7 @@ def test_train_loss_and_grads_bfloat16(arch):
     assert errs[worst] < BF16_LEAF, (worst, errs[worst])
 
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "gemma3-27b"])
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "gemma3-27b", *RECURRENT])
 def test_remat_modes_agree(arch):
     """remat "none", "full" (each layer recomputed) and "dots" (matmul
     outputs kept) give the same loss and gradients, bit for bit."""

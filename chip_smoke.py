@@ -143,8 +143,9 @@ farm, the DNN pipeline), and checks what comes out:
               ``call_ms`` is one wrapper call back to back (CUDA events,
               host included); an op that launches a pass besides its
               kernel (the operand pack of mac_gemm and of mac_conv2d's
-              tensor-core route) counts both in ``ms`` and the pass alone
-              in ``pass_ms``;
+              tensor-core route; the chunked WKV backward's counter memset
+              and du's sum) counts both in ``ms`` and the passes of a call
+              alone in ``pass_ms``;
               the plain version and one PyTorch library call (where
               there is one) are timed with L2 flushed;
               ``bound_ms`` is the least time the card could take, the
@@ -298,8 +299,9 @@ farm, the DNN pipeline), and checks what comes out:
               vectors), the peak memory, steady ms a step and tokens a
               second, one step split into forward, backward and AdamW and
               one profiled, every hand kernel's launches equal to what the
-              layers and steps give (linear_scan_bwd 18, wkv6_bwd 24 and
-              flash's d256 backward 4 x 8 a step) and no plain version
+              layers and steps give (linear_scan_bwd 18, wkv6_bwd 24 x
+              bwd_launches(128, 64) = 48 and flash's d256 backward 4 x 8
+              a step) and no plain version
               called.  Its gradient gates: RecurrentGemma at 3 layers
               (rglru, rglru, local) and RWKV-6 at 2, full width, batch 1 x
               4096, the recurrent leaves redrawn as in phase 19, the
@@ -347,10 +349,18 @@ farm, the DNN pipeline), and checks what comes out:
     SDPA forward and backward less the forward alone (CUDA events).
     linear_scan_bwd's row (RecurrentGemma's gate, layer 0's backward at 1
     x 4096 x 2560, and 8 x 128 nested) and wkv6_bwd's (RWKV-6's gate,
-    layer 0's at 1 x 4096 x 32 x 64 bf16) are held against their plain
-    versions (the scan at 2^-18 of each gradient's largest magnitude,
-    WKV at 2^-16 and one bf16 rounding of dr, dk, dv); neither has a
-    library call; their launches are their lm_train path's.
+    layer 0's at 1 x 4096 x 32 x 64 bf16, and 8 x 128 cut from it
+    nested) are held against their plain versions (the scan at 2^-18 of
+    each gradient's largest magnitude, WKV at 2^-16 and one bf16 rounding
+    of dr, dk, dv); WKV's on its chunked route, checked by the
+    profiler's kernel names and counts and the wrapper's launch count,
+    two calls bitwise, with each kernel's cold µs (``ms`` with the
+    counter's memset and du's sum, ``pass_ms``), the walk held on the
+    same input at the same limits (dstate0 bit for bit), the walk's
+    cold call and this route's timed whole (``walk_ms``, which
+    ``cold_call_ms`` must beat) and each one's scratch measured as its
+    peak allocation beyond its outputs; neither has a library call;
+    their launches are their lm_train path's.
     Row 8 (batch 1) also gives its ``lse`` case: the forward with the
     log-sum-exp written, its lse against the plain version's, and its
     cold time with and without lse.  mac_conv2d's rows also time the
@@ -666,6 +676,9 @@ REC_FAULTS = {"recurrentgemma-2b": ("scan_h_t", "no_delta"),
 # dlam alone sums in another order), WKV's (float32 sums of D in another
 # order; bf16 dr, dk, dv one bf16 rounding, rtol 2^-7)
 SCAN_BWD_REL, WKV_BWD_REL = 2.0 ** -18, 2.0 ** -16
+# the chunked WKV backward's kernels (csrc/wkv6_bwd_chunked.cu)
+WKV_BWD_CHUNKED = ("wkv6_bwd_state_kernel", "wkv6_bwd_scan_kernel",
+                   "wkv6_bwd_chunk_kernel")
 # operations an element of linear_scan's backward: a recomputed (sigmoid,
 # multiply, exp: 5), the reverse scan's multiply and add, both sigmoids
 # again (6), log a, exp(2 log a), 1 - it, max and sqrt (6), and the chain
@@ -779,12 +792,15 @@ KERNEL_SYMBOLS = {"lif_step": r"\blif_step_kernel\b",
                   "linear_scan": r"\blinear_scan_kernel\b",
                   "linear_scan_bwd": r"\blinear_scan_bwd_kernel\b",
                   "wkv6": r"\bwkv6(_chunked)?_kernel\b",
-                  "wkv6_bwd": r"\bwkv6_bwd_kernel\b",
+                  "wkv6_bwd": r"\bwkv6_bwd(_state|_scan|_chunk)?_kernel\b",
                   "flash_attention_bwd":
                       r"\bflash_bwd_(delta|prep|dkdv|dq|reduce)"
                       r"(_wgmma|_tf32)?_kernel\b"}
 PASS_SYMBOLS = {"mac_gemm": r"\bimma_pack_kernel\b",
-                "mac_conv2d": r"\bimma_pack_kernel\b"}
+                "mac_conv2d": r"\bimma_pack_kernel\b",
+                # the chunked WKV backward's memset of its scan counter and
+                # PyTorch's sum of du's partials
+                "wkv6_bwd": r"^Memset|\breduce_kernel\b"}
 # tensor-core SASS: wgmma is HGMMA (bf16, and TF32 as HGMMA.*TF32) /
 # IGMMA (int8), mma.sync is HMMA / IMMA; the kernels (symbol in the
 # mangled name: instantiations) whose every instantiation must hold the
@@ -1004,6 +1020,7 @@ def kernel_row(rows: list, flush, name, source, replaces, call, plain, got,
     cold = device_kernels(lambda: (flush(), cold_fn()), prof_iters)[0]
     ms = per_launch_ms(cold, name)[1]
     ms = ms * per_call if ms else cuda_ms(call, iters, flush)
+    pass_ms = per_launch_ms(cold, name, passes_only=True)[1]
     warm = kernel_device_ms(name, call, prof_iters)
     in_tick = in_tick or {}
     rows.append(dict(
@@ -1021,7 +1038,7 @@ def kernel_row(rows: list, flush, name, source, replaces, call, plain, got,
         main_path_launches_per_tick=in_tick.get("launches_per_tick"),
         main_path_bound_ms=main_bound_ms if in_tick else None,
         **({"tolerance": list(tol)} if tol else {}),
-        **({"pass_ms": per_launch_ms(cold, name, passes_only=True)[1]}
+        **({"pass_ms": pass_ms * per_call if pass_ms is not None else None}
            if name in PASS_SYMBOLS else {}), **extra))
     emit("kernel_check", **rows[-1])
 
@@ -4518,15 +4535,17 @@ def plain_calls():
         yield calls
 
 
-def rec_launches(cfg, dtype, forwards: int) -> dict:
-    """The hand kernels one step of ``cfg`` launches at ``dtype``: each
-    layer's forward kernel ``forwards`` times (2 under remat "full": the
-    forward and its recompute), its backward once."""
+def rec_launches(cfg, dtype, forwards: int, seq: int) -> dict:
+    """The hand kernels one step of ``cfg`` launches at ``dtype`` over
+    ``seq`` positions: each layer's forward kernel ``forwards`` times (2
+    under remat "full": the forward and its recompute), its backward's
+    kernels once (WKV's ``bwd_launches``: 2 or 3 on the chunked route)."""
     kinds = lm.layer_kinds(cfg)
     rg, rw = kinds.count("rglru"), kinds.count("rwkv")
     att = sum(k in lm.ATTN_KINDS for k in kinds)
     return {"linear_scan": forwards * rg, "linear_scan_bwd": rg,
-            "wkv6": forwards * rw, "wkv6_bwd": rw,
+            "wkv6": forwards * rw,
+            "wkv6_bwd": rw * wkv_ops.bwd_launches(seq, cfg.rwkv_head_size),
             "flash_attention_kernel": forwards * att,
             "flash_attention_bwd": bwd_call_launches(cfg, dtype) * att}
 
@@ -4557,7 +4576,7 @@ def recurrent_train(arch: str, dev, tmp: str) -> tuple[dict, dict]:
     check(len(losses) == steps and all(np.isfinite(losses)),
           f"lm_train {arch}: losses {losses}")
     want = {k: n * steps for k, n in
-            rec_launches(cfg, torch.bfloat16, 2).items()}
+            rec_launches(cfg, torch.bfloat16, 2, 128).items()}
     check(all(n == want.get(k, 0) for k, n in counts.items()),
           f"lm_train {arch}: launches {counts}, expected {want}")
     check(not plain, f"lm_train {arch}: plain versions called {plain}")
@@ -4699,7 +4718,7 @@ def recurrent_gate(arch: str, dev) -> tuple[dict, tuple]:
         with last_bwd(function, bwd) as seen:
             sh, leaf = share(grads_of(cfg, model, batch, dt), dt)
         counts = launch_counts()
-        want = rec_launches(cfg, dt, 1)
+        want = rec_launches(cfg, dt, 1, GATE_SEQ)
         check(all(n == want.get(k, 0) for k, n in counts.items()),
               f"{arch} gradient gate {key}: launches {counts}")
         check(sh <= 1.0, f"{arch} gradient gate {key}: {leaf} at {sh} of "
@@ -4768,29 +4787,98 @@ def recurrent_bwd_rows(dev, bwd_in: dict) -> list:
             **extra)
         return rows[-1]
 
-    def wkv_row(rows, args, iters, **extra):
+    def wkv_row(rows, args, iters, walk_iters, **extra):
         r, k, v, lw, u, s0, dy, ds = args
-        got, want = wkv6_bwd(*args), wkv6_bwd_ref(*args)
         B, S, H, D = r.shape
+        call = lambda: wkv6_bwd(*args)
+        walk = lambda: wkv_ops._bwd_kernels("walk", *args)
+        route = wkv_ops.bwd_route(S, D)
+        before = wkv6_bwd.launches
+        got = call()
+        launched = wkv6_bwd.launches - before
+        check(all(torch.equal(g, a) for g, a in zip(got, call())),
+              f"wkv6_bwd {[B, S, H, D]}: two calls differ")
+        want = wkv6_bwd_ref(*args)
         rel = 2.0 ** -7 if r.dtype == torch.bfloat16 else 0.0
         atol = torch.cat([
             WKV_BWD_REL * float(w.float().abs().max())
             + (rel if i < 3 else 0.0) * w.float().abs().flatten()
             for i, w in enumerate(want)])
+        # the walk, which every other shape takes, on the same input: the
+        # same limits, dstate0 bit for bit
+        got_walk = walk()
+        walk_err = max_abs_err(flat(got_walk), flat(want))
+        check(bool(((flat(got_walk) - flat(want)).abs() <= atol).all())
+              and torch.equal(got_walk[5], want[5]),
+              f"wkv6_bwd {[B, S, H, D]}: the walk != plain version: max "
+              f"abs err {walk_err}, dstate0 bitwise "
+              f"{torch.equal(got_walk[5], want[5])}")
+        del got_walk
+        # the route by the profiler's kernel names and counts over cold
+        # calls (two kernels a call, the scan kernel the third past
+        # FUSED_SCAN_CHUNKS chunks; another profile where it lost records)
+        # and by the wrapper's count; each kernel's cold device µs a call
+        sym = KERNEL_SYMBOLS["wkv6_bwd"]
+        expect = {n for n in WKV_BWD_CHUNKED
+                  if launched == 3 or n != "wkv6_bwd_scan_kernel"}
+        calls = 10
+        for _ in range(3):
+            seen = {}
+            for key, (count, us) in device_kernels(
+                    lambda: (flush(), call()), calls)[0].items():
+                if re.search(sym, key):
+                    name = re.search(sym, key).group(0)
+                    c, t = seen.get(name, (0, 0.0))
+                    seen[name] = (c + count, t + us)
+            if set(seen) == expect and all(
+                    c == calls for c, _ in seen.values()):
+                break
+        check(route == "chunked" and launched == wkv_ops.bwd_launches(S, D)
+              and set(seen) == expect
+              and all(c == calls for c, _ in seen.values()),
+              f"wkv6_bwd {[B, S, H, D]}: route {route}, {launched} "
+              f"launches, kernels {seen} over {calls} calls")
+        split = {name: us / c for name, (c, us) in seen.items()}
+        # the walk's call and this route's on the same input, cold, each
+        # timed whole (its allocations and du's sum included)
+        walk_ms = cuda_ms(walk, walk_iters, flush)
+        cold_call_ms = cuda_ms(call, walk_iters, flush)
+
+        def scratch_bytes(fn) -> int:
+            """Bytes a call allocates on the card at its peak beyond its
+            outputs (torch.cuda.max_memory_allocated)."""
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = fn()
+            torch.cuda.synchronize()
+            return (torch.cuda.max_memory_allocated() - base
+                    - sum(t.numel() * t.element_size() for t in out))
+
         n = B * S * H * D
         kernel_row(
-            rows, flush, "wkv6_bwd", "src/repro_torch/csrc/wkv6_bwd.cu",
+            rows, flush, "wkv6_bwd",
+            "src/repro_torch/csrc/wkv6_bwd_chunked.cu",
             "src/repro/models/rwkv6.py:102 wkv_chunked (jax.grad through "
-            "its einsums; no Pallas kernel)", lambda: wkv6_bwd(*args),
+            "its einsums; no Pallas kernel)", call,
             lambda: wkv6_bwd_ref(*args), flat(got), flat(want),
             6 * n * r.element_size() + 12 * n + 12 * B * H * D * D
             + 4 * H * D + 4 * B * H * D, 14 * D * D * B * S * H, iters, 1,
             tol=(atol, 0.0), shape=[B, S, H, D],
+            per_call=wkv_ops.bwd_launches(S, D),
             dtype=str(r.dtype).removeprefix("torch."),
             tolerance_atol=f"{WKV_BWD_REL} x max |grad| (dr, dk, dv in "
-                           f"{r.dtype}: + {rel} x |want|)",
-            dstate0_bitwise=bool(torch.equal(got[5], want[5])),
-            checkpoint_chunk=wkv_ops.bwd_chunk(D), **extra)
+                           f"{r.dtype}: + {rel} x |want|), each of dr, dk, "
+                           f"dv, dlw, du, dstate0",
+            bwd_route=route, bwd_launches_a_call=launched,
+            bwd_kernels=sorted(seen), kernel_us_cold=split,
+            cold_call_ms=cold_call_ms, walk_ms=walk_ms,
+            walk_max_abs_err=walk_err, walk_dstate0_bitwise=True,
+            chunk=wkv_ops.CHUNK, scratch_bytes=scratch_bytes(call),
+            walk_scratch_bytes=scratch_bytes(walk), **extra)
+        check(cold_call_ms < walk_ms,
+              f"wkv6_bwd {[B, S, H, D]}: {cold_call_ms} ms a cold call, "
+              f"the walk {walk_ms}")
         return rows[-1]
 
     rows = []
@@ -4808,9 +4896,18 @@ def recurrent_bwd_rows(dev, bwd_in: dict) -> list:
                  torch.zeros(8, W, device=dev)), 20,
                  shape_tag="8 x 128 (the launcher's batch)")])
     del small, small_y
-    wkv_row(rows, bwd_in["rwkv6-1.6b"], 3,
+    # the launcher's batch (8 x 128) from the gate's own layer-0 inputs,
+    # cut into 8 sequences, from a zero state with no final-state
+    # cotangent (as a train step's)
+    r, k, v, lw, u, s0, dy, ds = bwd_in["rwkv6-1.6b"]
+    cut = lambda t: t[:, :1024].reshape(8, 128, *t.shape[2:])
+    zero = torch.zeros(8, *s0.shape[1:], device=dev)
+    wkv_row(rows, bwd_in["rwkv6-1.6b"], 3, 2,
             main_path="lm_train RWKV-6-1.6B gradient gate (layer 0's "
-                      "backward, 1 x 4096, bf16 activations)")
+                      "backward, 1 x 4096, bf16 activations)",
+            other_shapes=[wkv_row([], (cut(r), cut(k), cut(v), cut(lw), u,
+                                       zero, cut(dy), zero), 20, 5,
+                                  shape_tag="8 x 128 (the launcher's batch)")])
     free_card()
     return rows
 

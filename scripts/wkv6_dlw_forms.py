@@ -1,15 +1,21 @@
 #!/usr/bin/env python3
-"""Two float32 forms of WKV-6's log-decay gradient dlw against float64,
+"""Three float32 forms of WKV-6's log-decay gradient dlw against float64,
 on the CPU:
 
-    python3 scripts/wkv6_dlw_forms.py [--seq 4096]
+    python3 scripts/wkv6_dlw_forms.py [--seq 4096] [--chunk 64]
 
 direct    dlw_t = w_t o sum_v S_{t-1} o dS_t, from the states themselves
-          (the form of ``wkv6_bwd_ref`` and of ``wkv6_bwd_kernel``);
+          (the form of ``wkv6_bwd_ref`` and of the walk,
+          ``wkv6_bwd_kernel``);
 identity  dlw_t = sum_{s>t} r_s o dr~_s + sum_v S_T o dS_T
                   - sum_{s>=t} k_s o dk~_s,
           two running sums over the sequence (dr~ = S_{t-1} dy, dk~ =
-          dS_t v; nothing rebuilt).
+          dS_t v; nothing rebuilt);
+chunk     the identity restarted at every chunk of ``--chunk`` positions
+          (the form of the chunked route, ``wkv6_bwd_chunk_kernel``):
+          dlw_t = sum_{t<s<=e} r_s o dr~_s + sum_v S_e o dS_e
+                  - sum_{t<=s<=e} k_s o dk~_s, e the chunk's last
+          position, the sums walked up the chunk.
 Inputs from a seed: r, k, v, dy standard normal, u and state0 too, log
 decays -exp(U(lo, hi)) over the reference tests' three ranges, the
 final state's cotangent zero (a training step) or standard normal.
@@ -74,12 +80,42 @@ def dlw_identity(r, k, v, lw, u, s0, dy, ds):
     return after + phi_T[:, None] - from_t
 
 
+def dlw_chunk(r, k, v, lw, u, s0, dy, ds, chunk=64):
+    """dlw by the identity restarted at each chunk's last position e, its
+    state and cotangent from the sequence's walks, every sum in the
+    inputs' dtype."""
+    w = torch.exp(lw)
+    S = r.shape[1]
+    state, dr_t, after = s0, [], []
+    for t in range(S):
+        dr_t.append(torch.einsum("bhkv,bhv->bhk", state, dy[:, t]))
+        state = state * w[:, t, ..., None] + torch.einsum(
+            "bhk,bhv->bhkv", k[:, t], v[:, t])
+        after.append(state)                            # S_t
+    dS, dk_t, dS_t = ds, [None] * S, [None] * S
+    for t in reversed(range(S)):
+        dS_t[t] = dS
+        dk_t[t] = torch.einsum("bhkv,bhv->bhk", dS, v[:, t])
+        dS = dS * w[:, t, ..., None] + torch.einsum("bhk,bhv->bhkv",
+                                                    r[:, t], dy[:, t])
+    out = [None] * S
+    for c0 in range(0, S, chunk):
+        e = min(c0 + chunk, S) - 1
+        acc = (after[e] * dS_t[e]).sum(-1)             # phi at e
+        for t in range(e, c0 - 1, -1):
+            kdk = k[:, t] * dk_t[t]
+            out[t] = acc - kdk
+            acc = acc + (r[:, t] * dr_t[t] - kdk)
+    return torch.stack(out, 1)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seq", type=int, default=4096)
     ap.add_argument("--heads", type=int, default=2)
     ap.add_argument("--head-size", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--chunk", type=int, default=64)
     args = ap.parse_args()
     B, S, H, D = 1, args.seq, args.heads, args.head_size
     for decay, (lo, hi) in DECAYS.items():
@@ -97,10 +133,12 @@ def main() -> int:
             scale = float(truth.abs().max())
             direct = dlw_direct(*f32).double()
             ident = dlw_identity(*f32).double()
+            chunked = dlw_chunk(*f32, chunk=args.chunk).double()
+            err = lambda x: float((x - truth).abs().max()) / scale
             print(f"S {S} decays {decay:6s} dstate {final:6s}: direct "
-                  f"{float((direct - truth).abs().max()) / scale:.3e}, "
-                  f"identity {float((ident - truth).abs().max()) / scale:.3e}"
-                  f" of max |dlw| {scale:.3e}")
+                  f"{err(direct):.3e}, identity {err(ident):.3e}, chunk "
+                  f"{args.chunk} {err(chunked):.3e} of max |dlw| "
+                  f"{scale:.3e}", flush=True)
     return 0
 
 

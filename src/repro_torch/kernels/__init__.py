@@ -40,3 +40,4 @@ def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
     wkv6.route_launches.update(dict.fromkeys(wkv6.route_launches, 0))
+    wkv6_bwd.route_launches.update(dict.fromkeys(wkv6_bwd.route_launches, 0))

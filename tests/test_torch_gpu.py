@@ -1491,32 +1491,52 @@ def test_linear_scan_backward_kernel(cuda, shape):
     assert all(torch.equal(t.grad, g) for t, g in zip(leaves, got))
 
 
+# (route, shape): the walk at every head size and below 64 positions; the
+# chunked route at one chunk, one and a ragged one, several, and 16
+# chunks, with the strongest decays
+WKV_BWD_SHAPES = [("walk", (1, 1, 2, 64)), ("walk", (1, 33, 2, 8)),
+                  ("walk", (2, 70, 3, 16)), ("walk", (1, 131, 2, 32)),
+                  ("walk", (1, 63, 2, 64)),
+                  ("chunked", (2, 100, 4, 64)), ("chunked", (1, 64, 2, 64)),
+                  ("chunked", (1, 65, 2, 64)), ("chunked", (2, 200, 4, 64)),
+                  ("chunked", (1, 1000, 2, 64))]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(1, 1, 2, 64), (2, 100, 4, 64),
-                                   (1, 33, 2, 8), (2, 70, 3, 16),
-                                   (1, 131, 2, 32)])
-def test_wkv6_backward_kernel(cuda, shape, dtype):
-    """wkv6_bwd_kernel against wkv6_bwd_ref on the card (dr, dk, dv at one
-    rounding of their dtype beside 2^-16 of the largest magnitude; dlw, du
-    at 2^-16; dstate0 bit for bit: the same rounded operations), with the
-    strongest decays, two calls bit for bit, and autograd through wkv6:
-    one forward and one backward launch."""
+@pytest.mark.parametrize("route,shape", WKV_BWD_SHAPES,
+                         ids=[f"{r}-{'x'.join(map(str, s))}"
+                              for r, s in WKV_BWD_SHAPES])
+def test_wkv6_backward_kernel(cuda, route, shape, dtype):
+    """wkv6_bwd's kernels against wkv6_bwd_ref on the card by route
+    (``bwd_route``): dr, dk, dv at one rounding of their dtype beside
+    2^-16 of the largest magnitude; dlw, du at 2^-16; dstate0 bit for bit
+    on the walk (the same rounded operations) and at 2^-16 on the chunked
+    route (another summation order, as the chunked forward's state); the
+    strongest decays, two calls bit for bit, ``bwd_launches`` launches a
+    call, and autograd through wkv6: one forward launch and the
+    backward's."""
     from repro_torch.kernels import wkv6, wkv6_bwd
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
     from repro_torch.kernels.wkv6.ref import wkv6_bwd_ref
     B, S, H, D = shape
+    assert wkv_ops.bwd_route(S, D) == route
+    n = wkv_ops.bwd_launches(S, D)
     gen = torch.Generator(device=cuda).manual_seed(S + H + D)
     rnd = lambda *s: torch.randn(*s, generator=gen, device=cuda)
     r, k, v = (rnd(B, S, H, D).to(dtype) for _ in range(3))
     lw = -torch.exp(rnd(B, S, H, D) * 2.0)
     u, s0 = rnd(H, D), rnd(B, H, D, D)
     dy, ds = rnd(B, S, H, D), rnd(B, H, D, D)
+    before = dict(wkv6_bwd.route_launches)
     got = wkv6_bwd(r, k, v, lw, u, s0, dy, ds)
+    assert wkv6_bwd.route_launches[route] - before[route] == n
     again = wkv6_bwd(r, k, v, lw, u, s0, dy, ds)
     want = wkv6_bwd_ref(r, k, v, lw, u, s0, dy, ds)
     rel = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
     for i, (g, a, w) in enumerate(zip(got, again, want)):
         assert torch.equal(g, a) and g.dtype == w.dtype
-        if i == 5:
+        assert bool(torch.isfinite(g.float()).all())
+        if i == 5 and route == "walk":
             assert torch.equal(g, w)
         else:
             torch.testing.assert_close(
@@ -1528,8 +1548,34 @@ def test_wkv6_backward_kernel(cuda, shape, dtype):
     torch.autograd.backward((yy, st), (dy, ds))
     torch.cuda.synchronize()
     counts = launch_counts()
-    assert counts["wkv6"] == 1 and counts["wkv6_bwd"] == 1
+    assert counts["wkv6"] == 1 and counts["wkv6_bwd"] == n
+    assert wkv6_bwd.route_launches[route] == n
     assert all(torch.equal(t.grad, g) for t, g in zip(leaves, got))
+
+
+@pytest.mark.parametrize("S", [64, 192, 193, 640])
+def test_wkv6_backward_scans_agree(cuda, S):
+    """The chunked WKV backward's two forms of its scans over the chunks,
+    in the state kernel's last blocks (two launches) and in a kernel of
+    their own (three), give the same bits on either side of
+    ``FUSED_SCAN_CHUNKS``, and ``wkv6_bwd`` counts the launches of the
+    form it takes."""
+    from repro_torch.kernels import wkv6_bwd
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
+    B, H, D = 2, 4, 64
+    gen = torch.Generator(device=cuda).manual_seed(S)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=cuda)
+    rkv = [rnd(B, S, H, D).to(torch.bfloat16) for _ in range(3)]
+    args = (*rkv, -torch.exp(rnd(B, S, H, D) * 2.0), rnd(H, D),
+            rnd(B, H, D, D), rnd(B, S, H, D), rnd(B, H, D, D))
+    before = wkv6_bwd.launches
+    got = wkv6_bwd(*args)
+    assert wkv6_bwd.launches - before == wkv_ops.bwd_launches(S, D)
+    for fused in (True, False):
+        before = wkv6_bwd.launches
+        other = wkv_ops._bwd_kernels("chunked", *args, fused=fused)
+        assert wkv6_bwd.launches - before == (2 if fused else 3)
+        assert all(torch.equal(g, o) for g, o in zip(got, other))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -24,6 +24,7 @@ from repro.models import rwkv6 as JW
 
 from repro_torch.kernels.linear_scan import (linear_scan_bwd_ref,
                                              linear_scan_ref)
+from repro_torch.kernels.wkv6 import ops as wkv_ops
 from repro_torch.kernels.wkv6 import wkv6, wkv6_bwd_ref, wkv6_ref
 from repro_torch.models import rglru as TR
 
@@ -211,3 +212,238 @@ def test_wkv6_without_grad_records_nothing():
     assert y.grad_fn is None and st.grad_fn is None
     y2, _ = wkv6(*(t.detach() for t in ts))
     assert y2.grad_fn is None and torch.equal(y, y2)
+
+
+# ------------------------------------------- WKV-6's chunked backward route
+
+def wkv6_bwd_chunk_algebra(r, k, v, lw, u, state0, dy, dstate, C=64, T=16):
+    """A torch transcription of ``csrc/wkv6_bwd_chunked.cu``'s two
+    kernels, in float32: chunks of C positions (the last zero-filled: r =
+    k = v = dy = 0, lw = 0), sub-chunks of T; every decay factor a product
+    of the step decays w = exp(lw) (<= 1), never a quotient.
+
+    1. per chunk (``wkv6_bwd_state_kernel``): A_i = prod_{s<i} w_s and
+       Z_j = prod_{s>j} w_s down and up the chunk, decay = prod w, the
+       local state dS_loc = (k Z)^T V and cotangent dD_loc = (r A)^T dY;
+    2. (the last block of each (batch, head) of the same kernel, or
+       ``wkv6_bwd_scan_kernel`` past 8 chunks) S_{n+1} = decay_n S_n +
+       dS_loc_n from state0, and the cotangent at each chunk's end from
+       dstate:
+       dS_{n-1} = decay_n dS_n + dD_loc_n (dstate0 the last);
+    3. per chunk (``wkv6_bwd_chunk_kernel``), from S_n and dS_n: within
+       sub-chunk I the exclusive prefix H and suffix G products and the
+       total T_I; pre_I, suf_I across sub-chunks and g_IJ = prod_{J<M<I}
+       T_M; B = dY V^T; A as the forward's (Q (K~ g)^T off the diagonal
+       sub-blocks, a running product down each row within them, A_ii =
+       r_i . (u k_i));
+         dr~ = H (pre (dY S_n^T) + sum_{J<I} B_IJ (K~_J g_IJ)) + the
+               diagonal sub-block's pairs,
+         dk~ = G (suf (V dS_n^T) + sum_{L>I} B_LI^T (Q_L g_LI)) + pairs,
+         dv = (K~ suf) dS_n + A^T dY,
+       dlw by the identity restarted at the chunk: phi = sum_v S_{n+1} o
+       dS_n, dlw_i = phi + sum_{s>i} (r dr~ - k dk~)_s - k_i dk~_i; the
+       bonus u k_i (v_i . dy_i) on dr, u r_i (v_i . dy_i) on dk, and du
+       the sum of r k (v . dy).
+    Returns the six gradients of ``wkv6_bwd_ref``, dr, dk, dv in r's
+    dtype."""
+    Bn, Sn, H, D = r.shape
+    N = -(-Sn // C)
+    n, NS = N * C, C // T
+
+    def chunks(x):
+        x = torch.cat([x.float(), x.new_zeros(Bn, n - Sn, H, D).float()], 1)
+        return x.reshape(Bn, N, C, H, D)
+    rc, kc, vc, yc = chunks(r), chunks(k), chunks(v), chunks(dy)
+    wc = torch.exp(chunks(lw))
+    # 1. each chunk's decays and local contributions
+    A, Z = torch.ones_like(wc), torch.ones_like(wc)
+    for i in range(1, C):
+        A[:, :, i] = A[:, :, i - 1] * wc[:, :, i - 1]
+    for j in range(C - 2, -1, -1):
+        Z[:, :, j] = Z[:, :, j + 1] * wc[:, :, j + 1]
+    decay = A[:, :, -1] * wc[:, :, -1]                     # (B, N, H, D)
+    s_loc = torch.einsum("bnchk,bnchv->bnhkv", kc * Z, vc)
+    d_loc = torch.einsum("bnchk,bnchv->bnhkv", rc * A, yc)
+    # 2. the two scans over the chunks
+    states = [state0]
+    for m in range(N):
+        states.append(decay[:, m, ..., None] * states[-1] + s_loc[:, m])
+    ends, d = [None] * N, dstate
+    for m in reversed(range(N)):
+        ends[m] = d
+        d = decay[:, m, ..., None] * d + d_loc[:, m]
+    dstate0 = d
+    # 3. the chunk pass
+    out = {x: [] for x in ("dr", "dk", "dv", "dlw")}
+    du = torch.zeros(H, D)
+    sub = lambda x, I: x[:, I * T:(I + 1) * T]             # (B, T, H, D)
+    for m in range(N):
+        r_, k_, v_, y_, w_ = (x[:, m] for x in (rc, kc, vc, yc, wc))
+        S0, Sn1, dS = states[m], states[m + 1], ends[m]
+        Hp, G = torch.ones_like(w_), torch.ones_like(w_)
+        tot, pre, suf = [], [], [None] * NS
+        for I in range(NS):
+            b = I * T
+            for a in range(1, T):
+                Hp[:, b + a] = Hp[:, b + a - 1] * w_[:, b + a - 1]
+            for a in range(T - 2, -1, -1):
+                G[:, b + a] = G[:, b + a + 1] * w_[:, b + a + 1]
+            tot.append(Hp[:, b + T - 1] * w_[:, b + T - 1])  # (B, H, D)
+        one = torch.ones_like(tot[0])
+        pre.append(one)
+        for I in range(1, NS):
+            pre.append(pre[-1] * tot[I - 1])
+        suf[NS - 1] = one
+        for J in range(NS - 2, -1, -1):
+            suf[J] = suf[J + 1] * tot[J + 1]
+
+        def gfac(I, J):                                    # J < I
+            g = one
+            for M in range(J + 1, I):
+                g = g * tot[M]
+            return g
+        Q, Kt = r_ * Hp, k_ * G
+        Bm = torch.einsum("bihv,bjhv->bhij", y_, v_)
+        Am = torch.zeros(Bn, H, C, C)
+        for I in range(NS):
+            rows = slice(I * T, (I + 1) * T)
+            for J in range(I):
+                Am[:, :, rows, J * T:(J + 1) * T] = torch.einsum(
+                    "bihk,bjhk->bhij", sub(Q, I),
+                    sub(Kt, J) * gfac(I, J)[:, None])
+            for j in range(T):
+                a = I * T + j
+                Am[:, :, a, a] = torch.einsum("bhk,bhk->bh", r_[:, a],
+                                              u[None] * k_[:, a])
+                kp = k_[:, a]
+                for i in range(j + 1, T):
+                    if i > j + 1:
+                        kp = kp * w_[:, I * T + i - 1]
+                    Am[:, :, I * T + i, a] = torch.einsum(
+                        "bhk,bhk->bh", r_[:, I * T + i], kp)
+        dr, dk, dv = [], [], []
+        for I in range(NS):
+            rows = slice(I * T, (I + 1) * T)
+            acc_r = torch.einsum("bihv,bhcv->bihc", sub(y_, I),
+                                 S0 * pre[I][..., None])
+            for J in range(I):
+                acc_r = acc_r + torch.einsum(
+                    "bhij,bjhc->bihc", Bm[:, :, rows, J * T:(J + 1) * T],
+                    sub(Kt, J) * gfac(I, J)[:, None])
+            acc_k = torch.einsum("bihv,bhcv->bihc", sub(v_, I),
+                                 dS * suf[I][..., None])
+            for L in range(I + 1, NS):
+                acc_k = acc_k + torch.einsum(
+                    "bhli,blhc->bihc", Bm[:, :, L * T:(L + 1) * T, rows],
+                    sub(Q, L) * gfac(L, I)[:, None])
+            acc_v = torch.einsum("bihc,bhcv->bihv",
+                                 sub(Kt, I) * suf[I][:, None], dS)
+            for L in range(I, NS):
+                acc_v = acc_v + torch.einsum(
+                    "bhli,blhv->bihv", Am[:, :, L * T:(L + 1) * T, rows],
+                    sub(y_, L))
+            dr_i, dk_i = sub(Hp, I) * acc_r, sub(G, I) * acc_k
+            # the diagonal sub-block's pairs, by running products
+            w_i, r_i, k_i = sub(w_, I), sub(r_, I), sub(k_, I)
+            Bi = Bm[:, :, rows, rows]
+            xr, xk = list(dr_i.unbind(1)), list(dk_i.unbind(1))
+            for j in range(T - 1):
+                p = k_i[:, j]
+                for i in range(j + 1, T):
+                    if i > j + 1:
+                        p = p * w_i[:, i - 1]
+                    xr[i] = xr[i] + Bi[:, :, i, j, None] * p
+            for l in range(T - 1, 0, -1):
+                p = r_i[:, l]
+                for i in range(l - 1, -1, -1):
+                    if i < l - 1:
+                        p = p * w_i[:, i + 1]
+                    xk[i] = xk[i] + Bi[:, :, l, i, None] * p
+            dr.append(torch.stack(xr, 1))
+            dk.append(torch.stack(xk, 1))
+            dv.append(acc_v)
+        dr, dk, dv = torch.cat(dr, 1), torch.cat(dk, 1), torch.cat(dv, 1)
+        # dlw by the identity restarted at the chunk's end
+        acc = (Sn1 * dS).sum(-1)                           # (B, H, D)
+        dlw = [None] * C
+        for i in range(C - 1, -1, -1):
+            kdk = k_[:, i] * dk[:, i]
+            dlw[i] = acc - kdk
+            acc = acc + (r_[:, i] * dr[:, i] - kdk)
+        vdy = torch.diagonal(Bm, dim1=2, dim2=3).permute(0, 2, 1)[..., None]
+        out["dr"].append(dr + u * k_ * vdy)
+        out["dk"].append(dk + u * r_ * vdy)
+        out["dv"].append(dv)
+        out["dlw"].append(torch.stack(dlw, 1))
+        du = du + (r_ * k_ * vdy).sum((0, 1))
+    cat = {x: torch.cat(ts, 1)[:, :Sn] for x, ts in out.items()}
+    return (cat["dr"].to(r.dtype), cat["dk"].to(k.dtype),
+            cat["dv"].to(v.dtype), cat["dlw"], du, dstate0)
+
+
+CHUNK_REL = 2.0 ** -16       # the chunked route's limit, of each max
+# (form, chunk, decay, r/k/v dtype): the reference's oracle and its
+# chunked form (chunks of 8) at the three decay ranges in float32, and
+# each form at one range in bf16
+CHUNK_ALGEBRA_CASES = (
+    [(f, c, d, F32) for f, c in (("sequential", 0), ("chunked", 8))
+     for d in sorted(DECAYS)]
+    + [("sequential", 0, "strong", BF16), ("chunked", 8, "mixed", BF16)])
+
+
+@pytest.mark.parametrize("form,chunk,decay,dtype", CHUNK_ALGEBRA_CASES,
+                         ids=[f"{f}{c or ''}-{d}-{str(t)[6:]}"
+                              for f, c, d, t in CHUNK_ALGEBRA_CASES])
+def test_wkv6_bwd_chunk_algebra_matches_reference_vjp(form, chunk, decay,
+                                                      dtype):
+    """The chunked backward's arithmetic (``wkv6_bwd_chunk_algebra``,
+    chunks of 16 in sub-chunks of 4: every off-diagonal sub-block pair)
+    over 40 positions (two full chunks and a ragged one, so both scans
+    carry), nonzero state0 and dstate, against jax.vjp of the reference's
+    wkv_sequential and wkv_chunked: each gradient within 2^-16 of its
+    largest magnitude, and one bf16 rounding (2^-7 relative) on bf16 dr,
+    dk, dv."""
+    inputs, cots = _wkv_case(17, decay, S=40)
+    _, want = _wkv_reference(form, chunk, inputs, cots, dtype)
+    ts = [torch.from_numpy(x) for x in inputs + cots]
+    ts[:3] = [t.to(dtype) for t in ts[:3]]
+    got = wkv6_bwd_chunk_algebra(*ts, C=16, T=4)
+    for i, name in enumerate(("r", "k", "v", "lw", "u", "state0")):
+        g, w = got[i], np.asarray(want[i].astype(jnp.float32))
+        assert torch.isfinite(g.float()).all(), name
+        if i < 3:
+            assert g.dtype == dtype
+        rel = BF16_REL if i < 3 and dtype == torch.bfloat16 else 0.0
+        _close(g.float().numpy(), w, f"d{name}", CHUNK_REL, rel)
+
+
+@pytest.mark.parametrize("decay", sorted(DECAYS))
+def test_wkv6_bwd_chunk_algebra_at_the_kernels_sizes(decay):
+    """The chunked backward's arithmetic at the kernels' own sizes (D 64,
+    chunks of 64 in sub-chunks of 16) over 200 positions (three chunks and
+    a ragged one) against the plain wkv6_bwd_ref, within 2^-16 of each
+    gradient's largest magnitude; finite at the strongest decays (log
+    decays down to -exp(3) a position underflow w to 0)."""
+    inputs, cots = _wkv_case(23, decay, B=1, S=200, D=64)
+    ts = [torch.from_numpy(x) for x in inputs + cots]
+    got = wkv6_bwd_chunk_algebra(*ts)
+    want = wkv6_bwd_ref(*ts)
+    for name, g, w in zip(("r", "k", "v", "lw", "u", "state0"), got, want):
+        assert torch.isfinite(g).all(), name
+        _close(g.numpy(), w.numpy(), f"d{name}", CHUNK_REL)
+
+
+@pytest.mark.parametrize("D", [8, 16, 32, 64])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 192, 193, 512, 513, 4096])
+def test_wkv6_bwd_route(S, D):
+    """The backward's route has no knob: head size 64 and at least 64
+    positions take the chunked kernels (two launches a call, three past 3
+    chunks, where the scans over the chunks take a kernel of their own),
+    as the forward takes its chunked kernel; every other shape the walk
+    (one)."""
+    chunked = D == wkv_ops.CHUNKED_D and S >= wkv_ops.CHUNK
+    assert wkv_ops.bwd_route(S, D) == ("chunked" if chunked else "walk")
+    assert wkv_ops.bwd_route(S, D) == (
+        "chunked" if wkv_ops.route(S, D) == "chunked" else "walk")
+    assert wkv_ops.bwd_launches(S, D) == (
+        (2 if S <= 3 * 64 else 3) if chunked else 1)

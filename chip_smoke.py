@@ -300,8 +300,9 @@ farm, the DNN pipeline), and checks what comes out:
               second, one step split into forward, backward and AdamW and
               one profiled, every hand kernel's launches equal to what the
               layers and steps give (linear_scan_bwd 18, wkv6_bwd 24 x
-              bwd_launches(128, 64) = 48 and flash's d256 backward 4 x 8
-              a step) and no plain version
+              bwd_launches(128, 64) = 48 and flash's D 256 backward 4 x
+              8 a step, on the wgmma_d256 kernels by the profiler's
+              names) and no plain version
               called.  Its gradient gates: RecurrentGemma at 3 layers
               (rglru, rglru, local) and RWKV-6 at 2, full width, batch 1 x
               4096, the recurrent leaves redrawn as in phase 19, the
@@ -340,9 +341,11 @@ farm, the DNN pipeline), and checks what comes out:
     (bwd-m) and float32 at S 1024 (bwd-f), at the float32 gradient
     gate's S 4096 (bwd-f4k), at 32 over 2 heads (bwd-fg) and at
     RecurrentGemma-2B's local attention, 10 query heads over 1 KV head of
-    256, window 2048, in bf16 (bwd-r) and float32 (bwd-rf), both on the
-    d256 route (mma.sync kernels at D 256; their forward's lse against
-    the plain version's at 1e-4); its bound
+    256, window 2048, in bf16 (bwd-r, on the wgmma_d256 route; the d256
+    route's mma.sync kernels held and timed on the same input as
+    ``d256_kernels``) and float32 (bwd-rf, the d256 route's 3xTF32
+    mma.sync kernels; their forward's lse against the plain version's at
+    1e-4); its bound
     is the five products of the backward at the bf16 rate (float32: each
     as three TF32 products at the TF32 rate), its library time SDPA's
     backward: one
@@ -651,7 +654,8 @@ MOE_TRAIN = ("olmoe-1b-7b", 4, 4)         # arch, layers of 16, steps
 # lm_train's own layer-0 input.  The limit, of each gradient's largest
 # magnitude: bf16 rounds P and dS for their products, float32 is 3xTF32
 # bwd-r, bwd-rf: RecurrentGemma-2B's local attention, 10 query heads over
-# 1 KV head of 256, window 2048 (the d256 route)
+# 1 KV head of 256, window 2048 (bf16: the wgmma_d256 route, float32 the
+# d256 route)
 BWD_ROWS = {"bwd-g": ((1, 4096, 32, 2, 128), torch.bfloat16, 0),
             "bwd-w": ((1, 4096, 32, 16, 128), torch.bfloat16, 1024),
             "bwd-m": ((1, 4096, 32, 32, 64), torch.bfloat16, 0),
@@ -795,7 +799,7 @@ KERNEL_SYMBOLS = {"lif_step": r"\blif_step_kernel\b",
                   "wkv6_bwd": r"\bwkv6_bwd(_state|_scan|_chunk)?_kernel\b",
                   "flash_attention_bwd":
                       r"\bflash_bwd_(delta|prep|dkdv|dq|reduce)"
-                      r"(_wgmma|_tf32)?_kernel\b"}
+                      r"(_wgmma_d256|_wgmma|_tf32)?_kernel\b"}
 PASS_SYMBOLS = {"mac_gemm": r"\bimma_pack_kernel\b",
                 "mac_conv2d": r"\bimma_pack_kernel\b",
                 # the chunked WKV backward's memset of its scan counter and
@@ -814,11 +818,13 @@ TENSOR_CORE_KERNELS = {"flash_attn_wgmma_kernel": (8, "HGMMA"),
                        "mac_conv_igmma_kernel": (12, "IGMMA"),
                        "flash_bwd_dkdv_wgmma_kernel": (4, "HGMMA"),
                        "flash_bwd_dq_wgmma_kernel": (2, "HGMMA"),
+                       "flash_bwd_dkdv_wgmma_d256_kernel": (2, "HGMMA"),
+                       "flash_bwd_dq_wgmma_d256_kernel": (1, "HGMMA"),
                        "flash_bwd_dkdv_tf32_kernel": (2, "HGMMA.TF32"),
                        "flash_bwd_dq_tf32_kernel": (2, "HGMMA.TF32")}
 # kernels whose ptxas notes that serialise wgmma (C7510-C7515: a full
 # wait after every wgmma) phase_build reports
-WGMMA_NOTE_KERNELS = r"flash_bwd_\w+_(wgmma|tf32)_kernel"
+WGMMA_NOTE_KERNELS = r"flash_bwd_\w+_(wgmma|tf32)(_d256)?_kernel"
 # kernels whose SASS instructions per element phase 2 counts
 SASS_LOOP_KERNELS = ("fx_log_kernel", "fx_exp_table_kernel",
                      "fx_exp_ladder_kernel", "fx_exp_mantissa_kernel",
@@ -835,6 +841,10 @@ def emit(phase: str, **fields) -> None:
 def check(cond, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+# marker kernels that open each profile (device_kernels)
+PROFILE_MARKERS = 512
 
 
 def l2_flusher(dev):
@@ -875,11 +885,21 @@ def cuda_ms(fn, iters: int, flush=None, warmup: int = 3) -> float:
 def device_kernels(fn, iters: int) -> tuple[dict, float]:
     """Run ``fn`` ``iters`` times under torch.profiler.  Returns the
     device kernels it ran, name -> (launches, total device µs), and the
-    wall µs of the profiled window (which the profiler itself slows)."""
+    wall µs of the profiled window (which the profiler itself slows).
+    After long profiles (the train steps') a profile loses the records
+    of its first kernels: late in this script's run 3 to 6 of 10 calls
+    were kept, none of 3 quick calls, and ``scripts/profiler_probe.py``
+    shows the loss after two profiles of 20000 kernels and that kernels
+    launched first inside the profile take it.  So PROFILE_MARKERS
+    marker kernels (``torch.cuda._sleep``'s ``spin_kernel``, left out of
+    the result) open each profile."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_MARKERS):
+            torch.cuda._sleep(100)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(iters):
             fn()
@@ -889,7 +909,8 @@ def device_kernels(fn, iters: int) -> tuple[dict, float]:
     for evt in prof.key_averages():
         us = getattr(evt, "self_device_time_total",
                      getattr(evt, "self_cuda_time_total", 0.0))
-        if str(evt.device_type).endswith("CUDA") and us > 0:
+        if (str(evt.device_type).endswith("CUDA") and us > 0
+                and "spin_kernel" not in evt.key):
             kernels[evt.key] = (evt.count, float(us))
     return kernels, wall_us
 
@@ -4344,9 +4365,15 @@ def train_split(cfg, params, opt, batch, dtype, ce_chunk: int) -> dict:
 def step_profile(fn, names=()) -> dict:
     """One call of ``fn`` (a train step) under the profiler: device busy
     ms, the idle share of its wall time (which the profiler slows), the
-    kernels that take the time and the device ms of each hand kernel in
-    ``names``."""
+    kernels that take the time, the device ms of each hand kernel in
+    ``names`` and flash's backward kernels by name with their launches."""
     kernels, wall_us = device_kernels(fn, 1)
+    bwd_sym = KERNEL_SYMBOLS["flash_attention_bwd"]
+    bwd_kernels = {}
+    for k, (n, _) in kernels.items():
+        if re.search(bwd_sym, k):
+            key = re.search(bwd_sym, k).group(0)
+            bwd_kernels[key] = bwd_kernels.get(key, 0) + n
     busy_us = sum(us for _, us in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
     flash = {name: sum(us for k, (_, us) in kernels.items()
@@ -4355,6 +4382,7 @@ def step_profile(fn, names=()) -> dict:
     return dict(launches=sum(n for n, _ in kernels.values()),
                 busy_ms=busy_us / 1e3, wall_ms=wall_us / 1e3,
                 idle_share=1.0 - busy_us / wall_us, flash_ms=flash,
+                flash_bwd_kernels=bwd_kernels,
                 kernel_ms={name: sum(us for k, (_, us) in kernels.items()
                                      if re.search(KERNEL_SYMBOLS[name], k))
                            / 1e3 for name in names},
@@ -4597,6 +4625,17 @@ def recurrent_train(arch: str, dev, tmp: str) -> tuple[dict, dict]:
     prof = step_profile(lambda: float(step_fn(params, opt, prof_batch,
                                               steps)[2]["loss"]),
                         [k for k, n in want.items() if n])
+    # RecurrentGemma's local layers: flash's backward on the wgmma_d256
+    # kernels, once a layer (where the profiler kept the step's records)
+    if cfg.head_dim > 128 and prof["flash_bwd_kernels"]:
+        att = want["flash_attention_bwd"] // steps // bwd_call_launches(
+            cfg, torch.bfloat16)
+        check(all(prof["flash_bwd_kernels"].get(
+                      f"flash_bwd_{n}_wgmma_d256_kernel") == att
+                  for n in ("dkdv", "dq")),
+              f"lm_train {arch}: flash backward kernels "
+              f"{prof['flash_bwd_kernels']}, want the wgmma_d256 ones "
+              f"{att} times a step")
     del params, opt, step_fn
     free_card()
     dts = [r["dt"] for r in log]
@@ -5096,27 +5135,39 @@ def bwd_rows(dev, bwd_in) -> list:
         plain = lambda: flash_attention_bwd_ref(q, k, v, o, lse, do,
                                                 window=window)
         got, want = call(), plain()
-        # the route (bf16 rows: the wgmma kernels, float32: the tf32 ones),
-        # a call's launches by the wrapper's count, and the kernels the
-        # profiler saw three calls launch (late in the run it has been
-        # seen to record none: then only the count is checked)
+        # the route (bf16 rows: the wgmma kernels, at D 256 the wgmma_d256
+        # ones; float32: the tf32 ones, at D 256 the d256 route's), a
+        # call's launches by the wrapper's count, and the kernels the
+        # profiler saw three calls launch, by name and launches a call
+        # (late in the run it has been seen to record none: then only the
+        # count is checked, but the wgmma_d256 kernels must be seen, once
+        # a call, in one of three profiles)
         route = flash_ops.bwd_route(q, k, v, o, do)
         before = flash_attention_bwd.launches
         call()
         launched = flash_attention_bwd.launches - before
         sym = KERNEL_SYMBOLS["flash_attention_bwd"]
-        seen = sorted({re.search(sym, n).group(0)
-                       for n in device_kernels(call, 3)[0]
-                       if re.search(sym, n)})
-        want_route = ("d256" if D > 128 else
-                      "wgmma" if dtype == torch.bfloat16 else "tf32")
+        bf16 = dtype == torch.bfloat16
+        want_route = ("wgmma" if bf16 else "tf32") if D <= 128 else (
+            "wgmma_d256" if bf16 else "d256")
         tag = "" if want_route == "d256" else f"_{want_route}"
+        names = {f"flash_bwd_dkdv{tag}_kernel", f"flash_bwd_dq{tag}_kernel"}
+        strict = want_route == "wgmma_d256"
+        for _ in range(3 if strict else 1):
+            a_call = {}
+            for n, (count, _) in device_kernels(call, 3)[0].items():
+                if re.search(sym, n):
+                    key = re.search(sym, n).group(0)
+                    a_call[key] = a_call.get(key, 0) + count / 3
+            once = all(a_call.get(n) == 1 for n in names)
+            if once:
+                break
+        seen = sorted(a_call)
         check(route == want_route
               and launched == flash_ops.bwd_launches(q, k, v, o, do)
-              and (not seen or {f"flash_bwd_dkdv{tag}_kernel",
-                                f"flash_bwd_dq{tag}_kernel"} <= set(seen)),
+              and (once if strict else not seen or names <= set(seen)),
               f"flash_attention_bwd {extra.get('shape_tag')}: route "
-              f"{route}, {launched} launches, kernels {seen}")
+              f"{route}, {launched} launches, kernels a call {a_call}")
         # cold device µs a call by kernel (the L2 flushed before each of
         # 10 calls; each kernel launches once a call, so its mean over the
         # launches the profiler kept): the row pass, dK/dV, the sum, dQ
@@ -5127,6 +5178,12 @@ def bwd_rows(dev, bwd_in) -> list:
         flat = lambda ts: torch.cat([t.flatten() for t in ts])
         atol = torch.cat([torch.full((t.numel(),), BWD_TOL[dtype] * float(
             t.float().abs().max()), device=dev) for t in want])
+        if strict:
+            # a whole call timed cold (CUDA events), beside the d256
+            # route's kernels on the same input timed alike
+            extra["cold_call_ms"] = cuda_ms(call, iters, flush)
+            extra["d256_kernels"] = d256_record(args, window, flat(want),
+                                                atol, flush, iters)
         # the library: SDPA's backward, the time of one forward and
         # backward less that of the forward alone (CUDA events, L2
         # flushed), and the device kernels the backward ran, by name
@@ -5174,8 +5231,43 @@ def bwd_rows(dev, bwd_in) -> list:
             library_kernels=lib_bwd[:3], bwd_route=route,
             bwd_launches_a_call=launched,
             bwd_kernels=seen or "not recorded (profiler)",
+            bwd_kernel_launches_a_call=a_call or "not recorded (profiler)",
             kernel_us_cold=split or "not recorded (profiler)", **extra)
         return rows[-1]
+
+    def d256_record(args, window, want, atol, flush, iters) -> dict:
+        """The d256 route's mma.sync kernels, which bf16 at D 256 took
+        before the wgmma_d256 route, on the same input: held against the
+        plain version at the row's limits, two calls bit for bit, each
+        kernel's cold device µs a call and their sum (``ms``), and a
+        whole call timed cold (``cold_call_ms``)."""
+        q, k, v, o, lse, do = args
+        B, S, H, D = q.shape
+
+        def d256_call():
+            dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+            part = (torch.empty((2, B, S, H, D), dtype=torch.float32,
+                                device=dev) if k.shape[2] != H else None)
+            flash_ops._bwd_rows(q, k, v, o, lse, do, dq, dk, dv, part, True,
+                                window, "d256")
+            return torch.cat([t.flatten() for t in (dq, dk, dv)])
+        got, again = d256_call(), d256_call()
+        err = max_abs_err(got, want)
+        check(bool(((got.float() - want.float()).abs() <= atol).all())
+              and torch.equal(got, again),
+              f"flash_attention_bwd d256 kernels on the wgmma_d256 row: "
+              f"max abs err {err}")
+        sym = KERNEL_SYMBOLS["flash_attention_bwd"]
+        split = {}
+        for n, (count, us) in device_kernels(
+                lambda: (flush(), d256_call()), 10)[0].items():
+            if re.search(sym, n):
+                key = re.search(sym, n).group(0)
+                split[key] = split.get(key, 0.0) + us / count
+        return dict(route="d256", max_abs_err=err, bitwise_repeat=True,
+                    kernel_us_cold=split or "not recorded (profiler)",
+                    ms=sum(split.values()) / 1e3 if split else None,
+                    cold_call_ms=cuda_ms(d256_call, iters, flush))
 
     others = []
     for tag, (shape, dtype, window) in BWD_ROWS.items():

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """A quick card check of flash attention's backward kernels
-(``csrc/flash_attn_bwd.cu``) beside the forward's log-sum-exp:
+(``csrc/flash_attn_bwd.cu``, ``csrc/flash_attn_bwd_d256.cu`` and
+``csrc/flash_attn_bwd_tf32.cu``) beside the forward's log-sum-exp:
 
     PYTHONPATH=src python3 scripts/flash_bwd_check.py
 
@@ -9,7 +10,9 @@ spills from the build's ``-Xptxas -v`` and any ptxas note (C7510-C7515)
 that serialises a kernel's wgmma, then for a few shapes (bf16 and
 float32, D 30-128, causal, full and windows, H over H_kv 1-16, S at and
 around the 128-row blocks of the wgmma route, ragged S, unaligned
-views, float32 at the training gate's 1 x 4096 x 20 x 128) holds
+views, float32 at the training gate's 1 x 4096 x 20 x 128; bf16 at D
+136, 192 and 256 on the wgmma_d256 route, RecurrentGemma-2B's 1 x 4096 x
+10 heads over 1 with the window of 2048 among them) holds
 ``flash_attention_bwd`` against
 ``flash_attention_bwd_ref`` on the card (each gradient's largest error
 over the larger of its own and dV's largest magnitude, below 2^-6 in
@@ -21,10 +24,11 @@ Qwen1.5-4B's layer at batch 1 x 4096 (20 heads of 128, bf16, causal)
 and bwd-f's 1 x 1024 in float32: the backward's mean ms a call over 10
 warm calls (CUDA events) beside one PyTorch
 ``scaled_dot_product_attention`` forward and backward; and
-at chip_smoke.py's backward rows (bwd-b, bwd-g, bwd-w, bwd-m, bwd-f)
-each kernel's mean device µs a call, the L2 cache flushed before each
-of 10 calls (torch.profiler).  One JSON line a shape, then ``OK`` or
-``FAIL``.
+at chip_smoke.py's backward rows (bwd-b, bwd-g, bwd-w, bwd-m, bwd-f,
+bwd-r) each kernel's mean device µs a call, the L2 cache flushed before
+each of 10 calls (torch.profiler), and bwd-r again on the d256 route's
+mma.sync kernels (``bwd-r (d256)``), which bf16 took before the
+wgmma_d256 route.  One JSON line a shape, then ``OK`` or ``FAIL``.
 """
 from __future__ import annotations
 
@@ -37,7 +41,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.kernels import _build, flash_attention_bwd
-from repro_torch.kernels.flash_attn.ops import _forward, bwd_route
+from repro_torch.kernels.flash_attn.ops import (_bwd_rows, _forward,
+                                               bwd_route)
 from repro_torch.kernels.flash_attn.ref import (flash_attention_bwd_ref,
                                                 flash_attention_ref)
 
@@ -63,7 +68,12 @@ CASES = [((1, 128, 4, 4, 128), torch.bfloat16, True, 0, 0),
          ((1, 300, 4, 4, 128), torch.float32, True, 70, 1),
          ((2, 129, 4, 4, 30), torch.float32, False, 0, 0),
          ((1, 1024, 32, 2, 128), torch.float32, True, 0, 0),
-         ((1, 4096, 20, 20, 128), torch.float32, True, 0, 0)]
+         ((1, 4096, 20, 20, 128), torch.float32, True, 0, 0),
+         ((1, 97, 3, 1, 136), torch.bfloat16, True, 16, 0),
+         ((1, 300, 4, 2, 192), torch.bfloat16, True, 0, 0),
+         ((2, 200, 4, 4, 256), torch.bfloat16, False, 0, 0),
+         ((1, 129, 10, 1, 256), torch.bfloat16, True, 64, 0),
+         ((1, 4096, 10, 1, 256), torch.bfloat16, True, 2048, 0)]
 LIMIT = {torch.bfloat16: 2.0 ** -6, torch.float32: 1e-5}
 # float32 at S >= 1024 is held at the card tests' and chip_smoke.py's
 # float32 limit: each dK and dV there sums S / 8 k steps of the tensor
@@ -74,7 +84,8 @@ ROWS = {"bwd-b": ((1, 4096, 20, 20, 128), torch.bfloat16, 0),
         "bwd-g": ((1, 4096, 32, 2, 128), torch.bfloat16, 0),
         "bwd-w": ((1, 4096, 32, 16, 128), torch.bfloat16, 1024),
         "bwd-m": ((1, 4096, 32, 32, 64), torch.bfloat16, 0),
-        "bwd-f": ((1, 1024, 20, 20, 128), torch.float32, 0)}
+        "bwd-f": ((1, 1024, 20, 20, 128), torch.float32, 0),
+        "bwd-r": ((1, 4096, 10, 1, 256), torch.bfloat16, 2048)}
 FLUSH_BYTES = 256 << 20           # five times the H100's 50 MB L2
 
 
@@ -131,24 +142,40 @@ def kernel_split(dev) -> dict:
         k, v = (torch.randn(B, S, Hkv, D, generator=gen, device=dev).to(dt)
                 for _ in range(2))
         o, lse = _forward(q, k, v, True, window, True)
-        call = lambda: flash_attention_bwd(q, k, v, o, lse, do,
-                                           window=window)
-        call()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
-                flush()
-                call()
+        calls = {name: lambda: flash_attention_bwd(q, k, v, o, lse, do,
+                                                   window=window)}
+        if name == "bwd-r":
+            calls["bwd-r (d256)"] = lambda: d256_call(q, k, v, o, lse, do,
+                                                      window)
+        for tag, call in calls.items():
+            call()
             torch.cuda.synchronize()
-        # each kernel launches once a call: its mean over the launches the
-        # profiler kept
-        out[name] = {
-            re.search(r"flash_bwd_\w+", e.key).group(0):
-                getattr(e, "self_device_time_total",
-                        getattr(e, "self_cuda_time_total", 0.0)) / e.count
-            for e in prof.key_averages() if "flash_bwd" in e.key}
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    flush()
+                    call()
+                torch.cuda.synchronize()
+            # each kernel launches once a call: its mean over the launches
+            # the profiler kept
+            out[tag] = {
+                re.search(r"flash_bwd_\w+", e.key).group(0):
+                    getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0.0))
+                    / e.count
+                for e in prof.key_averages() if "flash_bwd" in e.key}
         del q, k, v, do, o, lse
     return out
+
+
+def d256_call(q, k, v, o, lse, do, window):
+    """flash_attention_bwd's launches on the d256 route's mma.sync
+    kernels, whatever bwd_route says."""
+    B, S, H, D = q.shape
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    part = (torch.empty((2, B, S, H, D), dtype=torch.float32,
+                        device=q.device) if k.shape[2] != H else None)
+    _bwd_rows(q, k, v, o, lse, do, dq, dk, dv, part, True, window, "d256")
+    return dq, dk, dv
 
 
 def main() -> int:

@@ -4,9 +4,10 @@
 on both routes (``bwd_route``: the chunked ``wkv6_bwd_state_kernel``,
 past 3 chunks ``wkv6_bwd_scan_kernel``, and ``wkv6_bwd_chunk_kernel`` of
 ``csrc/wkv6_bwd_chunked.cu`` at D 64 and S >= 64, else the walk
-``wkv6_bwd_kernel`` of ``csrc/wkv6_bwd.cu``) and flash attention's d256 route
-(``flash_bwd_dkdv_kernel`` and ``flash_bwd_dq_kernel`` at D 256,
-``csrc/flash_attn_bwd.cu``):
+``wkv6_bwd_kernel`` of ``csrc/wkv6_bwd.cu``) and flash attention's backward
+at D 256 (bf16 on the wgmma_d256 route, ``csrc/flash_attn_bwd_d256.cu``;
+float32 on the d256 route, ``flash_bwd_dkdv_kernel`` and
+``flash_bwd_dq_kernel`` at D 256 of ``csrc/flash_attn_bwd.cu``):
 
     PYTHONPATH=src python3 scripts/recurrent_bwd_check.py
 
@@ -240,7 +241,7 @@ def main() -> int:
         want = flash_attention_bwd_ref(q, k, v, o, lse, do, window=win)
         errs = [rel(g, w) for g, w in zip(got, want)]
         route = flash_ops.bwd_route(q, k, v, o, do)
-        assert route == "d256"
+        assert route == ("wgmma_d256" if dt == torch.bfloat16 else "d256")
         assert launched == flash_ops.bwd_launches(q, k, v, o, do)
         assert all(torch.equal(g, a) for g, a in zip(got, again))
         assert max(errs) <= FLASH_TOL[dt], errs

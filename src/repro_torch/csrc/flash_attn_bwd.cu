@@ -1,16 +1,20 @@
 // Backward of fused softmax attention (flash attention) for Hopper
 // (sm_90a): dQ, dK and dV from Q, K, V, the output O, its cotangent dO and
-// the forward's per-row log-sum-exp.  Four routes, chosen by the wrapper
+// the forward's per-row log-sum-exp.  Five routes, chosen by the wrapper
 // (flash_attn/ops.py::bwd_route) by dtype, head size and layout alone:
 //   wgmma  bfloat16 with D % 8 == 0 (D <= 128), contiguous, 16-byte
 //          aligned bases (every LM path): warp-specialised kernels on
 //          bf16 wgmma fed by TMA, below;
+//   wgmma_d256  the same at 128 < D <= 256 (RecurrentGemma's local
+//          attention): flash_attn_bwd_d256.cu's dK/dV and dQ kernels,
+//          with this file's row pass (flash_bwd_prep_kernel) and sum
+//          pass;
 //   mma    the rest of bfloat16 at D <= 128 (D % 8 != 0 or unaligned
 //          rows, which TMA cannot read): mma.sync m16n8k16 kernels;
-//   d256   128 < D <= 256 (RecurrentGemma's local attention), both
-//          dtypes: the mma route's kernels at D 256, bfloat16 on
-//          m16n8k16 with 64-row tiles, float32 on 3xTF32 m16n8k8 with
-//          32-row tiles;
+//   d256   the rest of 128 < D <= 256, float32 and bfloat16 off the
+//          wgmma_d256 conditions: the mma route's kernels at D 256,
+//          bfloat16 on m16n8k16 with 64-row tiles, float32 on 3xTF32
+//          m16n8k8 with 32-row tiles;
 //   tf32   float32 at D <= 128: flash_attn_bwd_tf32.cu's 3xTF32 wgmma
 //          kernels, with this file's row pass (flash_bwd_delta_kernel)
 //          and sum pass (flash_bwd_reduce_kernel) in float32.
@@ -34,7 +38,7 @@
 // the mask keeps: a causal backward at S = 4096, 20 heads of 128 is 214.8
 // GFLOP, 217 us at the bf16 tensor-core rate, against 168 MB (50 us).
 //
-// The wgmma route (four kernels, the last at H_kv < H only):
+// The wgmma route (four kernels, the sum pass at H_kv < H only):
 //   flash_bwd_prep_kernel  lse log2(e) and delta = rowsum(dO o O) of each
 //                          row, float32, (B, H, S_pad) with S_pad a
 //                          multiple of 128 and zeros past S, so that TMA
@@ -1342,16 +1346,6 @@ __global__ void __launch_bounds__(BWD_THREADS)
 
 namespace {
 
-// the four tensor maps of a wgmma launch: q, k, v, dout
-bool wb_maps(CUtensorMap (&maps)[4], const void* q, const void* k,
-             const void* v, const void* dout, int B, int S, int H, int Hkv,
-             int D) {
-  return sm90::bf16_tile_map(&maps[0], q, B, S, H, D) &&
-         sm90::bf16_tile_map(&maps[1], k, B, S, Hkv, D) &&
-         sm90::bf16_tile_map(&maps[2], v, B, S, Hkv, D) &&
-         sm90::bf16_tile_map(&maps[3], dout, B, S, H, D);
-}
-
 // the wgmma route's inputs: D % 8 == 0 (16-byte rows for TMA), D <= 128,
 // 16-byte aligned bases
 bool wb_takes(int D, const void* a, const void* b, const void* c,
@@ -1398,12 +1392,14 @@ int launch_dq_wgmma(const CUtensorMap (&maps)[4], const float* lse2,
 }  // namespace
 
 // lse2, delta (B, H, S_pad) float32 from o, dout (B, S, H, D) bf16 and lse
-// (B, H, S) float32; S_pad a multiple of 128 >= S
+// (B, H, S) float32; S_pad a multiple of 128 >= S; D <= 256 (the row pass
+// of both wgmma routes)
 extern "C" int repro_flash_bwd_prep(const void* o, const void* dout,
                                     const void* lse, void* lse2, void* delta,
                                     int32_t B, int32_t S, int32_t S_pad,
                                     int32_t H, int32_t D, void* stream) {
-  if (!wb_takes(D, o, dout, o, dout) || S_pad % WB_BLOCK || S_pad < S) {
+  if (D < 8 || D > 256 || D % 8 || !aligned16(o) || !aligned16(dout) ||
+      S_pad % WB_BLOCK || S_pad < S) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int64_t rows = static_cast<int64_t>(B) * H * S_pad;
@@ -1430,7 +1426,7 @@ extern "C" int repro_flash_bwd_dkdv_wgmma(
     return static_cast<int>(cudaErrorInvalidValue);
   }
   CUtensorMap maps[4] = {};
-  if (!wb_maps(maps, q, k, v, dout, B, S, H, Hkv, D)) {
+  if (!sm90::bwd_tile_maps(maps, q, k, v, dout, B, S, H, Hkv, D)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1498,7 +1494,7 @@ extern "C" int repro_flash_bwd_dq_wgmma(
     return static_cast<int>(cudaErrorInvalidValue);
   }
   CUtensorMap maps[4] = {};
-  if (!wb_maps(maps, q, k, v, dout, B, S, H, Hkv, D)) {
+  if (!sm90::bwd_tile_maps(maps, q, k, v, dout, B, S, H, Hkv, D)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
 // (mac_gemm.cu through imma.cuh, flash_attn.cu, flash_attn_bwd.cu,
-// flash_attn_bwd_tf32.cu and tf32.cuh): 16-byte cp.async with zero fill,
-// the 128-byte swizzled shared-memory layout that wgmma reads, its matrix
-// descriptor, wgmma's fence / commit / wait and the bf16 m64n64k16
-// products, and for the warp-specialised kernels named barriers,
+// flash_attn_bwd_tf32.cu, flash_attn_bwd_d256.cu and tf32.cuh): 16-byte
+// cp.async with zero fill, the 128-byte swizzled shared-memory layout that
+// wgmma reads, its matrix descriptor, wgmma's fence / commit / wait and
+// the bf16 m64n64k16, m64n32k16 and m64n128k16 products, and for the
+// warp-specialised kernels named barriers,
 // mbarriers, TMA tile and bulk loads, the bf16 tile maps TMA reads and
 // setmaxnreg; opaque() hides a value from the compiler.  For the
 // attention kernels: the reference's keep mask and its edge-tile test,
@@ -152,6 +153,58 @@ __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32],
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d (64 x 32, f32) (+)= A (64 x 16 at descriptor da, K-major) * B (16 x
+// 32 at descriptor db, K-major: 32 rows of k), both from shared memory;
+// scale_d = 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_m64n32k16(float (&d)[16],
+                                                   uint64_t da, uint64_t db,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 128, f32) += A (64 x 16 at descriptor da, K-major) * B (16 x
+// 128 at descriptor db: K-major, or with TB MN-major, two 64-wide column
+// blocks lbo apart, read transposed), both from shared memory
+template <bool TB>
+__device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64],
+                                                    uint64_t da,
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(TB ? 1 : 0));
+}
+
 // 2^x in one MUFU.EX2 (relative error about 2^-22; 2^-inf = 0)
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;
@@ -293,6 +346,17 @@ inline bool bf16_tile_map(CUtensorMap* map, const void* t, int B, int S,
             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the four tile maps of a flash backward launch: q and dout (B, S, H, D),
+// k and v (B, S, Hkv, D), all bf16
+inline bool bwd_tile_maps(CUtensorMap (&maps)[4], const void* q,
+                          const void* k, const void* v, const void* dout,
+                          int B, int S, int H, int Hkv, int D) {
+  return bf16_tile_map(&maps[0], q, B, S, H, D) &&
+         bf16_tile_map(&maps[1], k, B, S, Hkv, D) &&
+         bf16_tile_map(&maps[2], v, B, S, Hkv, D) &&
+         bf16_tile_map(&maps[3], dout, B, S, H, D);
 }
 
 // the keep mask of the reference's model attention: query qi meets key kj

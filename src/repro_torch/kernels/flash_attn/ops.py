@@ -1,6 +1,7 @@
 """``flash_attention_kernel`` wrapper (CPU: plain version, CUDA:
 ``csrc/flash_attn.cu``), differentiable: ``flash_attention_bwd`` (CUDA:
-``csrc/flash_attn_bwd.cu``) is its backward.
+``csrc/flash_attn_bwd.cu``, ``csrc/flash_attn_bwd_d256.cu`` and
+``csrc/flash_attn_bwd_tf32.cu``) is its backward.
 
 Forward routes, by dtype and head size alone: bfloat16 at D <= 128
 ``flash_attn_wgmma_kernel`` (one warpgroup of 64 query rows a block, two
@@ -14,8 +15,10 @@ When q, k or v requires grad (under grad mode), the call goes through
 ``FlashAttention``, a ``torch.autograd.Function``: its forward also
 writes each row's log-sum-exp and saves (q, k, v, o, lse), its backward
 is ``flash_attention_bwd`` (kernels on CUDA tensors, routed by
-``bwd_route``: ``csrc/flash_attn_bwd.cu`` in bfloat16 and at 128 < D <=
-256, ``csrc/flash_attn_bwd_tf32.cu`` in float32 at D <= 128;
+``bwd_route``: ``csrc/flash_attn_bwd.cu`` in bfloat16, with
+``csrc/flash_attn_bwd_d256.cu``'s kernels for aligned bfloat16 at 128 < D
+<= 256, and in float32 at 128 < D <= 256; ``csrc/flash_attn_bwd_tf32.cu``
+in float32 at D <= 128;
 ``flash_attention_bwd_ref`` on CPU tensors), the
 reference model attention's recompute-from-lse backward.  Otherwise
 nothing is saved and no lse is written: serving runs the kernels as they
@@ -163,7 +166,7 @@ def bwd_route(q, k, v, o, do) -> str:
     block by fixed strides, so ``flash_attention_bwd`` refuses CUDA
     tensors that are not contiguous (``on_cpu`` raises ValueError); the
     layout that matters is the alignment of each base.  "tf32" for
-    float32 (``flash_bwd_dkdv_tf32_kernel`` and
+    float32 at D <= 128 (``flash_bwd_dkdv_tf32_kernel`` and
     ``flash_bwd_dq_tf32_kernel``, 3xTF32 ``wgmma``), whatever the
     alignment: they load their tiles with 16-byte loads where D % 4 == 0
     and every row is 16-byte aligned, element by element otherwise (every
@@ -173,43 +176,45 @@ def bwd_route(q, k, v, o, do) -> str:
     bfloat16 with D % 8 == 0 and D <= 128, every tensor contiguous and
     its base 16-byte aligned: TMA reads rows of D values, which must
     fill whole 16-byte chunks, from aligned bases; every bf16 LM path
-    takes it.  "mma" for the rest of bfloat16 (a head size that is not a
-    multiple of 8, a view off a 16-byte boundary): the ``mma.sync``
-    kernels ``flash_bwd_dkdv_kernel`` and ``flash_bwd_dq_kernel``.  Not
-    a fallback: a kernel of any route that fails to build or launch
-    raises.  "d256" for 128 < D <= 256 in both dtypes: the ``mma.sync``
-    kernels at D 256, ``flash_bwd_dkdv_kernel`` and
-    ``flash_bwd_dq_kernel`` (bfloat16 on tiles of 64 rows, float32 on
-    3xTF32 and tiles of 32 rows)."""
+    takes it.  "wgmma_d256" (``flash_bwd_dkdv_wgmma_d256_kernel`` and
+    ``flash_bwd_dq_wgmma_d256_kernel`` of ``csrc/flash_attn_bwd_d256.cu``:
+    TMA and ``wgmma`` with the head dimension split across two consumer
+    warpgroups) for bfloat16 at 128 < D <= 256 under the same conditions:
+    RecurrentGemma's local attention in every LM path.  "mma" for the
+    rest of bfloat16 at D <= 128 (a head size that is not a multiple of
+    8, a view off a 16-byte boundary): the ``mma.sync`` kernels
+    ``flash_bwd_dkdv_kernel`` and ``flash_bwd_dq_kernel``.  "d256" for
+    the rest of 128 < D <= 256 (float32, and bfloat16 off the
+    conditions): the same ``mma.sync`` kernels at D 256 (bfloat16 on
+    tiles of 64 rows, float32 on 3xTF32 and tiles of 32 rows).  Not a
+    fallback: a kernel of any route that fails to build or launch
+    raises."""
     D = q.shape[3]
-    if D > _MMA_HEAD_DIM:
-        return "d256"
     if q.dtype == torch.float32:
-        return "tf32"
-    if D % 8:
-        return "mma"
-    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
-               for t in (q, k, v, o, do)):
-        return "mma"
-    return "wgmma"
+        return "tf32" if D <= _MMA_HEAD_DIM else "d256"
+    tma = D % 8 == 0 and all(t.is_contiguous() and t.data_ptr() % 16 == 0
+                             for t in (q, k, v, o, do))
+    if D > _MMA_HEAD_DIM:
+        return "wgmma_d256" if tma else "d256"
+    return "wgmma" if tma else "mma"
 
 
 def bwd_launches(q, k, v, o, do) -> int:
     """Kernels one ``flash_attention_bwd`` call launches on the card: the
-    row pass (delta, or on the wgmma route lse and delta), dK and dV, dQ,
-    and with H_kv < H on the wgmma, tf32 and d256 routes the pass that
+    row pass (delta, or on the two wgmma routes lse and delta), dK and
+    dV, dQ, and with H_kv < H on every route but "mma" the pass that
     sums the query heads' partial dK and dV (``_split_group``)."""
     return 3 + int(_split_group(q, k, bwd_route(q, k, v, o, do)))
 
 
 def _split_group(q, k, route) -> bool:
     """dK and dV a query head at a time, summed after: at H_kv < H on the
-    wgmma route (the group across blocks), the tf32 route (the tensor
-    cores' float32 accumulation truncates; one accumulator over a group's
-    G S / 8 k steps passes float32's limit at G 8) and the d256 route
-    (both: RecurrentGemma's 10 query heads over 1 fill the card, and
-    float32 runs on TF32 there too)."""
-    return q.shape[2] != k.shape[2] and route in ("wgmma", "tf32", "d256")
+    two wgmma routes (the group across blocks), the tf32 route (the
+    tensor cores' float32 accumulation truncates; one accumulator over a
+    group's G S / 8 k steps passes float32's limit at G 8) and the d256
+    route (both: RecurrentGemma's 10 query heads over 1 fill the card,
+    and float32 runs on TF32 there too)."""
+    return q.shape[2] != k.shape[2] and route != "mma"
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0):
@@ -217,10 +222,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0):
     k, v (B, S, H_kv, D), lse (B, H, S) float32 (the forward's) -> dq, dk,
     dv in the inputs' dtype, float32 inside.  CPU tensors: the plain
     version ``flash_attention_bwd_ref``; CUDA tensors: the kernels of
-    ``csrc/flash_attn_bwd.cu`` and ``csrc/flash_attn_bwd_tf32.cu`` on
-    ``bwd_route``'s route, each launch counted in ``launches``
-    (``bwd_launches`` a call); CUDA tensors that are not contiguous
-    raise ValueError (the kernels read fixed strides).
+    ``csrc/flash_attn_bwd.cu``, ``csrc/flash_attn_bwd_d256.cu`` and
+    ``csrc/flash_attn_bwd_tf32.cu`` on ``bwd_route``'s route, each launch
+    counted in ``launches`` (``bwd_launches`` a call); CUDA tensors that
+    are not contiguous raise ValueError (the kernels read fixed strides).
 
     "wgmma": ``flash_bwd_prep_kernel`` (each row's lse log2(e) and delta
     = rowsum(dO o O), padded to 128 rows), ``flash_bwd_dkdv_wgmma_kernel``
@@ -229,7 +234,15 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0):
     H_kv < H ``flash_bwd_reduce_kernel`` (each query head's float32
     partial dK and dV summed in head order, rounded once: the same bits
     every call), then ``flash_bwd_dq_wgmma_kernel`` (a block per (batch,
-    head, 128 query rows), the kv tiles streamed).  "d256": delta,
+    head, 128 query rows), the kv tiles streamed).  "wgmma_d256": the
+    same four passes with ``flash_bwd_dkdv_wgmma_d256_kernel`` (a block
+    per (batch, query head, 64 kv rows), two consumer warpgroups: each
+    computes S^T and dP^T for 32 of a query tile's 64 queries over the
+    full D and stages its half of P^T and dS^T in bf16 in shared memory,
+    then accumulates dV and dK for 128 of the 256 columns over all 64
+    queries) and ``flash_bwd_dq_wgmma_d256_kernel`` (a block per (batch,
+    head, 64 query rows), S and dP split by keys, dQ by columns).
+    "d256": delta,
     ``flash_bwd_dkdv_kernel`` (a block per (batch, query head, kv tile)
     at H_kv < H, each head's float32 partials summed by
     ``flash_bwd_reduce_kernel``; a block per (batch, KV head, kv tile) at
@@ -275,8 +288,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0):
     part = (torch.empty((2, B, S, H, D), dtype=torch.float32,
                         device=q.device)
             if _split_group(q, k, route) else None)
-    if route == "wgmma":
-        _bwd_wgmma(q, k, v, o, lse, do, dq, dk, dv, part, causal, window)
+    if route in ("wgmma", "wgmma_d256"):
+        _bwd_wgmma(q, k, v, o, lse, do, dq, dk, dv, part, causal, window,
+                   route)
     else:
         _bwd_rows(q, k, v, o, lse, do, dq, dk, dv, part, causal, window,
                   route)
@@ -332,9 +346,10 @@ def _reduce(part, dk, dv, bf16, stream):
     flash_attention_bwd.launches += 1
 
 
-def _bwd_wgmma(q, k, v, o, lse, do, dq, dk, dv, part, causal, window):
-    """The wgmma route's launches into dq, dk and dv (see
-    ``flash_attention_bwd``)."""
+def _bwd_wgmma(q, k, v, o, lse, do, dq, dk, dv, part, causal, window,
+               route):
+    """The launches of the "wgmma" or "wgmma_d256" route into dq, dk and
+    dv (see ``flash_attention_bwd``)."""
     B, S, H, D = q.shape
     Hkv = k.shape[2]
     S_pad = -(-S // _WB_BLOCK) * _WB_BLOCK
@@ -351,13 +366,13 @@ def _bwd_wgmma(q, k, v, o, lse, do, dq, dk, dv, part, causal, window):
            lse2.data_ptr(), delta.data_ptr())
     common = (B, S, S_pad, H, Hkv, D, 1.0 / math.sqrt(D), int(causal),
               window, stream)
-    rc = _build.launcher("repro_flash_bwd_dkdv_wgmma", _WB_ARGS(9))(
+    rc = _build.launcher(f"repro_flash_bwd_dkdv_{route}", _WB_ARGS(9))(
         *ins, dk.data_ptr(), dv.data_ptr(),
         part.data_ptr() if part is not None else None, *common)
     _build.check(rc, "flash_attention_bwd (dk, dv)")
     flash_attention_bwd.launches += 1
     _reduce(part, dk, dv, 1, stream)
-    rc = _build.launcher("repro_flash_bwd_dq_wgmma", _WB_ARGS(7))(
+    rc = _build.launcher(f"repro_flash_bwd_dq_{route}", _WB_ARGS(7))(
         *ins, dq.data_ptr(), *common)
     _build.check(rc, "flash_attention_bwd (dq)")
     flash_attention_bwd.launches += 1

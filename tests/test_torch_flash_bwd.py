@@ -426,6 +426,99 @@ def test_d256_route_matches_reference_vjp(dtype):
     assert max(errs) <= limit, errs
 
 
+# ------------------------------------ the card's wgmma_d256 route, on the CPU
+
+def _bwd_wgmma_d256_arithmetic(q, k, v, o, lse, do, window):
+    """The wgmma_d256 route's arithmetic written out in torch on bf16 (B,
+    S, h, D) tensors, D zero-filled to 256 as TMA reads it: S^T = K Q^T
+    and dP^T = V dO^T over the full D (products of bf16 values, exact in
+    float32, float32 sums), P^T = 2^(S^T scale log2(e) - lse log2(e))
+    under the mask and dS^T = P^T (dP^T - delta) scale, each rounded to
+    bf16 once before its products; dV += P^T dO, dK += dS^T Q and dQ +=
+    dS K accumulated apart for the two halves of D (128 columns each, one
+    consumer warpgroup's), in float32 over the kv or query tiles of 64;
+    each query head's dK and dV a float32 partial, summed over a KV head's
+    G query heads in head order and rounded to bf16 once; only D columns
+    kept."""
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    log2e = 1.4426950408889634
+    scale = 1.0 / np.sqrt(D)
+    pad = lambda t: torch.nn.functional.pad(t.float(), (0, 256 - D))
+    heads = lambda t: pad(t).transpose(1, 2)               # (B, h, S, 256)
+    qf, kf, vf, of, dof = (heads(t) for t in (q, k, v, o, do))
+    delta = (dof * of).sum(-1)
+    lse2 = lse.float() * log2e
+    keep = torch.ones(S, S, dtype=torch.bool).tril()
+    if window:
+        keep &= ~torch.ones(S, S, dtype=torch.bool).tril(-window)
+    rnd = lambda t: t.bfloat16().float()
+    tiles = [slice(t, min(t + 64, S)) for t in range(0, S, 64)]
+
+    def acc(a, b):
+        """a @ b, a (.., M, S) and b (.., S, 256): each half of b's columns
+        on its own, summed over tiles of 64 rows of b in order."""
+        out = torch.zeros(*a.shape[:-1], 256)
+        for half in (slice(0, 128), slice(128, 256)):
+            for t in tiles:
+                out[..., half] += a[..., t] @ b[..., t, half]
+        return out
+
+    dq = torch.empty_like(qf)
+    part_k = torch.empty(B, H, S, 256)
+    part_v = torch.empty(B, H, S, 256)
+    for h in range(H):
+        kh, vh = kf[:, h // G], vf[:, h // G]
+        st = kh @ qf[:, h].transpose(-1, -2)           # (B, S keys, S q)
+        pt = torch.where(keep.T, torch.exp2(st * (scale * log2e)
+                                            - lse2[:, h, None, :]), 0.0)
+        dpt = vh @ dof[:, h].transpose(-1, -2)
+        dst = pt * (dpt - delta[:, h, None, :]) * scale
+        part_v[:, h] = acc(rnd(pt), dof[:, h])
+        part_k[:, h] = acc(rnd(dst), qf[:, h])
+        dq[:, h] = acc(rnd(dst).transpose(-1, -2), kh)
+    dk = torch.zeros(B, Hkv, S, 256)
+    dv = torch.zeros(B, Hkv, S, 256)
+    for h in range(H):                     # head order, a KV head's group
+        dk[:, h // G] += part_k[:, h]
+        dv[:, h // G] += part_v[:, h]
+    back = lambda t: t[..., :D].transpose(1, 2).bfloat16()
+    return back(dq), back(dk), back(dv)
+
+
+# (B, S, KH, G, D, window): RecurrentGemma's local attention (rg_d256),
+# and D 192 (TMA's zero fill past D in the last column block) at a ragged
+# S (the reference then takes S as its one block)
+WGMMA_D256_CASES = {"rg_d256": CASES["rg_d256"],
+                    "d192_ragged": (1, 37, 2, 2, 192, 20)}
+
+
+@pytest.mark.parametrize("case", sorted(WGMMA_D256_CASES))
+def test_wgmma_d256_route_matches_reference_vjp(case):
+    """The wgmma_d256 route's arithmetic on bf16 inputs against jax.vjp of
+    the reference's _flash_attention (float32 on the same bf16 values) at
+    the card's bf16 limit: 2^-6 of the larger of each gradient's and dV's
+    largest magnitude."""
+    B, S, KH, G, D, window = WGMMA_D256_CASES[case]
+    bf = lambda x: np.asarray(torch.from_numpy(x).bfloat16().float())
+    q, k, v, do = (bf(x) for x in _inputs(B, S, KH, G, D, 9))
+    pos = jnp.arange(S)
+    chunk = CHUNK if S % CHUNK == 0 else S     # the reference's blocks
+    fn = lambda q, k, v: JL._flash_attention((window, chunk, chunk), q, k,
+                                             v, pos, pos)
+    _, vjp = jax.vjp(fn, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = [np.asarray(w).reshape(B, S, -1, D) for w in vjp(jnp.asarray(do))]
+    tq, tk, tv, tdo = (_port(x).bfloat16() for x in (q, k, v, do))
+    o, lse = _port_forward(tq.float(), tk.float(), tv.float(), window)
+    got = _bwd_wgmma_d256_arithmetic(tq, tk, tv, o.bfloat16(), lse, tdo,
+                                     window)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+    errs = _tf32_errors([g.float() for g in got], want)
+    assert max(errs) <= BF16_TOL, errs
+
+
 def _view(shape, dtype, offset=0, transpose=False):
     """A CPU tensor of ``shape`` whose data starts ``offset`` elements
     into its storage (``transpose``: a (B, H, S, D) buffer viewed as (B,
@@ -453,8 +546,10 @@ ROUTE_CASES = [(torch.bfloat16, 128, 0, False, "wgmma"),
                (torch.float32, 30, 0, False, "tf32"),
                (torch.float32, 128, 1, False, "tf32"),
                (torch.float32, 128, 0, True, "tf32"),
-               (torch.bfloat16, 256, 0, False, "d256"),
+               (torch.bfloat16, 256, 0, False, "wgmma_d256"),
+               (torch.bfloat16, 136, 0, False, "wgmma_d256"),
                (torch.bfloat16, 160, 4, False, "d256"),
+               (torch.bfloat16, 132, 0, False, "d256"),
                (torch.bfloat16, 200, 0, True, "d256"),
                (torch.float32, 256, 0, False, "d256"),
                (torch.float32, 136, 1, False, "d256")]
@@ -463,11 +558,12 @@ ROUTE_CASES = [(torch.bfloat16, 128, 0, False, "wgmma"),
 @pytest.mark.parametrize("dtype,D,offset,transpose,route", ROUTE_CASES)
 def test_bwd_route_rule(dtype, D, offset, transpose, route):
     """bwd_route is a function of dtype, D, strides and alignment alone:
-    D above 128 takes the d256 kernels in both dtypes; at D <= 128
-    float32 takes the tf32 kernels whatever its alignment, bf16 with D %
-    8 == 0 and every tensor contiguous on a 16-byte aligned base the
-    wgmma kernels, the rest of bf16 the mma.sync ones; a call launches 4
-    kernels on the wgmma, tf32 and d256 routes with H_kv < H, else 3.
+    bf16 with D % 8 == 0 and every tensor contiguous on a 16-byte aligned
+    base takes the wgmma kernels, at D above 128 the wgmma_d256 ones; the
+    rest of bf16 the mma.sync ones, at D above 128 those of the d256
+    route; float32 the tf32 kernels whatever its alignment, at D above
+    128 the d256 ones; a call launches 4 kernels on every route but mma
+    with H_kv < H, else 3.
     (On the card ``flash_attention_bwd`` refuses the transposed views:
     the kernels read fixed strides.)"""
     from repro_torch.kernels.flash_attn.ops import bwd_launches, bwd_route
@@ -476,7 +572,7 @@ def test_bwd_route_rule(dtype, D, offset, transpose, route):
     k, v = (_view((B, S, Hkv, D), dtype) for _ in range(2))
     o, do = (_view((B, S, H, D), dtype) for _ in range(2))
     assert bwd_route(q, k, v, o, do) == route
-    # the sum pass: the wgmma, tf32 and d256 routes split the group
-    split = route in ("wgmma", "tf32", "d256")
+    # the sum pass: every route but mma splits the group
+    split = route != "mma"
     assert bwd_launches(q, k, v, o, do) == (4 if split else 3)
     assert bwd_launches(q, q, q, o, do) == 3       # H_kv == H: no sum pass

@@ -1338,16 +1338,22 @@ BWD_ROUTES = [((1, 256, 20, 20, 128), torch.bfloat16, 0, "wgmma"),
               ((1, 256, 4, 4, 128), torch.float32, 0, "tf32"),
               ((1, 256, 8, 2, 64), torch.float32, 0, "tf32"),
               ((1, 256, 4, 2, 30), torch.float32, 0, "tf32"),
-              ((1, 256, 4, 2, 128), torch.float32, 1, "tf32")]
+              ((1, 256, 4, 2, 128), torch.float32, 1, "tf32"),
+              ((1, 256, 10, 1, 256), torch.bfloat16, 0, "wgmma_d256"),
+              ((1, 256, 4, 4, 192), torch.bfloat16, 0, "wgmma_d256"),
+              ((1, 256, 4, 2, 256), torch.bfloat16, 4, "d256"),
+              ((1, 256, 4, 2, 256), torch.float32, 0, "d256")]
 
 
 @pytest.mark.parametrize("shape,dtype,offset,route", BWD_ROUTES)
 def test_flash_attention_bwd_route(cuda, shape, dtype, offset, route):
     """Aligned bf16 LM shapes (D 64 and 128, contiguous) launch the wgmma
-    kernels, an unaligned bf16 view and a head size off the multiples of
-    8 the mma.sync ones, float32 (aligned or not, any D) the tf32 ones, as
-    bwd_route says, with the sum pass at H_kv < H on the wgmma and tf32
-    routes; the launch count is bwd_launches'."""
+    kernels, at D 192 and 256 the wgmma_d256 ones, an unaligned bf16 view
+    and a head size off the multiples of 8 the mma.sync ones (at D 256
+    the d256 route's), float32 the tf32 ones (aligned or not, any D up to
+    128; the d256 route's above), as bwd_route says, with the sum pass at
+    H_kv < H on every route but mma; the launch count is
+    bwd_launches'."""
     from repro_torch.kernels.flash_attn.ops import bwd_launches, bwd_route
     B, S, H, Hkv, D = shape
     gen = torch.Generator(device=cuda).manual_seed(S + H + D)
@@ -1361,9 +1367,9 @@ def test_flash_attention_bwd_route(cuda, shape, dtype, offset, route):
     assert bwd_route(q, k, v, o, do) == route
     call = lambda: flash_attention_bwd(q, k, v, o, lse, do)
     names = _bwd_kernel_names(call)
-    tag = "" if route == "mma" else f"_{route}"
+    tag = "" if route in ("mma", "d256") else f"_{route}"
     want = {f"flash_bwd_dkdv{tag}_kernel", f"flash_bwd_dq{tag}_kernel",
-            "flash_bwd_prep_kernel" if route == "wgmma"
+            "flash_bwd_prep_kernel" if route.startswith("wgmma")
             else "flash_bwd_delta_kernel"}
     if Hkv != H and route != "mma":
         want.add("flash_bwd_reduce_kernel")
@@ -1578,17 +1584,22 @@ def test_wkv6_backward_scans_agree(cuda, S):
         assert all(torch.equal(g, o) for g, o in zip(got, other))
 
 
+# 128 < D <= 256: (B, S, H, H_kv, D), window; S one tile, ragged, and
+# RecurrentGemma-2B's 1 x 4096 with its window of 2048
+D256_SHAPES = [((1, 300, 10, 1, 256), 64), ((2, 200, 4, 4, 256), 0),
+               ((1, 129, 4, 2, 160), 0), ((1, 97, 3, 1, 200), 16),
+               ((1, 64, 4, 2, 256), 0), ((1, 4096, 10, 1, 256), 2048)]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("shape,window", [((1, 300, 10, 1, 256), 64),
-                                          ((2, 200, 4, 4, 256), 0),
-                                          ((1, 129, 4, 2, 160), 0),
-                                          ((1, 97, 3, 1, 200), 16)])
+@pytest.mark.parametrize("shape,window", D256_SHAPES)
 def test_flash_backward_d256_kernels(cuda, shape, window, dtype):
-    """The d256 route (128 < D <= 256) against flash_attention_bwd_ref on
-    the card at the backward's card limits (bf16 2^-6, float32 2^-14 of
-    each gradient's largest magnitude), two calls bit for bit, and its
-    launches: 3 a call, 4 with the sum pass at H_kv < H; autograd
-    through flash_attention_kernel: the forward's lse and one backward."""
+    """128 < D <= 256: aligned bf16 on the wgmma_d256 route, float32 on
+    the d256 route, against flash_attention_bwd_ref on the card at the
+    backward's card limits (bf16 2^-6, float32 2^-14 of each gradient's
+    largest magnitude), two calls bit for bit, and the launches: 3 a
+    call, 4 with the sum pass at H_kv < H; autograd through
+    flash_attention_kernel: the forward's lse and one backward."""
     from repro_torch.kernels.flash_attn import ops as flash_ops
     B, S, H, Hkv, D = shape
     gen = torch.Generator(device=cuda).manual_seed(S + H + D)
@@ -1596,7 +1607,8 @@ def test_flash_backward_d256_kernels(cuda, shape, window, dtype):
                                 device=cuda).to(dtype)
     q, k, v, do = rnd(H), rnd(Hkv), rnd(Hkv), rnd(H)
     o, lse = flash_forward(q, k, v, True, window, True)
-    assert flash_ops.bwd_route(q, k, v, o, do) == "d256"
+    assert flash_ops.bwd_route(q, k, v, o, do) == (
+        "wgmma_d256" if dtype == torch.bfloat16 else "d256")
     before = flash_attention_bwd.launches
     got = flash_attention_bwd(q, k, v, o, lse, do, window=window)
     assert flash_attention_bwd.launches - before == \
@@ -1617,6 +1629,37 @@ def test_flash_backward_d256_kernels(cuda, shape, window, dtype):
     assert counts["flash_attention_kernel"] == 1
     assert counts["flash_attention_bwd"] == 3 + int(Hkv < H)
     assert all(torch.equal(t.grad, g) for t, g in zip(leaves, got))
+
+
+@pytest.mark.parametrize("shape,window", D256_SHAPES[:4])
+def test_flash_backward_d256_mma_kernels_in_bf16(cuda, shape, window):
+    """The d256 route's bf16 mma.sync kernels, which bf16 off the
+    wgmma_d256 conditions takes, run on aligned inputs (``_bwd_rows``)
+    against flash_attention_bwd_ref at 2^-6 of each gradient's largest
+    magnitude, two calls bit for bit, 3 launches a call, 4 at H_kv < H."""
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+    B, S, H, Hkv, D = shape
+    gen = torch.Generator(device=cuda).manual_seed(S + H + D + 1)
+    rnd = lambda h: torch.randn(B, S, h, D, generator=gen,
+                                device=cuda).to(torch.bfloat16)
+    q, k, v, do = rnd(H), rnd(Hkv), rnd(Hkv), rnd(H)
+    o, lse = flash_forward(q, k, v, True, window, True)
+
+    def call():
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        part = (torch.empty((2, B, S, H, D), dtype=torch.float32,
+                            device=cuda) if Hkv != H else None)
+        flash_ops._bwd_rows(q, k, v, o, lse, do, dq, dk, dv, part, True,
+                            window, "d256")
+        return dq, dk, dv
+    before = flash_attention_bwd.launches
+    got = call()
+    assert flash_attention_bwd.launches - before == 3 + int(Hkv < H)
+    again = call()
+    want = flash_attention_bwd_ref(q, k, v, o, lse, do, window=window)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        assert _rel(g, w) <= 2.0 ** -6
 
 
 @pytest.mark.parametrize("arch", ["qwen1.5-4b", "olmoe-1b-7b", "gemma3-27b",
